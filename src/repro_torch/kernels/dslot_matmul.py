@@ -1,0 +1,411 @@
+"""Digit-serial MSDF matmul: the CUDA kernel's wrapper and its plain version
+(port of ``repro.kernels.dslot_matmul``).
+
+    C = [relu](sum_d 2^(n-1-d) * (P_d @ W)),   P_d in {-1,0,1}^(M x K), MSDF
+
+The kernel input is the quantized activation block ``q`` itself; plane ``d``
+is derived from it on the fly (bit ``n_bits-1-d`` of ``|q|`` times
+``sign(q)``), never stored.  After each (plane ``d``, K chunk ``c``) step a
+ReLU tile checks whether the remaining work can still lift any of its
+outputs to zero,
+
+    R[d, c][n] = 2^(n-1-d) * S_c[n] + (2^(n-1-d) - 2^(n-npl)) * T[n],
+
+with ``S_c`` the |W| column sum over the K chunks not yet seen in this plane
+and ``T`` the one over all of K (``colsum_tables``).  A tile with
+``acc + R < 0`` everywhere is provably zero after ReLU: it stops and emits
+zeros.  ``planes_used`` counts the planes each tile entered.
+
+Two executions of that one definition live here:
+
+* ``csrc/dslot_matmul.cu`` — the CUDA C++ kernel for Hopper (one thread
+  block per output tile, the (d, c) loop inside the block, a block-wide vote
+  for the early exit).  ``dslot_matmul_cuda`` launches it for CUDA tensors.
+* ``_replay`` — the plain PyTorch version: the vectorized replay of the
+  reference's ``ops._jnp_path``.  It computes every plane and derives the
+  per-tile ``planes_used`` the kernel reports by replaying the bound check in
+  the kernel's (plane outer, K chunk inner) order.  ``dslot_matmul_cuda``
+  runs it for CPU tensors; ``dslot_matmul_plain`` runs it on any device, so
+  the kernel can be held against it on the card.
+
+``block_k`` is a semantic parameter: it places the termination check and
+defines ``S_c``.  ``select_block_k`` keeps the reference's choice (a 12 MiB
+working-set budget of TPU VMEM, K-chunks aligned to 128), so ``block_k=None``
+gives the reference's geometry and ``planes_used``; the kernel stages each
+logical chunk through shared memory in fixed sub-tiles whatever its size.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.device import full_f32
+
+from . import _build
+
+__all__ = ["DslotMatmulOut", "colsum_tables", "dslot_matmul_cuda",
+           "dslot_matmul_cuda_batched", "dslot_matmul_plain",
+           "q_storage_dtype", "select_block_k"]
+
+_CHUNK_BUDGET_BYTES = 12 * 1024 * 1024  # the reference's block_k policy
+_LANE = 128                             # the reference's K-chunk alignment
+
+_Q_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3,
+            torch.int32: 4}
+_W_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class DslotMatmulOut(NamedTuple):
+    out: torch.Tensor            # (M, N) f32 — [relu](A_D @ W)
+    planes_used: torch.Tensor    # (M/bm, N/bn) int32 — digit planes entered
+
+
+def q_storage_dtype(n_bits: int, signed: bool = False) -> torch.dtype:
+    """Narrowest integer dtype holding the quantized-activation range:
+    unsigned ``n_bits`` spans [0, 2^n - 1], signed ±(2^(n-1) - 1)."""
+    qmax = 2 ** (n_bits - 1) - 1 if signed else 2 ** n_bits - 1
+    if signed:
+        if qmax <= 127:
+            return torch.int8
+        if qmax <= 32767:
+            return torch.int16
+        return torch.int32
+    if qmax <= 255:
+        return torch.uint8
+    if qmax <= 65535:
+        return torch.uint16
+    return torch.int32
+
+
+def select_block_k(K: int, block_m: int, block_n: int, w_itemsize: int,
+                   act_itemsize: int = 1,
+                   budget: int = _CHUNK_BUDGET_BYTES) -> int:
+    """The reference's K-chunk choice: the largest chunk whose TPU working
+    set (q chunk, W chunk, accumulator + output tile, two colsum rows) fits
+    ``budget``; K itself when the whole reduction fits, else a multiple of
+    128.  Kept unchanged so ``block_k=None`` matches the reference's
+    termination checkpoints exactly."""
+    fixed = 2 * block_m * block_n * 4 + 2 * block_n * 4
+    per_k = block_m * act_itemsize + block_n * w_itemsize
+    avail = budget - fixed
+    if avail < per_k * _LANE:
+        raise ValueError(
+            f"block_m={block_m} x block_n={block_n} alone exceeds the chunk "
+            f"budget ({budget} B); shrink the output tile")
+    bk = avail // per_k
+    if bk >= K:
+        return K
+    return max(_LANE, (bk // _LANE) * _LANE)
+
+
+def colsum_tables(w: torch.Tensor, block_k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """|W| column-sum termination tables over the ``block_k``-chunked K axis
+    of padded ``w`` (Kp, N): ``(suffix_colsum (Kt, N), total_colsum (1, N))``.
+    """
+    Kp, N = w.shape
+    assert Kp % block_k == 0, (Kp, block_k)
+    absw = w.to(torch.float32).abs()
+    chunk_colsum = absw.reshape(Kp // block_k, block_k, N).sum(dim=1)
+    total_colsum = chunk_colsum.sum(dim=0, keepdim=True)
+    return total_colsum - torch.cumsum(chunk_colsum, dim=0), total_colsum
+
+
+def _pad_to(x: torch.Tensor, m: int, axis: int) -> torch.Tensor:
+    """Zero-pad ``axis`` up to the next multiple of ``m`` (any dtype)."""
+    r = (-x.shape[axis]) % m
+    if r == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] += r
+    out = x.new_zeros(shape)
+    out.narrow(axis, 0, x.shape[axis]).copy_(x)
+    return out
+
+
+# ------------------------------------------------------------ the replay
+
+def _replay(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
+            relu: bool, block_m: int, block_n: int, bk: int,
+            suffix: torch.Tensor, total: torch.Tensor, npl: torch.Tensor,
+            row_budget: torch.Tensor | None, tile_bound: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel: every plane computed, ``planes_used``
+    replayed (port of the reference's ``ops._jnp_path``).
+
+    q (M, Kp) integer, pre-padded; w (Kp, N); suffix (Kt, N) and total (N,)
+    the |W| column-sum tables; ``npl`` the runtime precision (i32 scalar
+    tensor); ``row_budget`` (M,) i32 or None (every row at ``npl``);
+    ``tile_bound`` (Nt,) i32 the weight-side plane bound; ``n_planes`` the
+    static plane depth D.  Digits of rows past their budget and columns of
+    tiles past their bound contribute nothing; check results at steps the
+    kernel never enters are removed by the final clamps to ``tile_bound``
+    and ``npl``, as in the reference.
+    """
+    M, K = q.shape
+    D = n_planes
+    N = w.shape[1]
+    Kt = K // bk
+    Mt, Nt = M // block_m, N // block_n
+    wf = w.to(torch.float32)
+    qi = q.to(torch.int32)
+    sign, mag = torch.sign(qi), qi.abs()
+    tail = torch.exp2(n_bits - npl.to(torch.float32))
+    budget = npl.expand(M) if row_budget is None else row_budget
+    bound_cols = tile_bound.to(torch.int32).repeat_interleave(block_n)
+    acc = torch.zeros((M, N), dtype=torch.float32, device=w.device)
+    dead = []
+    with full_f32():
+        for d in range(D):
+            scale = 2.0 ** (n_bits - 1 - d)
+            live = (budget > d).to(torch.float32)[:, None]
+            col_live = (bound_cols > d).to(torch.float32)[None, :]
+            for c in range(Kt):
+                ks = slice(c * bk, (c + 1) * bk)
+                bit = (mag[:, ks] >> (n_bits - 1 - d)) & 1
+                digit = (bit * sign[:, ks]).to(torch.float32) * live
+                acc = acc + scale * (digit @ wf[ks]) * col_live
+                rem = scale * suffix[c] + (scale - tail) * total
+                bound = acc + rem[None, :]
+                dead.append((bound.reshape(Mt, block_m, Nt, block_n) < 0.0)
+                            .all(dim=3).all(dim=1))
+    out = torch.clamp_min(acc, 0.0) if relu else acc
+    if relu:
+        dead_after = torch.stack(dead).to(torch.int32)       # (D*Kt, Mt, Nt)
+        ever = dead_after.any(dim=0)
+        first = torch.argmax(dead_after, dim=0)              # first True step
+        used = torch.where(ever, first // Kt + 1, D).to(torch.int32)
+    else:
+        used = torch.full((Mt, Nt), D, dtype=torch.int32, device=w.device)
+    used = torch.minimum(used, tile_bound.to(torch.int32)[None, :])
+    return out, torch.minimum(used, npl.to(torch.int32))
+
+
+# ------------------------------------------------------------ the kernel
+
+def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
+            relu: bool, block_m: int, block_n: int, bk: int,
+            suffix: torch.Tensor, total: torch.Tensor, npl: torch.Tensor,
+            row_budget: torch.Tensor | None, tile_bound: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/dslot_matmul.cu`` on the current stream (same
+    arguments and results as ``_replay``)."""
+    M, K = q.shape
+    N = w.shape[1]
+    dev = q.device
+    if q.dtype not in _Q_CODES:
+        raise TypeError(f"q dtype {q.dtype} not supported by the kernel")
+    if w.dtype not in _W_CODES:
+        raise TypeError(f"w dtype {w.dtype} not supported by the kernel")
+    if w.shape[0] != K or M % block_m or N % block_n or K % bk:
+        raise ValueError(f"shapes q{tuple(q.shape)} w{tuple(w.shape)} do not "
+                         f"tile by ({block_m}, {block_n}, {bk})")
+    ins = {"q": q, "w": w, "suffix": suffix, "total": total, "npl": npl,
+           "tile_bound": tile_bound, "row_budget": row_budget}
+    for name, t in ins.items():
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    q, w = q.contiguous(), w.contiguous()
+    suffix = suffix.to(torch.float32).contiguous()
+    total = total.to(torch.float32).contiguous()
+    npl = npl.to(torch.int32).reshape(1).contiguous()
+    tile_bound = tile_bound.to(torch.int32).contiguous()
+    if row_budget is not None:
+        row_budget = row_budget.to(torch.int32).contiguous()
+    if suffix.shape != (K // bk, N) or total.numel() != N \
+            or tile_bound.shape != (N // block_n,) \
+            or (row_budget is not None and row_budget.shape != (M,)):
+        raise ValueError("termination tables, plane bound or row budget do "
+                         "not match the tiled shapes")
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    used = torch.empty((M // block_m, N // block_n), dtype=torch.int32,
+                       device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dslot_matmul_launch(
+            q.data_ptr(), _Q_CODES[q.dtype], w.data_ptr(), _W_CODES[w.dtype],
+            suffix.data_ptr(), total.data_ptr(), npl.data_ptr(),
+            tile_bound.data_ptr(),
+            None if row_budget is None else row_budget.data_ptr(),
+            out.data_ptr(), used.data_ptr(), M, K, N, n_bits, n_planes,
+            block_m, block_n, bk, int(relu), stream)
+    if err != 0:
+        raise RuntimeError("dslot_matmul kernel launch failed: "
+                           + lib.dslot_error_string(err).decode())
+    dslot_matmul_cuda.launches += 1
+    return out, used
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("dslot_matmul")
+    if lib.dslot_matmul_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dslot_matmul_launch.argtypes = [p, i, p, i, p, p, p, p, p, p, p,
+                                            i, i, i, i, i, i, i, i, i, p]
+        lib.dslot_matmul_launch.restype = i
+        lib.dslot_error_string.argtypes = [i]
+        lib.dslot_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def run(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
+        relu: bool, block_m: int, block_n: int, bk: int,
+        suffix: torch.Tensor, total: torch.Tensor, npl: torch.Tensor,
+        row_budget: torch.Tensor | None, tile_bound: torch.Tensor
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backend rule on pre-padded inputs: a CUDA tensor launches the
+    kernel, a CPU tensor runs the plain version.  Nothing falls back."""
+    fn = _launch if q.is_cuda else _replay
+    return fn(q, w, n_bits, n_planes, relu, block_m, block_n, bk, suffix,
+              total, npl, row_budget, tile_bound)
+
+
+# ------------------------------------------------------------ entry points
+
+def _normalize(q, w, *, n_bits, n_planes, block_m, block_n, block_k,
+               n_planes_rt, row_budget, suffix_colsum, total_colsum,
+               plane_bound):
+    """The reference wrapper's argument handling: plane depth, chunk size,
+    K padding, default tables, runtime precision and plane bound."""
+    M, K = q.shape
+    K2, N = w.shape
+    assert K == K2, (q.shape, w.shape)
+    assert M % block_m == 0 and N % block_n == 0, (M, N, block_m, block_n)
+    if n_planes is not None and n_planes < 1:
+        raise ValueError(f"n_planes must be >= 1, got {n_planes}")
+    D = min(n_planes or n_bits, n_bits)
+    bk = block_k or select_block_k(K, block_m, block_n, w.element_size(),
+                                   q.element_size())
+    q = _pad_to(q, bk, axis=1)
+    w = _pad_to(w, bk, axis=0)
+    Kt = w.shape[0] // bk
+    if suffix_colsum is None or total_colsum is None:
+        suffix_colsum, total_colsum = colsum_tables(w, bk)
+    assert suffix_colsum.shape == (Kt, N), (suffix_colsum.shape, Kt, N)
+    assert total_colsum.shape == (1, N), (total_colsum.shape, N)
+    dev = q.device
+    if n_planes_rt is None:
+        n_planes_rt = D
+    npl = torch.as_tensor(n_planes_rt, dtype=torch.int32, device=dev)
+    if plane_bound is None:
+        bnd = torch.full((N // block_n,), D, dtype=torch.int32, device=dev)
+    else:
+        assert plane_bound.shape == (N // block_n,), \
+            (plane_bound.shape, N, block_n)
+        bnd = plane_bound.to(torch.int32)
+    if row_budget is not None:
+        assert row_budget.shape == (M,), (row_budget.shape, M)
+        row_budget = row_budget.to(torch.int32)
+    return (q, w, D, bk, suffix_colsum, total_colsum[0], npl, row_budget,
+            bnd)
+
+
+def _call(fn, q, w, *, n_bits, n_planes, relu, block_m, block_n, block_k,
+          n_planes_rt, row_budget, suffix_colsum, total_colsum, plane_bound):
+    q, w, D, bk, sfx, tot, npl, bud, bnd = _normalize(
+        q, w, n_bits=n_bits, n_planes=n_planes, block_m=block_m,
+        block_n=block_n, block_k=block_k, n_planes_rt=n_planes_rt,
+        row_budget=row_budget, suffix_colsum=suffix_colsum,
+        total_colsum=total_colsum, plane_bound=plane_bound)
+    out, used = fn(q, w, n_bits, D, relu, block_m, block_n, bk, sfx, tot,
+                   npl, bud, bnd)
+    return DslotMatmulOut(out=out, planes_used=used)
+
+
+def dslot_matmul_cuda(q: torch.Tensor, w: torch.Tensor, *, n_bits: int = 8,
+                      n_planes: int | None = None, relu: bool = True,
+                      block_m: int = 128, block_n: int = 128,
+                      block_k: int | None = None,
+                      n_planes_rt=None,
+                      row_budget: torch.Tensor | None = None,
+                      suffix_colsum: torch.Tensor | None = None,
+                      total_colsum: torch.Tensor | None = None,
+                      plane_bound: torch.Tensor | None = None
+                      ) -> DslotMatmulOut:
+    """Run the digit-serial matmul (counterpart of ``dslot_matmul_pallas``).
+
+    q: (M, K) integer quantized activations, |q| < 2^n_bits, any integer
+       dtype the kernel reads (u8/i8/u16/i16/i32).
+    w: (K, N) float32/bfloat16 weights.
+    n_planes: static plane depth D (default ``n_bits``).
+    block_k: logical K chunk (None = the reference's auto choice); K is
+       zero-padded to a multiple.
+    n_planes_rt: runtime precision, an int or an i32 device tensor (<= D).
+    row_budget: (M,) i32 per-row precision, or None.
+    suffix_colsum / total_colsum: prepared |W| column-sum tables ((Kt, N) /
+       (1, N)), or None to compute them here.
+    plane_bound: (N/block_n,) i32 weight-side plane bound per N tile.
+    M % block_m == 0 and N % block_n == 0 (callers pad).
+
+    CUDA tensors launch the kernel (``dslot_matmul_cuda.launches`` counts
+    the launches); CPU tensors run the plain version.
+    """
+    return _call(run, q, w, n_bits=n_bits, n_planes=n_planes, relu=relu,
+                 block_m=block_m, block_n=block_n, block_k=block_k,
+                 n_planes_rt=n_planes_rt, row_budget=row_budget,
+                 suffix_colsum=suffix_colsum, total_colsum=total_colsum,
+                 plane_bound=plane_bound)
+
+
+dslot_matmul_cuda.launches = 0
+
+
+def dslot_matmul_plain(q: torch.Tensor, w: torch.Tensor, *, n_bits: int = 8,
+                       n_planes: int | None = None, relu: bool = True,
+                       block_m: int = 128, block_n: int = 128,
+                       block_k: int | None = None,
+                       n_planes_rt=None,
+                       row_budget: torch.Tensor | None = None,
+                       suffix_colsum: torch.Tensor | None = None,
+                       total_colsum: torch.Tensor | None = None,
+                       plane_bound: torch.Tensor | None = None
+                       ) -> DslotMatmulOut:
+    """The plain PyTorch version of ``dslot_matmul_cuda`` on any device
+    (same signature, same ``(out, planes_used)``)."""
+    return _call(_replay, q, w, n_bits=n_bits, n_planes=n_planes, relu=relu,
+                 block_m=block_m, block_n=block_n, block_k=block_k,
+                 n_planes_rt=n_planes_rt, row_budget=row_budget,
+                 suffix_colsum=suffix_colsum, total_colsum=total_colsum,
+                 plane_bound=plane_bound)
+
+
+def dslot_matmul_cuda_batched(q: torch.Tensor, w: torch.Tensor, *,
+                              n_bits: int = 8, n_planes: int | None = None,
+                              relu: bool = True, block_m: int = 128,
+                              block_n: int = 128, block_k: int | None = None,
+                              n_planes_rt=None,
+                              row_budget: torch.Tensor | None = None,
+                              suffix_colsum: torch.Tensor | None = None,
+                              total_colsum: torch.Tensor | None = None,
+                              plane_bound: torch.Tensor | None = None
+                              ) -> DslotMatmulOut:
+    """Batched entry: q (B, M, K) sharing one weight matrix.
+
+    The batch axis folds into M; with ``M % block_m == 0`` every output tile
+    lies inside one batch element, so results and per-tile termination equal
+    B separate calls.  ``row_budget`` may be (B,) per request or (B, M) per
+    row.  Returns out (B, M, N) and planes_used (B, M/bm, N/bn).
+    """
+    B, M, K = q.shape
+    assert M % block_m == 0, (M, block_m)
+    if row_budget is not None:
+        row_budget = torch.as_tensor(row_budget, dtype=torch.int32,
+                                     device=q.device)
+        if row_budget.shape == (B,):
+            row_budget = row_budget.repeat_interleave(M)
+        else:
+            assert row_budget.shape == (B, M), (row_budget.shape, B, M)
+            row_budget = row_budget.reshape(B * M)
+    r = dslot_matmul_cuda(q.reshape(B * M, K), w, n_bits=n_bits,
+                          n_planes=n_planes, relu=relu, block_m=block_m,
+                          block_n=block_n, block_k=block_k,
+                          n_planes_rt=n_planes_rt, row_budget=row_budget,
+                          suffix_colsum=suffix_colsum,
+                          total_colsum=total_colsum, plane_bound=plane_bound)
+    N = r.out.shape[-1]
+    return DslotMatmulOut(out=r.out.reshape(B, M, N),
+                          planes_used=r.planes_used.reshape(B, M // block_m, -1))
