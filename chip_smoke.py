@@ -29,9 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.matmul`` of the dequantized product at every phase-2 shape and at
    the two launches of one ``forward_dslot`` (whose exact arguments are also
    held against the plain version), beside the kernel's bound:
-   the larger of bytes / 3.35 TB/s and issued flops / 67 TFLOP/s (f32
-   outside the tensor cores), both H100 SXM data-sheet peaks at 700 W, with
-   flops from the ``planes_used`` the kernel reported.
+   the larger of bytes / 3.35 TB/s and needed flops / 67 TFLOP/s (f32
+   outside the tensor cores), both H100 SXM data-sheet peaks at 700 W.
+   Flops count the unpadded shape: ``planes_used`` products per tile under
+   ReLU (the early exit reads every plane's partial sum), one product of
+   the truncated q without it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
@@ -264,9 +266,17 @@ def compare(name, a, b, exact, q, w, kw):
     return err
 
 
-def bound_ms(q, w, kw, out, used) -> tuple[float, str, float, float]:
+def bound_ms(q, w, kw, out, used, dims) -> tuple[float, str, float, float]:
     """Least time for the call on an H100 SXM at 700 W: bytes moved once
-    over 3.35 TB/s against issued f32 flops over 67 TFLOP/s."""
+    over 3.35 TB/s against the f32 flops this run's data needs over
+    67 TFLOP/s.
+
+    ``dims`` is the unpadded (M, K, N).  Flops count only real rows, columns
+    and K.  A ReLU tile needs its partial sum after every plane it entered
+    (the termination check reads it), so it costs ``planes_used`` products
+    of its rows and columns; a tile without ReLU needs one product of the
+    truncated q, and none when it entered no plane.
+    """
     nbytes = (q.numel() * q.element_size() + w.numel() * w.element_size()
               + kw["suffix_colsum"].numel() * 4 + kw["total_colsum"].numel()
               * 4 + out.numel() * 4 + used.numel() * 4 + 4)
@@ -274,15 +284,22 @@ def bound_ms(q, w, kw, out, used) -> tuple[float, str, float, float]:
         nbytes += kw["plane_bound"].numel() * 4
     if kw["row_budget"] is not None:
         nbytes += kw["row_budget"].numel() * 4
-    flops = float(used.to(torch.float64).sum()) * 2 * kw["block_m"] \
-        * kw["block_n"] * q.shape[1]
+    M, K, N = dims
+    bm, bn = kw["block_m"], kw["block_n"]
+    Mt, Nt = used.shape
+    rows = (M - bm * torch.arange(Mt, dtype=torch.float64)).clamp(0, bm)
+    cols = (N - bn * torch.arange(Nt, dtype=torch.float64)).clamp(0, bn)
+    per_tile = used.cpu().to(torch.float64)
+    if not kw["relu"]:
+        per_tile = (per_tile > 0).to(torch.float64)
+    flops = 2.0 * K * float((per_tile * rows[:, None] * cols[None, :]).sum())
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, flops
 
 
-def time_call(label, q, w, kw, launch, replay, card):
+def time_call(label, q, w, kw, dims, launch, replay, card):
     """Kernel, plain and torch.matmul times for one call; returns a dict."""
     from repro_torch.device import full_f32
 
@@ -294,11 +311,11 @@ def time_call(label, q, w, kw, launch, replay, card):
     wf = w.to(torch.float32)
     with full_f32():
         lib_ms = cuda_ms(lambda: torch.matmul(qf, wf))
-    b_ms, b_by, nbytes, flops = bound_ms(q, w, kw, out, used)
+    b_ms, b_by, nbytes, flops = bound_ms(q, w, kw, out, used, dims)
     log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP issued), "
-        f"share of bound {b_ms / k_ms:.3f} [{card}]")
+        f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}; "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP needed), "
+        f"share of bound {b_ms / k_ms:.3g} [{card}]")
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "t_bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
             "t_ops": flops / PEAK_F32_FLOPS * 1e3}
@@ -345,7 +362,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build(["dslot_matmul"])
+    _build.build("dslot_matmul")
     log(f"build: dslot_matmul.cu in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log("dslot_matmul").splitlines():
         if "registers" in line or "spill" in line:
@@ -374,7 +391,7 @@ def main() -> int:
             f"tiles {a.planes_used.numel()}")
         if case.name.endswith("f32 normal n8"):     # one timing per shape
             shape_times[case.name.split(" f32")[0]] = time_call(
-                case.name, q, prep.w, kw,
+                case.name, q, prep.w, kw, (case.M, case.K, case.N),
                 lambda: dm.dslot_matmul_cuda(q, prep.w, **kw),
                 lambda: dm.dslot_matmul_plain(q, prep.w, **kw), card)
         del q, prep, kw, a, b
@@ -445,27 +462,35 @@ def main() -> int:
         mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=8)
     finally:
         dm.run = orig_run
+    if len(calls) != 2:
+        raise AssertionError(f"forward_dslot made {len(calls)} kernel calls, "
+                             f"expected 2 (conv, head)")
     main_times = []
-    for label, args in zip(("forward conv launch", "forward head launch"),
-                           calls):
+    side = CONFIG.image_size - CONFIG.kernel_size + 1   # valid conv
+    layers = (("forward conv launch", prep.conv_params["dslot"],
+               images.shape[0] * side * side),
+              ("forward head launch", prep.head_params["dslot"],
+               images.shape[0]))
+    for (label, dw, rows), args in zip(layers, calls):
         q, w = args[0], args[1]
         kw = dict(n_bits=args[2], relu=args[4], block_m=args[5],
                   block_n=args[6], block_k=args[7], suffix_colsum=args[8],
                   total_colsum=args[9][None], n_planes_rt=args[10],
                   row_budget=args[11], plane_bound=args[12])
+        dims = (rows, dw.d_in, dw.d_out)
         a = dm.DslotMatmulOut(*dm._launch(*args))
         b = dm.DslotMatmulOut(*dm._replay(*args))
         torch.cuda.synchronize()
         max_err = max(max_err, compare(label, a, b, False, q, w, kw))
         main_times.append(time_call(
-            label, q, w, kw, lambda a=args: dm._launch(*a),
+            label, q, w, kw, dims, lambda a=args: dm._launch(*a),
             lambda a=args: dm._replay(*a), card))
     fwd_ms = cuda_ms(lambda: mnist_cnn.forward_dslot(prep, images, CONFIG,
                                                      n_planes=8))
     log(f"  forward_dslot B=1024 n_planes=8: {fwd_ms:.4f} ms [{card}]")
     for shape, t in shape_times.items():
         log(f"  shape {shape}: kernel {t['ms']:.4f} ms vs bound "
-            f"{t['bound_ms']:.4f} ms")
+            f"{t['bound_ms']:.4g} ms")
 
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)

@@ -52,33 +52,23 @@ def _target(name: str) -> Path:
     return build_dir() / f"lib{name}-{key}.so"
 
 
-def _start(name: str) -> tuple[Path, subprocess.Popen | None]:
-    """Start ``nvcc`` for one source unless its library is already built."""
+def build(name: str) -> Path:
+    """Build ``csrc/<name>.cu`` with ``nvcc`` unless its library exists."""
     lib = _target(name)
     if lib.exists():
-        return lib, None
-    cmd = [_nvcc(), *NVCC_FLAGS]
+        return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
-    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-
-
-def build(names: list[str]) -> dict[str, Path]:
-    """Build the named sources, one ``nvcc`` each, all started together."""
-    started = {name: _start(name) for name in names}
-    for name, (lib, proc) in started.items():
-        if proc is None:
-            continue
-        log, _ = proc.communicate()
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-        lib.with_suffix(".log").write_text(log)
-        os.replace(tmp, lib)
-    return {name: lib for name, (lib, _) in started.items()}
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
+    lib.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, lib)
+    return lib
 
 
 def build_log(name: str) -> str:
@@ -90,6 +80,5 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
     if name not in _LOADED:
-        lib = build([name])[name]
-        _LOADED[name] = ctypes.CDLL(str(lib))
+        _LOADED[name] = ctypes.CDLL(str(build(name)))
     return _LOADED[name]
