@@ -13,7 +13,12 @@ Phases (any failure exits non-zero and prints no result line):
    seamless-m4t-medium (d_model 1024 -> d_ff 4096, 2048 tokens, block 128,
    sorted columns, block_k auto and 256), with f32 and bf16 weights,
    n_planes 8 and 3, a per-row budget, ReLU on and off, and an all-inert
-   weight.  Dyadic weights (multiples of 2^-6) make every sum exact, so
+   weight; the head with row budgets and one N tile of plane bound 0 (the
+   split-K product path crosses both); the head at B = 16384 (more tiles
+   than SMs, no split); f32 weights of magnitudes 2^-20 to 1 under ReLU
+   (which two bf16 parts would not hold); block_n 5 and 24 at the MLP's
+   K = 1024.  Every case runs the kernel twice and the two results must be
+   equal bit for bit.  Dyadic weights (multiples of 2^-6) make every sum exact, so
    there the outputs and ``planes_used`` must be equal.  On normal weights
    the outputs must agree within ``rtol = 1e-5`` plus ``1e-5 * max|out|``,
    and a tile whose ``planes_used`` differs must have a termination margin
@@ -29,11 +34,16 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.matmul`` of the dequantized product at every phase-2 shape and at
    the two launches of one ``forward_dslot`` (whose exact arguments are also
    held against the plain version), beside the kernel's bound:
-   the larger of bytes / 3.35 TB/s and needed flops / 67 TFLOP/s (f32
-   outside the tensor cores), both H100 SXM data-sheet peaks at 700 W.
-   Flops count the unpadded shape: ``planes_used`` products per tile under
-   ReLU (the early exit reads every plane's partial sum), one product of
-   the truncated q without it.
+   the larger of bytes / 3.35 TB/s and the needed bf16 tensor-core
+   products / 989 TFLOP/s, both H100 SXM data-sheet peaks at 700 W.  A
+   product with f32 weights needs 3 bf16 products (hi, mid and lo parts of
+   each weight: f32 accuracy without TF32), one with bf16 weights needs 1.
+   Products count the unpadded shape: ``planes_used`` per tile under ReLU
+   (the early exit reads every plane's partial sum), one product of the
+   truncated q without it.  The earlier yardstick, needed f32 flops / 67
+   TFLOP/s on the CUDA cores, is printed beside it.  Kernel and
+   ``torch.matmul`` times are device times of a CUDA graph of repeated
+   calls (host launch overhead excluded); the plain version runs eagerly.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
@@ -53,6 +63,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, data sheet, 700 W
+PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense, data sheet, 700 W
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside tensor cores, data sheet, 700 W
 OUT_RTOL = 1e-5
 MARGIN_RTOL = 1e-5
@@ -99,10 +110,11 @@ class Case:
     block_k: int | None
     relu: bool
     signed: bool
-    weights: str            # "dyadic" | "normal" | "inert"
+    weights: str            # "dyadic" | "normal" | "inert" | "wide"
     wdtype: torch.dtype = torch.float32
     precision: object = 8   # int or "rows"
     sort: bool = False
+    zero_tile: int | None = None    # N tile given plane bound 0
 
 
 def phase2_cases() -> list[Case]:
@@ -141,6 +153,25 @@ def phase2_cases() -> list[Case]:
              precision="rows", **mlp),
         Case("mlp bk=256 f32 normal n8 no-relu", weights="normal",
              block_k=256, **{**mlp, "relu": False}),
+        Case("head f32 normal rows bound0", weights="normal",
+             precision="rows", zero_tile=1, **head),
+        Case("head f32 dyadic rows bound0", weights="dyadic",
+             precision="rows", zero_tile=0, **head),
+        Case("head B=16384 f32 normal n8", weights="normal",
+             **{**head, "M": 16384}),
+        Case("conv f32 wide n8", weights="wide", **conv),
+        Case("mlp bk=256 f32 wide n8", weights="wide", block_k=256, **mlp),
+        Case("mlp bn=5 f32 normal n8", weights="normal",
+             **{**mlp, "M": 512, "N": 120, "block_m": 16, "block_n": 5,
+                "block_k": None, "sort": False}),
+        Case("mlp bn=24 f32 dyadic rows", weights="dyadic",
+             precision="rows",
+             **{**mlp, "M": 512, "N": 96, "block_m": 32, "block_n": 24,
+                "block_k": None, "sort": False}),
+        Case("mlp bn=24 bf16 normal n8 bk=256", weights="normal",
+             wdtype=torch.bfloat16,
+             **{**mlp, "M": 512, "N": 96, "block_m": 32, "block_n": 24,
+                "block_k": 256, "sort": False}),
     ]
 
 
@@ -154,7 +185,9 @@ def make_inputs(case: Case, seed: int):
     only when all its columns do) and a ramp from 0 to 6 across a wide
     one, so that some tiles are provably negative under ReLU and the early
     exit fires.  "dyadic" rounds the weights to multiples of 2^-6 in
-    [-1, 1]; "inert" makes every weight <= 0 (weight-side plane bound 0).
+    [-1, 1]; "inert" makes every weight <= 0 (weight-side plane bound 0);
+    "wide" gives each weight a random sign and a magnitude 2^u, u uniform
+    in [-20, 0], unshifted.
     """
     g = torch.Generator().manual_seed(seed)
     if case.signed:
@@ -168,7 +201,11 @@ def make_inputs(case: Case, seed: int):
     w = torch.randn((case.K, case.N), generator=g) * case.K ** -0.5
     z = torch.full((case.N,), 3.3) if case.N <= 16 \
         else torch.linspace(0.0, 6.0, case.N)
-    w = w - z * rms / (case.K * mean)
+    if case.weights == "wide":
+        u = torch.rand((case.K, case.N), generator=g) * -20.0
+        w = torch.sign(w) * torch.exp2(u)
+    else:
+        w = w - z * rms / (case.K * mean)
     if case.weights == "dyadic":
         w = (w * 64).round().clamp(-64, 64) / 64
     elif case.weights == "inert":
@@ -193,10 +230,14 @@ def run_case(case: Case, seed: int, dev: torch.device):
     else:
         budget = None
         npl = torch.tensor(case.precision, dtype=torch.int32, device=dev)
+    bound = prep.msr_bound
+    if case.zero_tile is not None:
+        bound = bound.clone()
+        bound[case.zero_tile] = 0
     kw = dict(n_bits=8, relu=case.relu, block_m=case.block_m,
               block_n=case.block_n, block_k=prep.block_k, n_planes_rt=npl,
               row_budget=budget, suffix_colsum=prep.suffix_colsum,
-              total_colsum=prep.total_colsum, plane_bound=prep.msr_bound)
+              total_colsum=prep.total_colsum, plane_bound=bound)
     return q, prep, kw
 
 
@@ -268,8 +309,9 @@ def compare(name, a, b, exact, q, w, kw):
 
 def bound_ms(q, w, kw, out, used, dims) -> tuple[float, str, float, float]:
     """Least time for the call on an H100 SXM at 700 W: bytes moved once
-    over 3.35 TB/s against the f32 flops this run's data needs over
-    67 TFLOP/s.
+    over 3.35 TB/s against the bf16 tensor-core flops this run's data needs
+    over 989 TFLOP/s (3 bf16 products per product with f32 weights, 1 with
+    bf16 weights).  Returns (bound ms, what bounds it, bytes, f32 flops).
 
     ``dims`` is the unpadded (M, K, N).  Flops count only real rows, columns
     and K.  A ReLU tile needs its partial sum after every plane it entered
@@ -294,9 +336,33 @@ def bound_ms(q, w, kw, out, used, dims) -> tuple[float, str, float, float]:
         per_tile = (per_tile > 0).to(torch.float64)
     flops = 2.0 * K * float((per_tile * rows[:, None] * cols[None, :]).sum())
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = bf16_parts(w) * flops / PEAK_BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, flops
+
+
+def bf16_parts(w) -> int:
+    """bf16 tensor-core products per product: 3 for f32 weights."""
+    return 3 if w.dtype == torch.float32 else 1
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` replayed from a CUDA graph of ``reps``
+    calls: the kernel's own time, without the host's launch overhead."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps=5, warm=1) / reps
 
 
 def time_call(label, q, w, kw, dims, launch, replay, card):
@@ -305,20 +371,27 @@ def time_call(label, q, w, kw, dims, launch, replay, card):
 
     out, used = launch()
     torch.cuda.synchronize()
-    k_ms = cuda_ms(launch)
+    k_ms = graph_ms(launch)
     p_ms = cuda_ms(replay, reps=3, warm=1)
     qf = q.to(torch.float32)
     wf = w.to(torch.float32)
     with full_f32():
-        lib_ms = cuda_ms(lambda: torch.matmul(qf, wf))
+        lib_ms = graph_ms(lambda: torch.matmul(qf, wf))
     b_ms, b_by, nbytes, flops = bound_ms(q, w, kw, out, used, dims)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    old_ms = max(t_bytes, flops / PEAK_F32_FLOPS * 1e3)
     log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}; "
-        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP needed), "
-        f"share of bound {b_ms / k_ms:.3g} [{card}]")
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP needed, "
+        f"x{bf16_parts(w)} bf16), share of bound {b_ms / k_ms:.3g}; "
+        f"f32 CUDA-core bound {old_ms:.4g} ms, share {old_ms / k_ms:.3g}; "
+        f"kernel/torch.matmul {k_ms / lib_ms:.3g} [{card}]")
+    if b_ms > k_ms:     # inputs replayed from the 50 MB L2 can do this
+        log(f"  {label}: share of bound above 1: kernel {k_ms} ms, bound "
+            f"{b_ms} ms")
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "t_bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
-            "t_ops": flops / PEAK_F32_FLOPS * 1e3}
+            "bound_ms": b_ms, "t_bytes": t_bytes,
+            "t_ops": bf16_parts(w) * flops / PEAK_BF16_FLOPS * 1e3}
 
 
 # ------------------------------------------------------------ phase 3
@@ -375,8 +448,12 @@ def main() -> int:
     for n, case in enumerate(phase2_cases()):
         q, prep, kw = run_case(case, seed=100 + n, dev=dev)
         a = dm.dslot_matmul_cuda(q, prep.w, **kw)
+        a2 = dm.dslot_matmul_cuda(q, prep.w, **kw)
         b = dm.dslot_matmul_plain(q, prep.w, **kw)
         torch.cuda.synchronize()
+        if not (torch.equal(a.out, a2.out)
+                and torch.equal(a.planes_used, a2.planes_used)):
+            raise AssertionError(f"{case.name}: two launches differ")
         err = compare(case.name, a, b, case.weights == "dyadic", q, prep.w,
                       kw)
         max_err = max(max_err, err)
@@ -394,7 +471,7 @@ def main() -> int:
                 case.name, q, prep.w, kw, (case.M, case.K, case.N),
                 lambda: dm.dslot_matmul_cuda(q, prep.w, **kw),
                 lambda: dm.dslot_matmul_plain(q, prep.w, **kw), card)
-        del q, prep, kw, a, b
+        del q, prep, kw, a, a2, b
         torch.cuda.empty_cache()
 
     # -------------------------------------------------- 3. main path

@@ -2,7 +2,8 @@
 // termination, for Hopper (sm_90a), behind a plain C interface.
 //
 // Replaces the Pallas TPU kernel repro/kernels/dslot_matmul.py::_kernel
-// (launched by dslot_matmul_pallas).  For each (block_m, block_n) output tile:
+// (launched by dslot_matmul_pallas).  For each logical (block_m, block_n)
+// output tile:
 //
 //   out = [relu]( sum_d 2^(n_bits-1-d) * (P_d * live) @ W )
 //
@@ -14,55 +15,90 @@
 // and, when it holds, stops all further work and writes zeros.  planes_used
 // counts the planes the tile entered.
 //
-// What bounds it on an H100: the digit planes turn one K-deep product into up
-// to n_bits products, so the work is planes_used * 2*bm*bn*K flops per tile
-// on f32 CUDA cores (67 TFLOP/s, the H100 SXM data-sheet peak at its 700 W
-// power limit), while the bytes are one pass over q
-// (1 byte per element at 8 bits), W and the output.  At the shapes of the
-// MNIST CNN (N = 8 or 10 columns) the flops are few and the kernel is bound
-// by bytes and by latency; at a transformer up-projection it is bound by
-// f32 operations.
+// The host picks one of two paths from `relu` and `n_bits`.
 //
-// What the design does about it:
-// * One thread block per output tile, in any order; the (d, c) loop runs
-//   inside the block and the accumulator stays in registers for the block's
-//   whole life (Pallas carried it in VMEM scratch across grid steps).
-// * Termination is a real exit: a block-wide AND (__syncthreads_and) of
-//   "every element of acc + R is negative", then a uniform break out of both
-//   loops, so a dead tile issues no further loads or flops.
-// * block_k is the logical chunk that places the termination check and
-//   defines sfx; it may be all of K (1152 at the CNN head).  Each logical
-//   chunk is staged through shared memory in sub-tiles of KS rows, and the
-//   check runs only at the end of a logical chunk.
-// * The digit times its plane scale is written to shared memory once per
-//   sub-tile, so the inner loop is plain f32 FMAs (digit*scale*w is exact).
-//   The termination bound uses __fmul_rn/__fadd_rn so that no FMA contraction
-//   changes its rounding against the plain PyTorch version.
-// * npl, the per-row budgets and the per-tile plane bounds are read from
-//   device memory: a new precision needs no host sync and no rebuild.
-// A simple, right kernel first: wgmma, TMA and int8 tensor cores are later
-// work.
+// A. Product path (no ReLU, n_bits <= 24).  Nothing can terminate, so the
+//    function is one product: out[m, n] = sum_k t[m, k] * w[k, n], with
+//    t = sign(q) * (|q| with every bit below plane e cleared) and
+//    e = min(D, npl, bnd[tile of n], bud[m]); t is an exact f32 integer.
+//    Bound on an H100: bytes (the CNN head moves 1.32 MB for 23.6 MFLOP) and
+//    launch latency.  The design: 64 x 16*RN output tiles of 256 threads with
+//    f32 FMAs on the CUDA cores, each 64-row round of K loaded with all its
+//    loads in flight while the round before computes; when the tiles number
+//    fewer than the SMs, K is split across the blocks of one thread-block
+//    cluster (the head: 6 slices of 192 -> 96 blocks), whose partial sums
+//    are added in slice order through distributed shared memory.  No float
+//    atomics: two launches give the same bits.  planes_used is
+//    min(D, npl, bnd[j]).
+//
+// B. Plane path (ReLU tiles, or n_bits > 24).  One thread block owns a
+//    logical tile at a time, because the termination vote spans the whole
+//    tile.  Bound on an H100: at the MLP's widths, the plane products (up to
+//    n_bits products of one K-deep GEMM); at the CNN conv, bytes.  The
+//    design:
+//    * Digits run on the tensor cores with mma.sync.m16n8k16 bf16.  A digit
+//      times its plane scale, +-2^(n-1-d), is exact in bf16.  f32 weights go
+//      in as three bf16 parts hi + mid + lo (24 bits of significand: exact),
+//      bf16 weights as one; products are exact and the sums are f32 in
+//      registers, so no TF32 anywhere.  Each 32-row K sub-chunk is summed
+//      into a zeroed temporary and added to the accumulator with a
+//      round-to-nearest add: chaining the accumulator through the tensor
+//      core, whose adds do not round to nearest, drifts past 1e-5 over
+//      K = 1024 and 8 planes.  The mma asm is not volatile and the loops are
+//      step-major, so independent products interleave.  Operands reach the
+//      mma through ldmatrix (W parts transposed on the way).  mma.sync and
+//      not wgmma: the tiles here run from 16 x 8 (the tests' 16 x 5) to
+//      128 x 128, and wgmma's 64-row warpgroup tile with its shared-memory
+//      descriptors is later work for the 128 x 128 case.
+//    * The physical tile is the logical one padded to the mma shape (16 rows,
+//      8 columns).  Physical pad rows and columns never vote and are never
+//      stored; the logical pad rows and columns the caller added vote as in
+//      the reference (their q rows are zero, their tot is zero).
+//    * Operands are staged in shared memory once.  Where the tile's q rows
+//      (contiguous: the tile spans all of K) and the bf16 parts of W fit in
+//      RESIDENT_BYTES, each block stages W once and walks M tiles, copying
+//      the next tile's q (16-byte cp.async where aligned) while the current
+//      one computes; every plane reads its digits from the staged integer q.
+//      Else the tile streams each logical chunk through a 3-stage cp.async
+//      ring of KC-row sub-chunks, the next ones in flight while one
+//      computes, with the bf16 parts of f32 weights split once per call by a
+//      small kernel before the tiles.  For each (plane, sub-chunk) the block
+//      writes the digit tile to shared memory once, so warps that share rows
+//      do not extract it again.  A resident tile of 8 columns (the conv:
+//      128 x 8, two warps of 64 x 8) skips the digit tile and its barrier:
+//      each warp builds its mma fragments from q in registers, and where one
+//      sub-chunk covers K the q words, W fragments and suffix sums stay in
+//      registers across the planes.  The vote runs only at the end of a
+//      logical chunk, as in the reference.
+//    * The q dtype is a template parameter.  For 8-bit q a word of four
+//      elements is decoded at once (__vabsss4, a shift and mask, two
+//      __byte_perm and a multiply per bf16 pair); at the conv the tile work
+//      is this decoding, so its instruction count is what the design cuts.
+//    * The termination bound R uses __fmul_rn/__fadd_rn so that no FMA
+//      contraction changes its rounding against the plain PyTorch version;
+//      the vote is __syncthreads_and over the logical tile, with no branch
+//      per element, then a uniform break, so a dead tile issues no further
+//      loads or products.
+// npl, the per-row budgets and the per-tile plane bounds are read from device
+// memory in both paths: a new precision needs no host sync and no rebuild.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <cooperative_groups.h>
+#include <type_traits>
 
-constexpr int KS = 32;  // K rows staged through shared memory per sub-tile
+namespace cg = cooperative_groups;
+
+namespace {
 
 enum QType { Q_U8 = 0, Q_I8 = 1, Q_U16 = 2, Q_I16 = 3, Q_I32 = 4 };
 enum WType { W_F32 = 0, W_BF16 = 1 };
 
-__device__ __forceinline__ int load_q(const void* q, int qtype, long long i) {
-  switch (qtype) {
-    case Q_U8: return static_cast<const uint8_t*>(q)[i];
-    case Q_I8: return static_cast<const int8_t*>(q)[i];
-    case Q_U16: return static_cast<const uint16_t*>(q)[i];
-    case Q_I16: return static_cast<const int16_t*>(q)[i];
-    default: return static_cast<const int32_t*>(q)[i];
-  }
-}
+constexpr int NUM_SMS = 132;          // H100 SXM
+constexpr int MAX_SMEM = 232448;      // per block, H100
+constexpr int RESIDENT_BYTES = 48 * 1024;
 
 __device__ __forceinline__ float load_w(const void* w, int wtype, long long i) {
   if (wtype == W_BF16) {
@@ -71,178 +107,1217 @@ __device__ __forceinline__ float load_w(const void* w, int wtype, long long i) {
   return static_cast<const float*>(w)[i];
 }
 
-// Thread (ty, tx) owns rows ty + a*TR (a < RM) and columns tx + b*TC (b < RN)
-// of the tile, with TR = bm / RM and TC = bn / RN; blockDim.x == TR * TC.
-template <int RM, int RN>
-__global__ void dslot_matmul_kernel(
-    const void* __restrict__ q, int qtype, const void* __restrict__ w,
-    int wtype, const float* __restrict__ sfx, const float* __restrict__ tot,
+// 2^e for -127 < e < 128, built from its exponent field (ldexpf expands to a
+// branchy general routine)
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float((127 + e) << 23);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Copy `rows` rows of `row_bytes` bytes from global to shared memory with the
+// widest unit the addresses allow: 16-byte or 4-byte cp.async (complete after
+// the caller's wait), else plain byte loads (complete at the next barrier).
+__device__ void copy_rows(uint8_t* dst, int dst_stride, const uint8_t* src,
+                          long long src_stride, int rows, int row_bytes) {
+  const unsigned long long a = reinterpret_cast<unsigned long long>(src);
+  const long long all = static_cast<long long>(a) | src_stride | row_bytes |
+                        dst_stride;
+  if ((all & 15) == 0) {
+    const int per_row = row_bytes >> 4;
+    for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+      const int r = e / per_row;
+      const int u = e - r * per_row;
+      cp_async16(dst + r * dst_stride + u * 16, src + r * src_stride + u * 16);
+    }
+  } else if ((all & 3) == 0) {
+    const int per_row = row_bytes >> 2;
+    for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+      const int r = e / per_row;
+      const int u = e - r * per_row;
+      cp_async4(dst + r * dst_stride + u * 4, src + r * src_stride + u * 4);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * row_bytes; e += blockDim.x) {
+      const int r = e / row_bytes;
+      const int u = e - r * row_bytes;
+      dst[r * dst_stride + u] = src[r * src_stride + u];
+    }
+  }
+}
+
+// ------------------------------------------------------------ A. product
+
+constexpr int PT_M = 64;    // rows of a product tile
+constexpr int PT_KS = 64;   // K rows staged per round
+constexpr int PT_THREADS = 256;
+constexpr int PT_MAX_SPLITS = 8;  // K slices: one portable cluster
+
+// One round of a product tile's loads into registers, all in flight: q rows
+// [m0, m0 + PT_M) and W columns [n0, n0 + 16*RN) of K rows [k0, k0 + PT_KS).
+template <int RN, typename QT>
+__device__ __forceinline__ void product_round(
+    int (&qv)[PT_KS * PT_M / PT_THREADS],
+    float (&wv)[PT_KS * 16 * RN / PT_THREADS], const QT* __restrict__ q,
+    const void* __restrict__ w, int wtype, long long m0, int n0, int k0,
+    int k_hi, int M, int K, int N) {
+  constexpr int TN = 16 * RN;
+#pragma unroll
+  for (int i = 0; i < PT_KS * PT_M / PT_THREADS; ++i) {
+    const int e = threadIdx.x + i * PT_THREADS;
+    const long long m = m0 + e / PT_KS;
+    const int k = k0 + e % PT_KS;
+    qv[i] = (m < M && k < k_hi) ? static_cast<int>(q[m * K + k]) : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < PT_KS * TN / PT_THREADS; ++i) {
+    const int e = threadIdx.x + i * PT_THREADS;
+    const int k = k0 + e / TN;
+    const int col = n0 + e % TN;
+    wv[i] = (k < k_hi && col < N)
+                ? load_w(w, wtype, static_cast<long long>(k) * N + col)
+                : 0.0f;
+  }
+}
+
+// Thread (ty, tx) owns rows ty + 16a (a < 4) and columns tx + 16b (b < RN) of
+// a 64 x 16*RN tile.  Block z sums K rows [z*k_slice, (z+1)*k_slice); the
+// gridDim.z blocks of a tile form one thread-block cluster, and their partial
+// sums are added through distributed shared memory in slice order, each
+// block adding a share of the tile's elements.  When every column bound of
+// the tile is 0 or at least min(D, npl) ("uniform", the case of the
+// prepared MSR bounds), t depends on the row alone and is staged as f32, so
+// the inner loop is plain FMAs; otherwise q is staged and each (row, column)
+// applies its own mask.  Each round's loads are issued before the previous
+// round computes.
+template <int RN, typename QT>
+__global__ void __launch_bounds__(PT_THREADS) product_kernel(
+    const QT* __restrict__ q, const void* __restrict__ w, int wtype,
     const int* __restrict__ npl_ptr, const int* __restrict__ bnd,
     const int* __restrict__ bud, float* __restrict__ out,
-    int* __restrict__ used, int K, int N, int n_bits, int D, int bm, int bn,
-    int bk, int relu) {
-  extern __shared__ float smem[];
-  const int pm = bm + 1;            // padded row: conflict-free stores
-  float* plane_s = smem;            // [KS][pm]  digit * 2^(n-1-d), transposed
-  float* w_s = smem + KS * pm;      // [KS][bn]
+    int* __restrict__ used, int M, int K, int N, int n_bits, int D, int bm,
+    int bn, int k_slice) {
+  constexpr int TN = 16 * RN;
+  constexpr int QL = PT_KS * PT_M / PT_THREADS;  // q loads per thread
+  constexpr int WL = PT_KS * TN / PT_THREADS;    // W loads per thread
+  static_assert(PT_KS * (PT_M + 1) >= PT_M * TN, "partial sums fit q_s");
+  __shared__ int q_s[PT_KS][PT_M + 1];  // t as f32 bits, or q; then sums
+  __shared__ float w_s[PT_KS][TN];
+  __shared__ unsigned keep_s[PT_M];     // bits of |q| kept, by row
 
-  const int TC = bn / RN;
-  const int TR = bm / RM;
-  const int tx = threadIdx.x % TC;
-  const int ty = threadIdx.x / TC;
-  const int nthreads = blockDim.x;
-  const long long m0 = static_cast<long long>(blockIdx.x) * bm;
-  const int n0 = blockIdx.y * bn;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const long long m0 = static_cast<long long>(blockIdx.x) * PT_M;
+  const int n0 = blockIdx.y * TN;
+  const int k_lo = blockIdx.z * k_slice;
+  const int k_hi = min(K, k_lo + k_slice);
+  const int npl = *npl_ptr;
+  const int e_max = min(D, npl);
+  auto keep_bits = [&](int e) {  // planes 0 .. e-1 of an n_bits magnitude
+    return e <= 0 ? 0u : ~((1u << (n_bits - e)) - 1u);
+  };
 
-  float acc[RM][RN];
+  int qv[QL];
+  float wv[WL];
+  product_round<RN, QT>(qv, wv, q, w, wtype, m0, n0, k_lo, k_hi, M, K, N);
+
+  if (threadIdx.x < PT_M) {
+    const long long m = m0 + threadIdx.x;
+    int e_row = 0;
+    if (m < M) e_row = bud == nullptr ? e_max : min(e_max, bud[m]);
+    keep_s[threadIdx.x] = keep_bits(e_row);
+  }
+  int b_col[RN];
+  bool uniform_mine = true;
 #pragma unroll
-  for (int a = 0; a < RM; ++a)
+  for (int b = 0; b < RN; ++b) {
+    const int col = n0 + tx + 16 * b;
+    b_col[b] = col < N ? bnd[col / bn] : 0;
+    uniform_mine = uniform_mine && (b_col[b] <= 0 || b_col[b] >= e_max);
+  }
+  const bool uniform = __syncthreads_and(uniform_mine) != 0;
+  unsigned keep[4][RN];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const unsigned row_keep = keep_s[ty + 16 * a];
+#pragma unroll
+    for (int b = 0; b < RN; ++b)
+      keep[a][b] = b_col[b] >= e_max ? row_keep
+                                     : row_keep & keep_bits(b_col[b]);
+  }
+
+  float acc[4][RN];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < RN; ++b) acc[a][b] = 0.0f;
 
-  const int npl = *npl_ptr;
-  int limit = min(D, npl);
-  if (bnd != nullptr) limit = min(limit, bnd[blockIdx.y]);
-  const int n_chunks = K / bk;
-  const float tail = ldexpf(1.0f, n_bits - npl);
-
-  int planes = 0;
-  bool dead = false;
-  for (int d = 0; d < limit && !dead; ++d) {
-    ++planes;
-    const int shift = n_bits - 1 - d;
-    const float scale = ldexpf(1.0f, shift);
-    for (int c = 0; c < n_chunks; ++c) {
-      const int c_end = (c + 1) * bk;
-      for (int k0 = c * bk; k0 < c_end; k0 += KS) {
-        const int ks = min(KS, c_end - k0);
-        __syncthreads();  // every thread is done with the previous sub-tile
-        for (int e = threadIdx.x; e < ks * bm; e += nthreads) {
-          const int r = e / ks;
-          const int kk = e - r * ks;
-          const int v = load_q(q, qtype, (m0 + r) * K + k0 + kk);
-          const int bit = (abs(v) >> shift) & 1;
-          const int digit = v > 0 ? bit : (v < 0 ? -bit : 0);
-          const bool live = bud == nullptr || bud[m0 + r] > d;
-          plane_s[kk * pm + r] = live ? static_cast<float>(digit) * scale
-                                      : 0.0f;
-        }
-        for (int e = threadIdx.x; e < ks * bn; e += nthreads) {
-          const int kk = e / bn;
-          const int col = e - kk * bn;
-          w_s[kk * bn + col] =
-              load_w(w, wtype, static_cast<long long>(k0 + kk) * N + n0 + col);
-        }
-        __syncthreads();
-        for (int kk = 0; kk < ks; ++kk) {
-          float pa[RM], wb[RN];
+  for (int k0 = k_lo; k0 < k_hi; k0 += PT_KS) {
+    __syncthreads();  // every thread is done with the previous round
 #pragma unroll
-          for (int a = 0; a < RM; ++a) pa[a] = plane_s[kk * pm + ty + a * TR];
+    for (int i = 0; i < QL; ++i) {
+      const int e = threadIdx.x + i * PT_THREADS;
+      const int r = e / PT_KS;
+      int v = qv[i];
+      if (uniform) {
+        const unsigned mag = static_cast<unsigned>(v < 0 ? -v : v);
+        const float t = static_cast<float>(mag & keep_s[r]);
+        v = __float_as_int(v < 0 ? -t : t);
+      }
+      q_s[e % PT_KS][r] = v;
+    }
 #pragma unroll
-          for (int b = 0; b < RN; ++b) wb[b] = w_s[kk * bn + tx + b * TC];
+    for (int i = 0; i < WL; ++i) {
+      const int e = threadIdx.x + i * PT_THREADS;
+      w_s[e / TN][e % TN] = wv[i];
+    }
+    if (k0 + PT_KS < k_hi)  // the next round's loads, in flight meanwhile
+      product_round<RN, QT>(qv, wv, q, w, wtype, m0, n0, k0 + PT_KS, k_hi, M,
+                            K, N);
+    __syncthreads();
+    if (uniform) {
+#pragma unroll 8
+      for (int kk = 0; kk < PT_KS; ++kk) {
+        float wb[RN];
 #pragma unroll
-          for (int a = 0; a < RM; ++a)
+        for (int b = 0; b < RN; ++b) wb[b] = w_s[kk][tx + 16 * b];
 #pragma unroll
-            for (int b = 0; b < RN; ++b)
-              acc[a][b] = fmaf(pa[a], wb[b], acc[a][b]);
+        for (int a = 0; a < 4; ++a) {
+          const float t = __int_as_float(q_s[kk][ty + 16 * a]);
+#pragma unroll
+          for (int b = 0; b < RN; ++b) acc[a][b] = fmaf(t, wb[b], acc[a][b]);
         }
       }
-      if (relu) {
-        bool neg = true;
+    } else {
+#pragma unroll 4
+      for (int kk = 0; kk < PT_KS; ++kk) {
+        float wb[RN];
 #pragma unroll
-        for (int b = 0; b < RN; ++b) {
-          const int col = n0 + tx + b * TC;
-          const float rem =
-              __fadd_rn(__fmul_rn(scale, sfx[static_cast<long long>(c) * N + col]),
-                        __fmul_rn(scale - tail, tot[col]));
+        for (int b = 0; b < RN; ++b) wb[b] = w_s[kk][tx + 16 * b];
 #pragma unroll
-          for (int a = 0; a < RM; ++a)
-            neg = neg && (__fadd_rn(acc[a][b], rem) < 0.0f);
-        }
-        if (__syncthreads_and(neg)) {
-          dead = true;
-          break;
+        for (int a = 0; a < 4; ++a) {
+          const int v = q_s[kk][ty + 16 * a];
+          const unsigned mag = static_cast<unsigned>(v < 0 ? -v : v);
+#pragma unroll
+          for (int b = 0; b < RN; ++b) {
+            const float t = static_cast<float>(mag & keep[a][b]);
+            acc[a][b] = fmaf(v < 0 ? -t : t, wb[b], acc[a][b]);
+          }
         }
       }
     }
   }
+  // uniform: a column of bound 0 was summed at the row's depth
+#pragma unroll
+  for (int b = 0; b < RN; ++b)
+    if (b_col[b] <= 0)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) acc[a][b] = 0.0f;
 
-#pragma unroll
-  for (int a = 0; a < RM; ++a) {
-    const long long row = m0 + ty + a * TR;
-#pragma unroll
-    for (int b = 0; b < RN; ++b) {
-      float v = acc[a][b];
-      if (relu) v = dead ? 0.0f : fmaxf(v, 0.0f);
-      out[row * N + n0 + tx + b * TC] = v;
-    }
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+    const int Nt = N / bn;
+    for (int e = threadIdx.x; e < (M / bm) * Nt; e += PT_THREADS)
+      used[e] = min(e_max, bnd[e % Nt]);
   }
-  if (threadIdx.x == 0) used[blockIdx.x * gridDim.y + blockIdx.y] = planes;
+  if (gridDim.z == 1) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const long long m = m0 + ty + 16 * a;
+#pragma unroll
+      for (int b = 0; b < RN; ++b) {
+        const int col = n0 + tx + 16 * b;
+        if (m < M && col < N) out[m * N + col] = acc[a][b];
+      }
+    }
+    return;
+  }
+  // the cluster's sum, slice by slice in order
+  float* part = reinterpret_cast<float*>(&q_s[0][0]);  // [PT_M][TN]
+  __syncthreads();  // every thread is done with q_s
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < RN; ++b)
+      part[(ty + 16 * a) * TN + tx + 16 * b] = acc[a][b];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = gridDim.z;
+  const int share = (PT_M * TN + splits - 1) / splits;
+  const int e0 = static_cast<int>(cluster.block_rank()) * share;
+  for (int e = e0 + threadIdx.x; e < min(e0 + share, PT_M * TN);
+       e += PT_THREADS) {
+    float s = 0.0f;
+    for (int z = 0; z < splits; ++z) {
+      const float v = *cluster.map_shared_rank(part + e, z);
+      s = z == 0 ? v : s + v;
+    }
+    const long long m = m0 + e / TN;
+    const int col = n0 + e % TN;
+    if (m < M && col < N) out[m * N + col] = s;
+  }
+  cluster.sync();  // no block leaves while its partial sums are read
 }
 
-int largest_divisor(int n) {  // of {8, 4, 2, 1}
-  for (int r = 8; r > 1; r /= 2)
-    if (n % r == 0) return r;
-  return 1;
+// ------------------------------------------------------------ B. planes
+
+constexpr int KC = 32;        // K rows of a sub-chunk
+constexpr int NSTAGE = 3;     // cp.async ring depth
+constexpr int AS = KC + 8;    // bf16 per digit-tile row (80 B: no conflicts)
+
+// The mma asm is not volatile: it only reads and writes registers, and the
+// compiler may then interleave independent accumulators instead of waiting
+// out each product's latency in program order.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a @ b, from a zero accumulator
+__device__ __forceinline__ void mma_bf16_z(float (&c)[4], const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// bf16 bits of digit * 2^shift (0 or +-2^shift) for one q element; `e_bits`
+// is the exponent field of 2^shift.
+template <typename QT>
+__device__ __forceinline__ uint32_t digit_bits(QT v, int shift,
+                                               uint32_t e_bits, bool live) {
+  const int x = static_cast<int>(v);
+  const uint32_t mag = static_cast<uint32_t>(x < 0 ? -x : x);
+  const uint32_t bit = ((mag >> shift) & 1u) & static_cast<uint32_t>(live);
+  return (0u - bit) & (e_bits | (static_cast<uint32_t>(x < 0) << 15));
+}
+
+// Four 1-byte q elements at src as one word (src need not be aligned: the
+// word is assembled from the two aligned words around it); elements from
+// `valid` on are zero.
+template <typename QT>
+__device__ __forceinline__ uint32_t load_word4(const QT* src, int valid) {
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(src);
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+  // offset from src itself, so the compiler keeps its shared-memory space
+  const uint32_t* wd = reinterpret_cast<const uint32_t*>(p - mis);
+  uint32_t x = __funnelshift_r(wd[0], wd[1], static_cast<uint32_t>(mis) * 8);
+  if (valid < 4) x &= valid <= 0 ? 0u : 0xffffffffu >> (8 * (4 - valid));
+  return x;
+}
+
+// Magnitudes and sign flags (0x01 per negative byte) of four 1-byte q.
+template <typename QT>
+__device__ __forceinline__ void mag_neg4(uint32_t x, uint32_t& mag,
+                                         uint32_t& neg) {
+  if constexpr (std::is_signed<QT>::value) {
+    mag = __vabsss4(x);
+    neg = (x >> 7) & 0x01010101u;
+  } else {
+    mag = x;
+    neg = 0u;
+  }
+}
+
+// Digits of four 1-byte q (magnitudes, sign flags) as two bf16 pairs: lo
+// holds elements 0 and 1, hi 2 and 3.  Per byte lane: the bit, then the
+// bf16 pattern of +-2^shift.
+__device__ __forceinline__ void decode4(uint32_t mag, uint32_t neg, int shift,
+                                        uint32_t e_bits, bool live,
+                                        uint32_t& lo, uint32_t& hi) {
+  const uint32_t bits = live ? (mag >> shift) & 0x01010101u : 0u;
+  const uint32_t n = neg & bits;
+  lo = __byte_perm(bits, 0u, 0x4140) * e_bits |
+       __byte_perm(n, 0u, 0x4140) << 15;
+  hi = __byte_perm(bits, 0u, 0x4342) * e_bits |
+       __byte_perm(n, 0u, 0x4342) << 15;
+}
+
+// Digits of the four q elements at src as two bf16 pairs (lo: elements 0
+// and 1, hi: 2 and 3); elements from `valid` on are zero.  1-byte q with
+// fewer than 9 bits decodes a word at once.
+template <typename QT>
+__device__ __forceinline__ void digits4(const QT* src, int shift,
+                                        uint32_t e_bits, bool live, int valid,
+                                        uint32_t& lo, uint32_t& hi) {
+  if constexpr (sizeof(QT) == 1) {
+    if (shift < 8) {
+      uint32_t mag, neg;
+      mag_neg4<QT>(load_word4(src, valid), mag, neg);
+      decode4(mag, neg, shift, e_bits, live, lo, hi);
+      return;
+    }
+  }
+  uint32_t h[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    h[j] = digit_bits(src[j], shift, e_bits, live && j < valid);
+  lo = h[0] | (h[1] << 16);
+  hi = h[2] | (h[3] << 16);
+}
+
+// Digit plane d of KC K columns of q (rows of stride q_row elements) into
+// the bf16 tile a_s [PM][AS], once for the whole block; columns from v on
+// are zero.
+template <typename QT>
+__device__ __forceinline__ void extract_digits(__nv_bfloat16* a_s,
+                                               const QT* q_s, int q_row,
+                                               const int* rbud_s, int PM,
+                                               int shift, int d, int v) {
+  const uint32_t e_bits = static_cast<uint32_t>(127 + shift) << 7;
+  for (int e = threadIdx.x; e < PM * (KC / 4); e += blockDim.x) {
+    const int r = e / (KC / 4);
+    const int k = 4 * (e % (KC / 4));
+    uint32_t lo, hi;
+    digits4(q_s + r * q_row + k, shift, e_bits, rbud_s[r] > d, v - k, lo, hi);
+    *reinterpret_cast<uint2*>(a_s + r * AS + k) = make_uint2(lo, hi);
+  }
+}
+
+// The W-part fragments of a sub-chunk (two mma steps of 16 K rows) for the
+// warp's columns.  Parts are k-major [part][k][p_row], read transposed by
+// ldmatrix.
+template <int NI>
+__device__ __forceinline__ void load_b(uint32_t (&b)[2][3][NI][2],
+                                       const __nv_bfloat16* p_s, int p_row,
+                                       int p_part, int parts, int wn0,
+                                       int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if (p >= parts) break;
+      const __nv_bfloat16* base =
+          p_s + p * p_part + (ks * 16 + (lane & 15)) * p_row + wn0;
+      if constexpr (NI == 1) {
+        uint32_t r[2];
+        ldsm_x2_t(r, base);
+        b[ks][p][0][0] = r[0];
+        b[ks][p][0][1] = r[1];
+      } else {
+#pragma unroll
+        for (int ni = 0; ni < NI; ni += 2) {
+          uint32_t r[4];
+          ldsm_x4_t(r, base + ni * 8 + (lane >> 4) * 8);
+          b[ks][p][ni][0] = r[0];
+          b[ks][p][ni][1] = r[1];
+          b[ks][p][ni + 1][0] = r[2];
+          b[ks][p][ni + 1][1] = r[3];
+        }
+      }
+    }
+}
+
+// t[g][ni] = a[g] @ W parts for G row fragments and NI column fragments,
+// over the two 16-row steps of a sub-chunk (a[g][0]: K rows 0-15, a[g][1]:
+// 16-31), lo part first.  The loops are step-major, so consecutive mma are
+// independent.
+template <int G, int NI>
+__device__ __forceinline__ void mma_steps(float (&t)[G][NI][4],
+                                          const uint32_t (&a)[G][2][4],
+                                          const uint32_t (&b)[2][3][NI][2],
+                                          int parts) {
+  if (parts == 3) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        mma_bf16_z(t[g][ni], a[g][0], b[0][2][ni][0], b[0][2][ni][1]);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        mma_bf16(t[g][ni], a[g][0], b[0][1][ni][0], b[0][1][ni][1]);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        mma_bf16(t[g][ni], a[g][0], b[0][0][ni][0], b[0][0][ni][1]);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        mma_bf16(t[g][ni], a[g][1], b[1][2][ni][0], b[1][2][ni][1]);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        mma_bf16(t[g][ni], a[g][1], b[1][1][ni][0], b[1][1][ni][1]);
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        mma_bf16_z(t[g][ni], a[g][0], b[0][0][ni][0], b[0][0][ni][1]);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+      mma_bf16(t[g][ni], a[g][1], b[1][0][ni][0], b[1][0][ni][1]);
+}
+
+// acc += t with one round-to-nearest add per element: each sub-chunk's
+// products are summed from zero and then added here, because the tensor
+// core's own accumulation does not round to nearest, and chained over all
+// of K and the planes it drifts past 1e-5.
+template <int NI>
+__device__ __forceinline__ void flush(float (&acc)[NI][4],
+                                      const float (&t)[NI][4]) {
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = __fadd_rn(acc[ni][e], t[ni][e]);
+}
+
+// A sub-chunk with the digits read from the block's digit tile a_s.
+template <int MI, int NI>
+__device__ __forceinline__ void mma_item(float (&acc)[MI][NI][4],
+                                         const __nv_bfloat16* a_s,
+                                         const __nv_bfloat16* p_s, int p_row,
+                                         int p_part, int parts, int wm0,
+                                         int wn0, int lane) {
+  // row fragments per mma_steps call: all of the warp's rows when its
+  // accumulators are few (MI * NI products interleave), else one
+  constexpr int G = MI * NI <= 4 ? MI : 1;
+  uint32_t b[2][3][NI][2];
+  load_b<NI>(b, p_s, p_row, p_part, parts, wn0, lane);
+#pragma unroll
+  for (int m0 = 0; m0 < MI; m0 += G) {
+    uint32_t a[G][2][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const __nv_bfloat16* row =
+          a_s + (wm0 + (m0 + g) * 16 + (lane & 15)) * AS + (lane >> 4) * 8;
+      ldsm_x4(a[g][0], row);
+      ldsm_x4(a[g][1], row + 16);
+    }
+    float t[G][NI][4];
+    mma_steps<G, NI>(t, a, b, parts);
+#pragma unroll
+    for (int g = 0; g < G; ++g) flush<NI>(acc[m0 + g], t[g]);
+  }
+}
+
+// A sub-chunk with each warp building its own digit fragments from q in
+// registers (a warp that spans all columns shares its rows with no other
+// warp).  Lane (g, t4) takes the four consecutive K columns 4*t4 .. 4*t4+3
+// of each 16-column step; the W parts were stored with the matching
+// permutation of their rows (perm_k).
+template <int MI, int NI, typename QT>
+__device__ __forceinline__ void mma_item_reg(
+    float (&acc)[MI][NI][4], const QT* q_s, int q_row, const int* rbud_s,
+    const __nv_bfloat16* p_s, int p_row, int p_part, int parts, int shift,
+    int d, int v, int wm0, int wn0, int lane) {
+  // row fragments per mma_steps call: all of the warp's rows when its
+  // accumulators are few (MI * NI products interleave), else one
+  constexpr int G = MI * NI <= 4 ? MI : 1;
+  const int k4 = 4 * (lane & 3);
+  const uint32_t e_bits = static_cast<uint32_t>(127 + shift) << 7;
+  uint32_t b[2][3][NI][2];
+  load_b<NI>(b, p_s, p_row, p_part, parts, wn0, lane);
+#pragma unroll
+  for (int m0 = 0; m0 < MI; m0 += G) {
+    uint32_t a[G][2][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int r0 = wm0 + (m0 + g) * 16 + (lane >> 2);
+      const bool l0 = rbud_s[r0] > d;
+      const bool l1 = rbud_s[r0 + 8] > d;
+      const QT* s0 = q_s + r0 * q_row + k4;
+      const QT* s1 = s0 + 8 * q_row;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int valid = v - 16 * ks - k4;
+        digits4(s0 + 16 * ks, shift, e_bits, l0, valid, a[g][ks][0],
+                a[g][ks][2]);
+        digits4(s1 + 16 * ks, shift, e_bits, l1, valid, a[g][ks][1],
+                a[g][ks][3]);
+      }
+    }
+    float t[G][NI][4];
+    mma_steps<G, NI>(t, a, b, parts);
+#pragma unroll
+    for (int g = 0; g < G; ++g) flush<NI>(acc[m0 + g], t[g]);
+  }
+}
+
+// Row of K column k (within a 16-column mma step) in the register path's
+// W-part layout: column 4t + 2h + e sits at row 8h + 2t + e, where the mma
+// fragment of lane t expects it.
+__device__ __forceinline__ int perm_k(int k) {
+  return (k & ~15) | (((k >> 1) & 1) << 3) | (((k >> 2) & 3) << 1) | (k & 1);
+}
+
+// Write the bf16 parts of x: hi = bf16(x), mid = bf16(x - hi),
+// lo = bf16(x - hi - mid); one part for bf16 weights.
+__device__ __forceinline__ void split_w(__nv_bfloat16* dst, int p_part,
+                                        float x, int parts) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+  dst[0] = hi;
+  if (parts == 3) {
+    const float r1 = x - __bfloat162float(hi);
+    const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+    dst[p_part] = mid;
+    dst[2 * p_part] = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+  }
+}
+
+// wp[p][i] = part p of w[i]: the hi, mid and lo bf16 parts of f32 weights.
+__global__ void split_parts_kernel(const float* __restrict__ w,
+                                   __nv_bfloat16* __restrict__ wp,
+                                   long long n) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float x = w[i];
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+    const float r1 = x - __bfloat162float(hi);
+    const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+    wp[i] = hi;
+    wp[n + i] = mid;
+    wp[2 * n + i] = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+  }
+}
+
+struct PlaneGeom {
+  int PM, PN;     // physical tile: block_m, block_n padded to 16 and 8
+  int WN;         // warps across the columns
+  int resident;   // 1: q rows and every W part staged once
+  int reg;        // 1: digits built in registers (resident, WN == 1)
+  int q_stride;   // streamed: q row stride in a stage, bytes
+  int q_bytes;    // resident: one buffer of a tile's q rows, bytes
+  int off_a, off_p, off_q;  // shared-memory offsets, bytes
+  int p_part;     // bf16 elements per W part
+  int smem;       // dynamic shared memory, bytes
+};
+
+template <int MI, int NI>
+__device__ __forceinline__ void zero_tile(float (&acc)[MI][NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+}
+
+// Chunk c's suffix sums for the thread's columns.
+template <int NI>
+__device__ __forceinline__ void load_sf(float (&sf)[NI][2],
+                                        const float* __restrict__ sfx, int c,
+                                        int N, int n0, int wn0, int t4,
+                                        int bn) {
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = wn0 + ni * 8 + 2 * t4 + j;
+      sf[ni][j] =
+          col < bn ? sfx[static_cast<long long>(c) * N + n0 + col] : 0.0f;
+    }
+}
+
+// The termination vote: "every acc + R of the logical tile is negative",
+// R = scale * sf + (scale - tail) * tot, ANDed over the block.  Physical pad
+// rows and columns do not vote.  No branches: every element is tested.
+template <int MI, int NI>
+__device__ __forceinline__ bool tile_dead(const float (&acc)[MI][NI][4],
+                                          const float (&sf)[NI][2],
+                                          const float (&tot_c)[NI][2],
+                                          float scale, float tail, int wm0,
+                                          int wn0, int g, int t4, int bm,
+                                          int bn) {
+  int ok = 1;
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int pad_col = wn0 + ni * 8 + 2 * t4 + j >= bn;
+      const float rem = __fadd_rn(__fmul_rn(scale, sf[ni][j]),
+                                  __fmul_rn(scale - tail, tot_c[ni][j]));
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pad_row = wm0 + mi * 16 + g + 8 * h >= bm;
+          ok &= pad_col | pad_row |
+                static_cast<int>(__fadd_rn(acc[mi][ni][2 * h + j], rem) < 0.0f);
+        }
+    }
+  return __syncthreads_and(ok) != 0;
+}
+
+// Write the logical part of a tile ([relu], zeros when it terminated) and
+// its planes_used.
+template <int MI, int NI>
+__device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4],
+                                           float* __restrict__ out,
+                                           int* __restrict__ used,
+                                           long long m0, int n0, int N,
+                                           int used_at, int planes, bool dead,
+                                           int relu, int wm0, int wn0, int g,
+                                           int t4, int bm, int bn) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = wm0 + mi * 16 + g + 8 * (e >> 1);
+        const int col = wn0 + ni * 8 + 2 * t4 + (e & 1);
+        if (row < bm && col < bn) {
+          float v = acc[mi][ni][e];
+          if (relu) v = dead ? 0.0f : fmaxf(v, 0.0f);
+          out[(m0 + row) * N + n0 + col] = v;
+        }
+      }
+  if (threadIdx.x == 0) used[used_at] = planes;
+}
+
+// Shared memory: row budgets [PM] i32 | two digit tiles [PM][AS] bf16 (not
+// in the register path) | resident: W parts of all of K laid out per
+// sub-chunk, then two buffers of a tile's q rows as copied (the next tile's
+// rows land while this one computes); streamed: NSTAGE stages, each q rows
+// then W parts of KC rows, copied from `wp` (the bf16 parts [part][K][N],
+// split once per call by split_parts_kernel, or the bf16 weights
+// themselves).  Warp w owns rows (w / WN)*16*MI + [0, 16*MI) and columns
+// (w % WN)*8*NI + [0, 8*NI) of the physical tile.  A streamed block computes
+// one tile; a resident block computes M tiles blockIdx.x, + gridDim.x, ...
+// of N tile blockIdx.y, with W staged once.
+template <int MI, int NI, typename QT>
+__global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
+    plane_kernel(
+    const QT* __restrict__ q, const void* __restrict__ w, int wtype,
+    const __nv_bfloat16* __restrict__ wp, const float* __restrict__ sfx,
+    const float* __restrict__ tot, const int* __restrict__ npl_ptr,
+    const int* __restrict__ bnd, const int* __restrict__ bud,
+    float* __restrict__ out, int* __restrict__ used, int Mt, int K, int N,
+    int n_bits, int D, int bm, int bn, int bk, int relu, PlaneGeom geo) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* rbud_s = reinterpret_cast<int*>(smem);
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_a);
+  __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_p);
+  uint8_t* q_area = smem + geo.off_q;
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wm0 = (warp / geo.WN) * MI * 16;
+  const int wn0 = (warp % geo.WN) * NI * 8;
+  const int n0 = blockIdx.y * bn;
+  const int parts = wtype == W_F32 ? 3 : 1;
+  const int PM = geo.PM;
+  const int PN = geo.PN;
+  const int p_row = PN + 8;
+  const int Kt = K / bk;
+  const int S = (bk + KC - 1) / KC;  // sub-chunks per logical chunk
+  const int T = Kt * S;
+
+  const int npl = *npl_ptr;
+  const int limit = min(min(D, npl), bnd[blockIdx.y]);
+  const float tail = pow2(n_bits - npl);
+
+  float tot_c[NI][2];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = wn0 + ni * 8 + 2 * t4 + j;
+      tot_c[ni][j] = col < bn ? tot[n0 + col] : 0.0f;
+    }
+  float sf[NI][2];
+  float acc[MI][NI][4];
+  auto fill_budgets = [&](long long m0) {  // pad rows: never live
+    for (int r = threadIdx.x; r < PM; r += blockDim.x)
+      rbud_s[r] = r >= bm ? 0 : (bud == nullptr ? D : bud[m0 + r]);
+  };
+
+  if constexpr (!(MI == 4 && NI == 1)) if (!geo.resident) {
+    // ---- streamed: one tile, K through the cp.async ring
+    const long long m0 = static_cast<long long>(blockIdx.x) * bm;
+    const QT* q_tile = q + m0 * K;
+    const int stage = PM * geo.q_stride + parts * geo.p_part * 2;
+    const int total = limit * T;  // (plane, chunk, sub-chunk) items
+    auto issue = [&](int item) {
+      const int r = item % T;
+      const int c = r / S;
+      const int s = r - c * S;
+      const int k0 = c * bk + s * KC;
+      const int v = min(KC, bk - s * KC);
+      uint8_t* st = q_area + (item % NSTAGE) * stage;
+      copy_rows(st, geo.q_stride,
+                reinterpret_cast<const uint8_t*>(q_tile + k0),
+                static_cast<long long>(K) * sizeof(QT), bm,
+                v * static_cast<int>(sizeof(QT)));
+      for (int p = 0; p < parts; ++p)
+        copy_rows(st + PM * geo.q_stride + p * geo.p_part * 2, p_row * 2,
+                  reinterpret_cast<const uint8_t*>(
+                      wp + (p * static_cast<long long>(K) + k0) * N + n0),
+                  static_cast<long long>(N) * 2, v, bn * 2);
+    };
+    fill_budgets(m0);
+    zero_tile<MI, NI>(acc);
+    // zero the ring once: W columns past bn are never copied and must be 0
+    uint4* z = reinterpret_cast<uint4*>(q_area);
+    for (int e = threadIdx.x; e < NSTAGE * stage / 16; e += blockDim.x)
+      z[e] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+    for (int i = 0; i < NSTAGE - 1; ++i) {
+      if (i < total) issue(i);
+      cp_async_commit();
+    }
+    int planes = 0;
+    int i = 0;
+    bool dead = false;
+    for (int d = 0; d < limit && !dead; ++d) {
+      ++planes;
+      const int shift = n_bits - 1 - d;
+      for (int c = 0; c < Kt && !dead; ++c) {
+        if (relu)  // in flight while the chunk computes
+          load_sf<NI>(sf, sfx, c, N, n0, wn0, t4, bn);
+        for (int s = 0; s < S; ++s, ++i) {
+          const int v = min(KC, bk - s * KC);
+          cp_async_wait<NSTAGE - 2>();
+          __syncthreads();  // item i landed; every thread is done with i-1
+          if (i + NSTAGE - 1 < total) issue(i + NSTAGE - 1);
+          cp_async_commit();
+          // W rows from v on hold an earlier item's weights; the digits
+          // there are zero
+          const uint8_t* st = q_area + (i % NSTAGE) * stage;
+          extract_digits<QT>(a_s, reinterpret_cast<const QT*>(st),
+                             geo.q_stride / static_cast<int>(sizeof(QT)),
+                             rbud_s, PM, shift, d, v);
+          __syncthreads();
+          mma_item<MI, NI>(
+              acc, a_s,
+              reinterpret_cast<const __nv_bfloat16*>(st + PM * geo.q_stride),
+              p_row, geo.p_part, parts, wm0, wn0, lane);
+        }
+        if (relu && tile_dead<MI, NI>(acc, sf, tot_c, pow2(shift), tail, wm0,
+                                        wn0, g, t4, bm, bn))
+          dead = true;
+      }
+    }
+    cp_async_wait_all();
+    store_tile<MI, NI>(acc, out, used, m0, n0, N,
+                       blockIdx.x * gridDim.y + blockIdx.y, planes, dead,
+                       relu, wm0, wn0, g, t4, bm, bn);
+    return;
+  }
+
+  // ---- resident: W parts once per block, laid out per sub-chunk, zero
+  // past each chunk's end (rows permuted for the register path)
+  auto issue_q = [&](int tile, int buf) {  // a tile's q rows: one run
+    copy_rows(q_area + buf * geo.q_bytes, 0,
+              reinterpret_cast<const uint8_t*>(
+                  q + static_cast<long long>(tile) * bm * K),
+              0, 1, bm * K * static_cast<int>(sizeof(QT)));
+  };
+  int tile = blockIdx.x;
+  if (tile < Mt) issue_q(tile, 0);
+  cp_async_commit();
+  const int ck = S * KC;  // rows per chunk in the parts layout
+  for (int e = threadIdx.x; e < T * KC * PN; e += blockDim.x) {
+    const int n = e % PN;
+    const int kr = e / PN;
+    const int c = kr / ck;
+    const int kc = kr - c * ck;
+    const float x = (n < bn && kc < bk)
+        ? load_w(w, wtype, static_cast<long long>(c * bk + kc) * N + n0 + n)
+        : 0.0f;
+    split_w(p_s + (geo.reg ? perm_k(kr) : kr) * p_row + n, geo.p_part, x,
+            parts);
+  }
+  // one sub-chunk covers K (the conv): the words of q, the W fragments and
+  // the suffix sums are the same on every plane, so they stay in registers
+  const bool words =
+      NI == 1 && sizeof(QT) == 1 && geo.reg && T == 1 && n_bits <= 8;
+  uint32_t b[2][3][NI][2];
+  if (relu && Kt == 1) load_sf<NI>(sf, sfx, 0, N, n0, wn0, t4, bn);
+
+  for (int it = 0; tile < Mt; ++it, tile += gridDim.x) {
+    const long long m0 = static_cast<long long>(tile) * bm;
+    const int next = tile + gridDim.x;
+    if (next < Mt) issue_q(next, (it + 1) & 1);
+    cp_async_commit();
+    fill_budgets(m0);
+    cp_async_wait<1>();
+    __syncthreads();  // this tile's q, its budgets and the W parts are in
+    const QT* q_flat = reinterpret_cast<const QT*>(q_area + (it & 1) *
+                                                   geo.q_bytes);
+    zero_tile<MI, NI>(acc);
+    int planes = 0;
+    bool dead = false;
+    if (words) {  // false at compile time unless NI == 1
+      if (it == 0) load_b<NI>(b, p_s, p_row, geo.p_part, parts, wn0, lane);
+      const int k4 = 4 * t4;
+      uint32_t mag[MI][2][2], neg[MI][2][2];  // [mi][k step][row half]
+      int rb[MI][2];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm0 + mi * 16 + g + 8 * h;
+          rb[mi][h] = rbud_s[r];
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks)
+            mag_neg4<QT>(load_word4(q_flat + r * K + 16 * ks + k4,
+                                    bk - 16 * ks - k4),
+                         mag[mi][ks][h], neg[mi][ks][h]);
+        }
+      constexpr int G = MI * NI <= 4 ? MI : 1;
+      for (int d = 0; d < limit && !dead; ++d) {
+        ++planes;
+        const int shift = n_bits - 1 - d;
+        const uint32_t e_bits = static_cast<uint32_t>(127 + shift) << 7;
+#pragma unroll
+        for (int m0g = 0; m0g < MI; m0g += G) {
+          uint32_t a[G][2][4];
+#pragma unroll
+          for (int gg = 0; gg < G; ++gg)
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                decode4(mag[m0g + gg][ks][h], neg[m0g + gg][ks][h], shift,
+                        e_bits, rb[m0g + gg][h] > d, a[gg][ks][h],
+                        a[gg][ks][h + 2]);
+          float t[G][NI][4];
+          mma_steps<G, NI>(t, a, b, parts);
+#pragma unroll
+          for (int gg = 0; gg < G; ++gg) flush<NI>(acc[m0g + gg], t[gg]);
+        }
+        if (relu && tile_dead<MI, NI>(acc, sf, tot_c, pow2(shift), tail, wm0,
+                                        wn0, g, t4, bm, bn))
+          dead = true;
+      }
+    } else {
+      int i = 0;
+      for (int d = 0; d < limit && !dead; ++d) {
+        ++planes;
+        const int shift = n_bits - 1 - d;
+        for (int c = 0; c < Kt && !dead; ++c) {
+          if (relu && Kt > 1) load_sf<NI>(sf, sfx, c, N, n0, wn0, t4, bn);
+          for (int s = 0; s < S; ++s, ++i) {
+            const int v = min(KC, bk - s * KC);
+            const __nv_bfloat16* p_sub = p_s + (c * S + s) * KC * p_row;
+            const QT* q_sub = q_flat + c * bk + s * KC;
+            if (NI == 1 && geo.reg) {
+              mma_item_reg<MI, NI, QT>(acc, q_sub, K, rbud_s, p_sub, p_row,
+                                       geo.p_part, parts, shift, d, v, wm0,
+                                       wn0, lane);
+            } else {
+              // this buffer was last read two items ago, before a barrier
+              __nv_bfloat16* a_cur = a_s + (i & 1) * PM * AS;
+              extract_digits<QT>(a_cur, q_sub, K, rbud_s, PM, shift, d, v);
+              __syncthreads();
+              mma_item<MI, NI>(acc, a_cur, p_sub, p_row, geo.p_part, parts,
+                               wm0, wn0, lane);
+            }
+          }
+          if (relu && tile_dead<MI, NI>(acc, sf, tot_c, pow2(shift), tail, wm0,
+                                        wn0, g, t4, bm, bn))
+          dead = true;
+        }
+      }
+    }
+    store_tile<MI, NI>(acc, out, used, m0, n0, N,
+                       tile * gridDim.y + blockIdx.y, planes, dead, relu,
+                       wm0, wn0, g, t4, bm, bn);
+    __syncthreads();  // done with this q buffer and the budgets
+  }
+  cp_async_wait_all();
+}
+
+// ------------------------------------------------------------ launchers
+
+bool product_path(int n_bits, int relu) { return !relu && n_bits <= 24; }
+
+int product_tn(int N) { return N <= 16 ? 16 : 64; }
+
+// K slices of the product path: up to four blocks per SM when the tiles are
+// fewer than the SMs, at most one portable cluster of slices, each slice a
+// multiple of PT_KS.
+int product_splits(int M, int K, int N, int* slice) {
+  const long long tiles = static_cast<long long>((M + PT_M - 1) / PT_M) *
+                          ((N + product_tn(N) - 1) / product_tn(N));
+  const int rounds = (K + PT_KS - 1) / PT_KS;
+  int want = 1;
+  if (tiles < NUM_SMS) {
+    const long long fill = (4 * NUM_SMS + tiles - 1) / tiles;
+    want = rounds < PT_MAX_SPLITS ? rounds : PT_MAX_SPLITS;
+    if (fill < want) want = static_cast<int>(fill);
+  }
+  *slice = (rounds + want - 1) / want * PT_KS;
+  return (K + *slice - 1) / *slice;
+}
+
+template <typename QT>
+int launch_product(const void* q, const void* w, int wtype, const void* npl,
+                   const void* bnd, const void* bud, void* out, void* used,
+                   int M, int K, int N, int n_bits, int D, int bm, int bn,
+                   cudaStream_t s) {
+  int slice = 0;
+  const int splits = product_splits(M, K, N, &slice);
+  const int tn = product_tn(N);
+  const dim3 grid((M + PT_M - 1) / PT_M, (N + tn - 1) / tn, splits);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(PT_THREADS);
+  cfg.stream = s;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = splits;
+  cfg.attrs = cluster;
+  cfg.numAttrs = splits > 1 ? 1 : 0;  // no cluster when K is not split
+  const QT* qq = static_cast<const QT*>(q);
+  const int* np = static_cast<const int*>(npl);
+  const int* bd = static_cast<const int*>(bnd);
+  const int* bu = static_cast<const int*>(bud);
+  float* o = static_cast<float*>(out);
+  int* u = static_cast<int*>(used);
+  cudaError_t err =
+      tn == 16 ? cudaLaunchKernelEx(&cfg, product_kernel<1, QT>, qq, w, wtype,
+                                    np, bd, bu, o, u, M, K, N, n_bits, D, bm,
+                                    bn, slice)
+               : cudaLaunchKernelEx(&cfg, product_kernel<4, QT>, qq, w, wtype,
+                                    np, bd, bu, o, u, M, K, N, n_bits, D, bm,
+                                    bn, slice);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int MI, int NI, typename QT>
+int launch_plane_mn(const void* q, const void* w, int wtype, const float* sfx,
+                    const float* tot, const int* npl, const int* bnd,
+                    const int* bud, float* out, int* used, void* ws, int M,
+                    int K, int N, int n_bits, int D, int bm, int bn, int bk,
+                    int relu, PlaneGeom geo, cudaStream_t s) {
+  auto kernel = plane_kernel<MI, NI, QT>;
+  // the most shared memory per SM, so that small tiles keep many blocks
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && geo.smem > 49152)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
+  if (err != cudaSuccess) return err;
+  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w);
+  if (!geo.resident && wtype == W_F32) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    const long long n = static_cast<long long>(K) * N;
+    split_parts_kernel<<<static_cast<unsigned>(min(4096LL, (n + 255) / 256)),
+                         256, 0, s>>>(static_cast<const float*>(w),
+                                      static_cast<__nv_bfloat16*>(ws), n);
+    wp = static_cast<const __nv_bfloat16*>(ws);
+  }
+  const int threads = (geo.PM / (16 * MI)) * geo.WN * 32;
+  const int Mt = M / bm;
+  const int Nt = N / bn;
+  int gx = Mt;
+  if (geo.resident) {  // as many blocks as fit at once, each over M tiles
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, geo.smem);
+    if (err != cudaSuccess) return err;
+    const long long fit = static_cast<long long>(per_sm > 1 ? per_sm : 1) *
+                          NUM_SMS;
+    const long long want = (fit + Nt - 1) / Nt;
+    gx = static_cast<int>(want < Mt ? want : Mt);
+  }
+  kernel<<<dim3(gx, Nt), threads, geo.smem, s>>>(
+      static_cast<const QT*>(q), w, wtype, wp, sfx, tot, npl, bnd, bud, out,
+      used, Mt, K, N, n_bits, D, bm, bn, bk, relu, geo);
+  return cudaGetLastError();
+}
+
+long long align16(long long x) { return (x + 15) / 16 * 16; }
+
+// Warp tiles: (MI, NI) = (1, 1), (2, 2) or (4, 4) with the fewest rows per
+// warp that keeps at most 16 warps (8 for 2 x 2 and 4 x 4, which need more
+// registers); a resident tile whose
+// warps each span all columns builds its digits in registers, and one of
+// 8 columns with a multiple of 64 rows takes 64 x 8 warp tiles (the CNN
+// conv: two warps per 128 x 8 tile).
+template <typename QT>
+int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
+                 const void* tot, const void* npl, const void* bnd,
+                 const void* bud, void* out, void* used, void* ws, int M,
+                 int K, int N, int n_bits, int D, int bm, int bn, int bk,
+                 int relu, cudaStream_t s) {
+  PlaneGeom geo{};
+  geo.PM = (bm + 15) / 16 * 16;
+  geo.PN = (bn + 7) / 8 * 8;
+  int mi = 0;
+  for (int r = 1; r <= 4 && mi == 0; r *= 2)  // fewest rows a warp keeps
+    if (geo.PM % (16 * r) == 0 && geo.PN % (8 * r) == 0 &&
+        (geo.PM / (16 * r)) * (geo.PN / (8 * r)) <= (r == 1 ? 16 : 8))
+      mi = r;
+  if (mi == 0 || N / bn > 65535) return cudaErrorInvalidValue;
+  int ni = mi;
+  if (geo.PN == 8 && geo.PM % 64 == 0) mi = 4, ni = 1;
+  geo.WN = geo.PN / (8 * ni);
+
+  const long long es = sizeof(QT);
+  const long long parts = wtype == W_F32 ? 3 : 1;
+  const long long T = static_cast<long long>(K / bk) * ((bk + KC - 1) / KC);
+  const long long p_row = geo.PN + 8;
+  const long long budgets = geo.PM * 4;
+  const long long tiles = 2LL * geo.PM * AS * 2;
+  const long long res_p = parts * T * KC * p_row * 2;
+  const long long res_q = align16(static_cast<long long>(geo.PM) * K * es + 256);
+  const int reg = geo.WN == 1 && ni == 1;  // register path: 8 columns
+  const long long res_bytes = budgets + (reg ? 0 : tiles) + res_p + 2 * res_q;
+  geo.off_a = static_cast<int>(budgets);
+  if (res_bytes <= RESIDENT_BYTES) {
+    geo.resident = 1;
+    geo.reg = reg;
+    geo.p_part = static_cast<int>(T * KC * p_row);
+    geo.q_bytes = static_cast<int>(res_q);
+    geo.off_p = static_cast<int>(res_bytes - res_p - 2 * res_q);
+    geo.off_q = static_cast<int>(res_bytes - 2 * res_q);
+    geo.smem = static_cast<int>(res_bytes);
+  } else {
+    if (ni == 1 && mi == 4) mi = 1, ni = 1, geo.WN = 1;  // digit tile path
+    geo.p_part = static_cast<int>(KC * p_row);
+    geo.q_stride = static_cast<int>(align16(KC * es) + 16);
+    geo.off_p = static_cast<int>(budgets + tiles);
+    geo.off_q = geo.off_p;
+    const long long bytes =
+        budgets + tiles +
+        NSTAGE * (static_cast<long long>(geo.PM) * geo.q_stride +
+                  parts * KC * p_row * 2);
+    if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+    geo.smem = static_cast<int>(bytes);
+  }
+  const float* sf = static_cast<const float*>(sfx);
+  const float* tt = static_cast<const float*>(tot);
+  const int* np = static_cast<const int*>(npl);
+  const int* bd = static_cast<const int*>(bnd);
+  const int* bu = static_cast<const int*>(bud);
+  float* o = static_cast<float*>(out);
+  int* u = static_cast<int*>(used);
+#define DSLOT_PLANE(MI_, NI_)                                               \
+  if (mi == MI_ && ni == NI_)                                               \
+    return launch_plane_mn<MI_, NI_, QT>(q, w, wtype, sf, tt, np, bd, bu, o, \
+                                         u, ws, M, K, N, n_bits, D, bm, bn, \
+                                         bk, relu, geo, s);
+  DSLOT_PLANE(1, 1)
+  DSLOT_PLANE(2, 2)
+  DSLOT_PLANE(4, 4)
+  DSLOT_PLANE(4, 1)
+#undef DSLOT_PLANE
+  return cudaErrorInvalidValue;
+}
+
+template <typename QT>
+int launch_typed(const void* q, int wtype, const void* w, const void* sfx,
+                 const void* tot, const void* npl, const void* bnd,
+                 const void* bud, void* out, void* used, void* ws, int M,
+                 int K, int N, int n_bits, int D, int bm, int bn, int bk,
+                 int relu, cudaStream_t s) {
+  if (product_path(n_bits, relu))
+    return launch_product<QT>(q, w, wtype, npl, bnd, bud, out, used, M, K, N,
+                              n_bits, D, bm, bn, s);
+  return launch_plane<QT>(q, w, wtype, sfx, tot, npl, bnd, bud, out, used, ws,
+                          M, K, N, n_bits, D, bm, bn, bk, relu, s);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of scratch the launch needs, for the wrapper to allocate: the
+// plane path's bf16 parts of f32 weights (used when the tile streams K).
+long long dslot_matmul_workspace(int M, int K, int N, int n_bits, int relu,
+                                 int wtype) {
+  if (M <= 0 || K <= 0 || N <= 0 || product_path(n_bits, relu)) return 0;
+  return wtype == W_F32 ? 3LL * 2 * K * N : 0;
+}
+
 // Returns a cudaError_t as int: cudaErrorInvalidValue for shapes the kernel
-// does not take, else cudaGetLastError() right after the launch.
+// does not take, else cudaGetLastError() right after the launches.
 int dslot_matmul_launch(const void* q, int qtype, const void* w, int wtype,
                         const void* sfx, const void* tot, const void* npl,
                         const void* bnd, const void* bud, void* out,
-                        void* used, int M, int K, int N, int n_bits, int D,
-                        int bm, int bn, int bk, int relu, void* stream) {
+                        void* used, void* ws, int M, int K, int N, int n_bits,
+                        int D, int bm, int bn, int bk, int relu,
+                        void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
       M % bm != 0 || N % bn != 0 || K % bk != 0 || D < 1 || D > n_bits ||
       n_bits > 30 || qtype < Q_U8 || qtype > Q_I32 || wtype < W_F32 ||
       wtype > W_BF16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int rn = largest_divisor(bn);
-  const int tc = bn / rn;
-  int rm = 0;
-  for (int r = 1; r <= 8 && rm == 0; r *= 2)  // fewest rows a thread keeps
-    if (bm % r == 0 && (bm / r) * tc <= 256) rm = r;
-  for (int r = 8; r >= 1 && rm == 0; r /= 2)
-    if (bm % r == 0 && (bm / r) * tc <= 1024) rm = r;
-  if (rm == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (bm / rm) * tc;
-  const size_t smem = sizeof(float) * KS * static_cast<size_t>(bm + 1 + bn);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(M / bm, N / bn);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-#define DSLOT_LAUNCH(RM_, RN_)                                                 \
-  if (rm == RM_ && rn == RN_) {                                                \
-    if (smem > 49152) {                                                        \
-      cudaError_t err = cudaFuncSetAttribute(                                  \
-          dslot_matmul_kernel<RM_, RN_>,                                       \
-          cudaFuncAttributeMaxDynamicSharedMemorySize,                         \
-          static_cast<int>(smem));                                             \
-      if (err != cudaSuccess) return static_cast<int>(err);                    \
-    }                                                                          \
-    dslot_matmul_kernel<RM_, RN_><<<grid, threads, smem, s>>>(                 \
-        q, qtype, w, wtype, static_cast<const float*>(sfx),                    \
-        static_cast<const float*>(tot), static_cast<const int*>(npl),          \
-        static_cast<const int*>(bnd), static_cast<const int*>(bud),            \
-        static_cast<float*>(out), static_cast<int*>(used), K, N, n_bits, D,    \
-        bm, bn, bk, relu);                                                     \
-    return static_cast<int>(cudaGetLastError());                               \
-  }
-#define DSLOT_LAUNCH_RN(RM_) \
-  DSLOT_LAUNCH(RM_, 1) DSLOT_LAUNCH(RM_, 2) DSLOT_LAUNCH(RM_, 4) DSLOT_LAUNCH(RM_, 8)
-  DSLOT_LAUNCH_RN(1)
-  DSLOT_LAUNCH_RN(2)
-  DSLOT_LAUNCH_RN(4)
-  DSLOT_LAUNCH_RN(8)
-#undef DSLOT_LAUNCH_RN
-#undef DSLOT_LAUNCH
+#define DSLOT_TYPED(CODE, T)                                                \
+  if (qtype == CODE)                                                        \
+    return launch_typed<T>(q, wtype, w, sfx, tot, npl, bnd, bud, out, used, \
+                           ws, M, K, N, n_bits, D, bm, bn, bk, relu, s);
+  DSLOT_TYPED(Q_U8, uint8_t)
+  DSLOT_TYPED(Q_I8, int8_t)
+  DSLOT_TYPED(Q_U16, uint16_t)
+  DSLOT_TYPED(Q_I16, int16_t)
+  DSLOT_TYPED(Q_I32, int32_t)
+#undef DSLOT_TYPED
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

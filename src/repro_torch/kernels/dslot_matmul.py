@@ -18,9 +18,14 @@ zeros.  ``planes_used`` counts the planes each tile entered.
 
 Two executions of that one definition live here:
 
-* ``csrc/dslot_matmul.cu`` — the CUDA C++ kernel for Hopper (one thread
-  block per output tile, the (d, c) loop inside the block, a block-wide vote
-  for the early exit).  ``dslot_matmul_cuda`` launches it for CUDA tensors.
+* ``csrc/dslot_matmul.cu`` — the CUDA C++ kernel for Hopper.  A layer
+  without ReLU (and ``n_bits <= 24``) cannot terminate, so it runs as one
+  product of the truncated ``q`` with ``W``, split over K across a
+  thread-block cluster when its tiles are fewer than the SMs.  A ReLU layer
+  runs one thread block per output tile with the (d, c) loop inside the
+  block, the digit planes on the tensor cores (bf16 ``mma.sync``, f32
+  weights as three bf16 parts) and a block-wide vote for the early exit.
+  ``dslot_matmul_cuda`` launches it for CUDA tensors.
 * ``_replay`` — the plain PyTorch version: the vectorized replay of the
   reference's ``ops._jnp_path``.  It computes every plane and derives the
   per-tile ``planes_used`` the kernel reports by replaying the bound check in
@@ -192,7 +197,9 @@ def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
             row_budget: torch.Tensor | None, tile_bound: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/dslot_matmul.cu`` on the current stream (same
-    arguments and results as ``_replay``)."""
+    arguments and results as ``_replay``).  One call is one launch for the
+    counter, also where it takes two grids (the bf16 split of f32 weights
+    before tiles that stream K)."""
     M, K = q.shape
     N = w.shape[1]
     dev = q.device
@@ -224,6 +231,10 @@ def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
     used = torch.empty((M // block_m, N // block_n), dtype=torch.int32,
                        device=dev)
     lib = _library()
+    ws_bytes = lib.dslot_matmul_workspace(M, K, N, n_bits, int(relu),
+                                          _W_CODES[w.dtype])
+    ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=dev) \
+        if ws_bytes else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dslot_matmul_launch(
@@ -231,8 +242,9 @@ def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
             suffix.data_ptr(), total.data_ptr(), npl.data_ptr(),
             tile_bound.data_ptr(),
             None if row_budget is None else row_budget.data_ptr(),
-            out.data_ptr(), used.data_ptr(), M, K, N, n_bits, n_planes,
-            block_m, block_n, bk, int(relu), stream)
+            out.data_ptr(), used.data_ptr(),
+            None if ws is None else ws.data_ptr(), M, K, N, n_bits,
+            n_planes, block_m, block_n, bk, int(relu), stream)
     if err != 0:
         raise RuntimeError("dslot_matmul kernel launch failed: "
                            + lib.dslot_error_string(err).decode())
@@ -245,8 +257,10 @@ def _library() -> ctypes.CDLL:
     if lib.dslot_matmul_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dslot_matmul_launch.argtypes = [p, i, p, i, p, p, p, p, p, p, p,
-                                            i, i, i, i, i, i, i, i, i, p]
+                                            p, i, i, i, i, i, i, i, i, i, p]
         lib.dslot_matmul_launch.restype = i
+        lib.dslot_matmul_workspace.argtypes = [i, i, i, i, i, i]
+        lib.dslot_matmul_workspace.restype = ctypes.c_longlong
         lib.dslot_error_string.argtypes = [i]
         lib.dslot_error_string.restype = ctypes.c_char_p
     return lib

@@ -79,14 +79,99 @@ def test_kernel_geometries(cuda, block_m, block_n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("signed,wdtype", [(False, torch.float32),
+                                           (True, torch.float32),
+                                           (False, torch.bfloat16)])
+def test_split_k_product_matches_plain(cuda, signed, wdtype):
+    """The product path (no ReLU) at the CNN head's shape, where K splits
+    across blocks: row budgets and a plane bound of 0 cross the slices."""
+    q, w = _dyadic_case(cuda, signed, wdtype, M=1024, K=1152, N=16)
+    bud = torch.as_tensor(np.random.default_rng(9).integers(1, 9, 1024),
+                          dtype=torch.int32, device=cuda)
+    for kw in ({}, {"n_planes_rt": 3},
+               {"row_budget": bud, "n_planes_rt": bud.max(),
+                "plane_bound": torch.tensor([8, 0], dtype=torch.int32,
+                                            device=cuda)}):
+        args = dict(n_bits=8, relu=False, block_m=128, block_n=8,
+                    block_k=None, **kw)
+        a = dm.dslot_matmul_cuda(q, w, **args)
+        b = dm.dslot_matmul_plain(q, w, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(a.planes_used, b.planes_used), kw
+        assert torch.equal(a.out, b.out), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_m,block_n,K", [(16, 5, 1024), (32, 24, 1024),
+                                               (24, 10, 200), (48, 12, 1024)])
+def test_padded_mma_geometries(cuda, block_m, block_n, K):
+    """Tiles that the mma shape (16 rows, 8 columns) pads: the physical pad
+    neither votes nor is stored; K = 1024 streams, K = 200 stays resident."""
+    q, w = _dyadic_case(cuda, True, torch.float32, M=block_m * 8, K=K,
+                        N=block_n * 6)
+    bud = torch.as_tensor(np.random.default_rng(10).integers(1, 9,
+                                                             block_m * 8),
+                          dtype=torch.int32, device=cuda)
+    for kw in ({"block_k": None}, {"block_k": 72 if K == 200 else 256},
+               {"block_k": None, "row_budget": bud,
+                "n_planes_rt": bud.max()}):
+        args = dict(relu=True, block_m=block_m, block_n=block_n, **kw)
+        a = dm.dslot_matmul_cuda(q, w, **args)
+        b = dm.dslot_matmul_plain(q, w, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(a.planes_used, b.planes_used), kw
+        assert torch.equal(a.out, b.out), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [200, 1024])
+def test_wide_range_f32_weights(cuda, K):
+    """f32 weights of magnitudes 2^-20 to 1 go through the tensor cores as
+    three bf16 parts and keep f32 accuracy: within rtol 1e-5 plus
+    1e-5 * max|out| of the plain version (f32 sums in other orders)."""
+    rng = np.random.default_rng(11)
+    q = torch.as_tensor(rng.integers(0, 256, (256, K)),
+                        dtype=torch.uint8).to(cuda)
+    w = rng.choice([-1.0, 1.0], (K, 64)) * np.exp2(rng.uniform(-20, 0,
+                                                               (K, 64)))
+    w = torch.as_tensor(w, dtype=torch.float32).to(cuda)
+    args = dict(relu=True, block_m=64, block_n=32, block_k=None)
+    a = dm.dslot_matmul_cuda(q, w, **args)
+    b = dm.dslot_matmul_plain(q, w, **args)
+    tol = 1e-5 * b.out.abs() + 1e-5 * b.out.abs().max()
+    assert bool(((a.out - b.out).abs() <= tol).all()), \
+        float((a.out - b.out).abs().max())
+    assert torch.equal(a.planes_used, b.planes_used)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [False, True])
+def test_two_launches_bit_identical(cuda, relu):
+    """No float atomics: the split-K product and the plane path give the
+    same bits on every launch, on weights whose sums round."""
+    rng = np.random.default_rng(12)
+    q = torch.as_tensor(rng.integers(0, 256, (1024, 1152)),
+                        dtype=torch.uint8).to(cuda)
+    w = torch.as_tensor(rng.normal(0, 0.03, (1152, 16)),
+                        dtype=torch.float32).to(cuda)
+    args = dict(relu=relu, block_m=128, block_n=8, block_k=None)
+    a = dm.dslot_matmul_cuda(q, w, **args)
+    b = dm.dslot_matmul_cuda(q, w, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(a.out, b.out)
+    assert torch.equal(a.planes_used, b.planes_used)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q, w = _dyadic_case(cuda, False, torch.float32)
     with pytest.raises(TypeError):
         dm.dslot_matmul_cuda(q.to(torch.int64), w, block_m=64, block_n=16)
     with pytest.raises(TypeError):
         dm.dslot_matmul_cuda(q, w.to(torch.float16), block_m=64, block_n=16)
-    # a 256 x 66 tile needs 32 x 33 threads, more than a block may have:
-    # the launcher refuses it and the wrapper raises
+    # a 256 x 66 tile pads to 256 x 72: 16 x 9 warps of 16 x 8, and no
+    # larger warp tile divides it, so the launcher refuses it and the
+    # wrapper raises
     w66 = torch.cat([w, w[:, :2]], dim=1)
     with pytest.raises(RuntimeError, match="launch failed"):
         dm.dslot_matmul_cuda(q, w66, block_m=256, block_n=66)

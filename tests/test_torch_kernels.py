@@ -274,3 +274,82 @@ def test_batched_entry_matches_reference():
         np.testing.assert_array_equal(_n(out.out), np.asarray(ref.out))
         np.testing.assert_array_equal(_n(out.planes_used),
                                       np.asarray(ref.planes_used))
+
+
+# ------------------------------------------------ the product identity
+
+def _truncated_product(aq, w, n_bits, D, npl, budget, bound, block_n):
+    """A layer without ReLU is one product: out = t @ w with
+    t = sign(q) * (|q| with every bit below plane e cleared) and
+    e = min(D, npl, budget[m], bound[tile of n]); per-tile planes_used is
+    min(D, npl, bound[j]).  Summed in float64 column by column."""
+    M, _ = aq.shape
+    N = w.shape[1]
+    e_row = np.minimum(min(D, npl), np.full(M, D) if budget is None
+                       else budget)
+    out = np.zeros((M, N))
+    for n in range(N):
+        e = np.minimum(e_row, bound[n // block_n])[:, None]
+        keep = np.where(e > 0, ~((1 << (n_bits - e)) - 1), 0)
+        t = np.sign(aq) * (np.abs(aq) & keep)
+        out[:, n] = t.astype(np.float64) @ w[:, n].astype(np.float64)
+    used = np.minimum(min(D, npl), bound)
+    return out, np.broadcast_to(used, (M // 16, N // block_n))
+
+
+PRODUCT_CASES = [(8, npl, npl % 2 == 1) for npl in range(1, 9)] + \
+    [(4, npl, npl % 2 == 0) for npl in range(1, 5)]
+
+
+@pytest.mark.parametrize("n_bits,npl,signed", PRODUCT_CASES)
+def test_no_relu_is_one_truncated_product(n_bits, npl, signed):
+    """What the kernel's product path computes, held against the plain
+    version and the reference (``_jnp_path`` and the Pallas kernel in
+    interpret mode), with and without row budgets and plane bounds that
+    include 0.  Dyadic weights: every sum exact, so equal.  Normal weights:
+    float32 sums in other orders, within rtol 1e-5 + 1e-5 * max|out|."""
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(100 + 10 * n_bits + npl)
+    M, K, N, bn, bk = 32, 48, 48, 16, 16
+    top = 2 ** n_bits
+    aq = rng.integers(-(top - 1) if signed else 0, top, (M, K))
+    aq = aq.astype(np.int16 if signed else np.int32)
+    bound = np.asarray([n_bits, 0, 2], np.int32)
+    # callers pass budgets no deeper than npl (execute: npl = budget.max())
+    budget = np.minimum(rng.integers(0, n_bits + 1, M), npl).astype(np.int32)
+    dyadic = (rng.integers(-64, 65, (K, N)) / 64).astype(np.float32)
+    normal = rng.normal(0, 0.05, (K, N)).astype(np.float32)
+    for w, exact in ((dyadic, True), (normal, False)):
+        for bud, bnd in ((None, np.full(3, n_bits, np.int32)),
+                         (budget, bound)):
+            want, used = _truncated_product(aq.astype(np.int64), w, n_bits,
+                                            n_bits, npl, bud, bnd, bn)
+            kw = dict(n_bits=n_bits, relu=False, block_m=16, block_n=bn,
+                      block_k=bk, n_planes_rt=npl)
+            plain = tdm.dslot_matmul_plain(
+                _t(aq), _t(w), row_budget=None if bud is None else _t(bud),
+                plane_bound=_t(bnd), **kw)
+            sfx, tot = jdm.colsum_tables(jnp.asarray(w), bk)
+            jout, jused = jops._jnp_path(
+                jnp.asarray(aq), jnp.asarray(w), n_bits, n_bits, False, 16,
+                bn, bk, sfx, tot[0], jnp.asarray(npl, jnp.int32),
+                jnp.full((M,), npl, jnp.int32) if bud is None
+                else jnp.asarray(bud), jnp.asarray(bnd))
+            outs = [_n(plain.out), np.asarray(jout)]
+            useds = [_n(plain.planes_used), np.asarray(jused)]
+            if bud is not None:
+                pal = jdm.dslot_matmul_pallas(
+                    jnp.asarray(aq), jnp.asarray(w),
+                    row_budget=jnp.asarray(bud), plane_bound=jnp.asarray(bnd),
+                    **kw)
+                outs.append(np.asarray(pal.out))
+                useds.append(np.asarray(pal.planes_used))
+            for got, u in zip(outs, useds):
+                np.testing.assert_array_equal(u, used)
+                if exact:
+                    np.testing.assert_array_equal(got, want.astype(np.float32))
+                else:
+                    tol = 1e-5 * np.abs(want) + 1e-5 * np.abs(want).max()
+                    assert (np.abs(got - want) <= tol).all(), \
+                        np.abs(got - want).max()
