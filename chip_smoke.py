@@ -17,10 +17,12 @@ Phases (any failure exits non-zero and prints no result line):
    split-K product path crosses both); the head at B = 16384 (more tiles
    than SMs, no split); f32 weights of magnitudes 2^-20 to 1 under ReLU
    (which two bf16 parts would not hold); block_n 5 and 24 at the MLP's
-   K = 1024.  Every case runs the kernel twice and the two results must be
-   equal bit for bit.  Dyadic weights (multiples of 2^-6) make every sum exact, so
-   there the outputs and ``planes_used`` must be equal.  On normal weights
-   the outputs must agree within ``rtol = 1e-5`` plus ``1e-5 * max|out|``,
+   K = 1024; block 256 x 32 at K = 1024 (q rows too long to stage once, so
+   they ride with each sub-chunk).  Every case runs the kernel twice and
+   the two results must be equal bit for bit.  Dyadic weights (multiples
+   of 2^-6) make every sum exact, so there the outputs and ``planes_used``
+   must be equal.  On normal weights the outputs must agree within
+   ``rtol = 1e-5`` plus ``1e-5 * max|out|``,
    and a tile whose ``planes_used`` differs must have a termination margin
    (max of acc + R at the deciding step, replayed in float64) below
    ``1e-5 * 2^n_bits * max(tot)`` of the tile; such tiles are listed.
@@ -41,9 +43,13 @@ Phases (any failure exits non-zero and prints no result line):
    Products count the unpadded shape: ``planes_used`` per tile under ReLU
    (the early exit reads every plane's partial sum), one product of the
    truncated q without it.  The earlier yardstick, needed f32 flops / 67
-   TFLOP/s on the CUDA cores, is printed beside it.  Kernel and
-   ``torch.matmul`` times are device times of a CUDA graph of repeated
-   calls (host launch overhead excluded); the plain version runs eagerly.
+   TFLOP/s on the CUDA cores, is printed beside it.  Times are eager
+   (back-to-back calls between CUDA events, so a call that the host issues
+   slower than the device runs it is timed at the host's rate); kernel and
+   ``torch.matmul`` are also timed from a CUDA graph of 20 calls (device
+   time alone) and by their host issue time.  ``forward_dslot`` is timed in
+   7 repeats (median, min, max) and traced once with ``torch.profiler``
+   for its device time per call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
@@ -171,6 +177,10 @@ def phase2_cases() -> list[Case]:
         Case("mlp bn=24 bf16 normal n8 bk=256", weights="normal",
              wdtype=torch.bfloat16,
              **{**mlp, "M": 512, "N": 96, "block_m": 32, "block_n": 24,
+                "block_k": 256, "sort": False}),
+        Case("mlp bm=256 bn=32 f32 dyadic rows", weights="dyadic",
+             precision="rows",
+             **{**mlp, "M": 512, "N": 128, "block_m": 256, "block_n": 32,
                 "block_k": 256, "sort": False}),
     ]
 
@@ -365,33 +375,88 @@ def graph_ms(fn, reps: int = 20) -> float:
     return cuda_ms(graph.replay, reps=5, warm=1) / reps
 
 
+def host_us(fn, reps: int = 50) -> float:
+    """Host time to issue one call of ``fn`` (no synchronization), in us."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def time_call(label, q, w, kw, dims, launch, replay, card):
-    """Kernel, plain and torch.matmul times for one call; returns a dict."""
+    """Kernel, plain and torch.matmul times for one call; returns a dict.
+
+    ``ms``, ``plain_ms`` and ``library_ms`` are eager: back-to-back calls
+    between two CUDA events, the wrapper's host work included where the
+    device outruns it.  ``graph_ms`` and ``library_graph_ms`` replay the
+    same calls from a CUDA graph: device time alone, inputs warm in L2."""
     from repro_torch.device import full_f32
 
     out, used = launch()
     torch.cuda.synchronize()
-    k_ms = graph_ms(launch)
+    k_ms = cuda_ms(launch)
+    k_graph = graph_ms(launch)
     p_ms = cuda_ms(replay, reps=3, warm=1)
     qf = q.to(torch.float32)
     wf = w.to(torch.float32)
+
+    def mm():
+        return torch.matmul(qf, wf)
+
     with full_f32():
-        lib_ms = graph_ms(lambda: torch.matmul(qf, wf))
+        lib_ms = cuda_ms(mm)
+        lib_graph = graph_ms(mm)
+        lib_host = host_us(mm)
+    k_host = host_us(launch)
     b_ms, b_by, nbytes, flops = bound_ms(q, w, kw, out, used, dims)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     old_ms = max(t_bytes, flops / PEAK_F32_FLOPS * 1e3)
-    log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}; "
-        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP needed, "
-        f"x{bf16_parts(w)} bf16), share of bound {b_ms / k_ms:.3g}; "
-        f"f32 CUDA-core bound {old_ms:.4g} ms, share {old_ms / k_ms:.3g}; "
-        f"kernel/torch.matmul {k_ms / lib_ms:.3g} [{card}]")
-    if b_ms > k_ms:     # inputs replayed from the 50 MB L2 can do this
-        log(f"  {label}: share of bound above 1: kernel {k_ms} ms, bound "
-            f"{b_ms} ms")
+    log(f"  {label}: kernel {k_ms:.4f} ms (graph {k_graph:.4f}, host issue "
+        f"{k_host:.1f} us), plain {p_ms:.4f} ms, torch.matmul {lib_ms:.4f} "
+        f"ms (graph {lib_graph:.4f}, host issue {lib_host:.1f} us), bound "
+        f"{b_ms:.4g} ms ({b_by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} "
+        f"GFLOP needed, x{bf16_parts(w)} bf16), share of bound "
+        f"{b_ms / k_ms:.3g} (graph {b_ms / k_graph:.3g}); f32 CUDA-core "
+        f"bound {old_ms:.4g} ms, share {old_ms / k_ms:.3g}; "
+        f"kernel/torch.matmul {k_ms / lib_ms:.3g} (graph "
+        f"{k_graph / lib_graph:.3g}) [{card}]")
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+            "graph_ms": k_graph, "library_graph_ms": lib_graph,
             "bound_ms": b_ms, "t_bytes": t_bytes,
             "t_ops": bf16_parts(w) * flops / PEAK_BF16_FLOPS * 1e3}
+
+
+def forward_profile(fn, calls: int = 5) -> tuple[float, list] | None:
+    """Device kernel time per call of ``fn`` and the kernels that take it,
+    from one ``torch.profiler`` trace of ``calls`` calls; None when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:    # host ops: not device time
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / calls / 1e3, e.count // calls, e.key))
+    if not rows:
+        return None
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows
 
 
 # ------------------------------------------------------------ phase 3
@@ -562,9 +627,25 @@ def main() -> int:
         main_times.append(time_call(
             label, q, w, kw, dims, lambda a=args: dm._launch(*a),
             lambda a=args: dm._replay(*a), card))
-    fwd_ms = cuda_ms(lambda: mnist_cnn.forward_dslot(prep, images, CONFIG,
-                                                     n_planes=8))
-    log(f"  forward_dslot B=1024 n_planes=8: {fwd_ms:.4f} ms [{card}]")
+    def fwd():
+        return mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=8)
+
+    fwd_all = sorted(cuda_ms(fwd) for _ in range(7))
+    fwd_ms = fwd_all[len(fwd_all) // 2]
+    log(f"  forward_dslot B=1024 n_planes=8: median {fwd_ms:.4f} ms, min "
+        f"{fwd_all[0]:.4f}, max {fwd_all[-1]:.4f} over 7 repeats of 10 "
+        f"calls; host issue {host_us(fwd, reps=20):.1f} us per call [{card}]")
+    prof = forward_profile(fwd)
+    if prof is None:
+        log("  forward_dslot device time: not measured (the profiler trace "
+            "holds no device time)")
+    else:
+        dev_ms, rows = prof
+        log(f"  forward_dslot device time (torch.profiler, 5 calls): "
+            f"{dev_ms:.4f} ms per call, idle share "
+            f"{1 - dev_ms / fwd_ms:.3f} of the median; kernels:")
+        for ms, count, key in rows[:12]:
+            log(f"    {ms:.4f} ms x{count} {key[:90]}")
     for shape, t in shape_times.items():
         log(f"  shape {shape}: kernel {t['ms']:.4f} ms vs bound "
             f"{t['bound_ms']:.4g} ms")
@@ -579,7 +660,9 @@ def main() -> int:
         "plain_ms": sum(t["plain_ms"] for t in main_times),
         "bound_ms": sum(t["bound_ms"] for t in main_times),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": sum(t["library_ms"] for t in main_times)}]}
+        "library_ms": sum(t["library_ms"] for t in main_times),
+        "graph_ms": sum(t["graph_ms"] for t in main_times),
+        "library_graph_ms": sum(t["library_graph_ms"] for t in main_times)}]}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -54,22 +54,25 @@
 //      8 columns).  Physical pad rows and columns never vote and are never
 //      stored; the logical pad rows and columns the caller added vote as in
 //      the reference (their q rows are zero, their tot is zero).
-//    * Operands are staged in shared memory once.  Where the tile's q rows
-//      (contiguous: the tile spans all of K) and the bf16 parts of W fit in
-//      RESIDENT_BYTES, each block stages W once and walks M tiles, copying
-//      the next tile's q (16-byte cp.async where aligned) while the current
-//      one computes; every plane reads its digits from the staged integer q.
-//      Else the tile streams each logical chunk through a 3-stage cp.async
-//      ring of KC-row sub-chunks, the next ones in flight while one
-//      computes, with the bf16 parts of f32 weights split once per call by a
-//      small kernel before the tiles.  For each (plane, sub-chunk) the block
-//      writes the digit tile to shared memory once, so warps that share rows
-//      do not extract it again.  A resident tile of 8 columns (the conv:
-//      128 x 8, two warps of 64 x 8) skips the digit tile and its barrier:
-//      each warp builds its mma fragments from q in registers, and where one
-//      sub-chunk covers K the q words, W fragments and suffix sums stay in
-//      registers across the planes.  The vote runs only at the end of a
-//      logical chunk, as in the reference.
+//    * Operands are staged in shared memory once.  A tile of 8 columns whose
+//      q rows (contiguous: the tile spans all of K) and W parts fit in
+//      RESIDENT_BYTES (the conv: 128 x 8, K = 25) is resident: each block
+//      stages W once and walks M tiles, copying the next tile's q (16-byte
+//      cp.async where aligned) while the current one computes, and each
+//      warp (64 x 8 at the conv) builds its mma fragments from q in
+//      registers; where one sub-chunk covers K, the q words, W fragments and
+//      suffix sums stay in registers across the planes.  Every other tile
+//      streams: one block per tile copies its q rows over all of K once
+//      (where they fit beside the ring; the MLP's 128 x 1024 bytes do) and
+//      streams W through a 3-stage cp.async ring of KC-row sub-chunks, the
+//      next ones in flight while one computes.  A small kernel before the
+//      tiles writes W's bf16 parts once per call, each N tile's columns
+//      padded to PN, so that every W row copy is 16-byte cp.async.
+//      Where q does not fit, each sub-chunk's q columns ride in its ring
+//      stage.  For each (plane, sub-chunk) a streamed block writes the digit
+//      tile to shared memory once, so warps that share rows do not extract
+//      it again.  The vote runs only at the end of a logical chunk, as in
+//      the reference.
 //    * The q dtype is a template parameter.  For 8-bit q a word of four
 //      elements is decoded at once (__vabsss4, a shift and mask, two
 //      __byte_perm and a multiply per bf16 pair); at the conv the tile work
@@ -84,9 +87,13 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <cooperative_groups.h>
+#include <map>
+#include <mutex>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -716,29 +723,42 @@ __device__ __forceinline__ void split_w(__nv_bfloat16* dst, int p_part,
   }
 }
 
-// wp[p][i] = part p of w[i]: the hi, mid and lo bf16 parts of f32 weights.
-__global__ void split_parts_kernel(const float* __restrict__ w,
-                                   __nv_bfloat16* __restrict__ wp,
-                                   long long n) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const float x = w[i];
-    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
-    const float r1 = x - __bfloat162float(hi);
-    const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
-    wp[i] = hi;
-    wp[n + i] = mid;
-    wp[2 * n + i] = __float2bfloat16_rn(r1 - __bfloat162float(mid));
-  }
+// The bf16 parts of W for tiles that stream it, laid out [part][K][N tile]
+// [PN]: each N tile's bn columns padded with zeros to PN, so that a row of a
+// tile is 16-byte aligned and is copied with 16-byte cp.async whatever bn
+// is.  f32 weights give hi = bf16(w), mid = bf16(w - hi), lo =
+// bf16(w - hi - mid); bf16 weights give one part, themselves.
+__global__ void split_parts_kernel(const void* __restrict__ w, int wtype,
+                                   __nv_bfloat16* __restrict__ wp, int K,
+                                   int N, int bn, int PN) {
+  const int row = N / bn * PN;  // elements of one K row in the layout
+  const long long n = static_cast<long long>(K) * row;
+  for (int k = blockIdx.x; k < K; k += gridDim.x)
+    for (int r = threadIdx.x; r < row; r += blockDim.x) {
+      const int j = r / PN;
+      const int c = r - j * PN;
+      const float x = c < bn
+          ? load_w(w, wtype, static_cast<long long>(k) * N + j * bn + c)
+          : 0.0f;
+      const long long i = static_cast<long long>(k) * row + r;
+      const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+      wp[i] = hi;
+      if (wtype == W_F32) {
+        const float r1 = x - __bfloat162float(hi);
+        const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+        wp[n + i] = mid;
+        wp[2 * n + i] = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+      }
+    }
 }
 
 struct PlaneGeom {
   int PM, PN;     // physical tile: block_m, block_n padded to 16 and 8
   int WN;         // warps across the columns
-  int resident;   // 1: q rows and every W part staged once
-  int reg;        // 1: digits built in registers (resident, WN == 1)
-  int q_stride;   // streamed: q row stride in a stage, bytes
+  int resident;   // 1: 8 columns, every W part staged once, digits in
+                  // registers
+  int q_once;     // streamed: the tile's q rows over all of K staged once
+  int q_stride;   // streamed: staged q row stride, bytes
   int q_bytes;    // resident: one buffer of a tile's q rows, bytes
   int off_a, off_p, off_q;  // shared-memory offsets, bytes
   int p_part;     // bf16 elements per W part
@@ -828,13 +848,15 @@ __device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4],
   if (threadIdx.x == 0) used[used_at] = planes;
 }
 
-// Shared memory: row budgets [PM] i32 | two digit tiles [PM][AS] bf16 (not
-// in the register path) | resident: W parts of all of K laid out per
-// sub-chunk, then two buffers of a tile's q rows as copied (the next tile's
-// rows land while this one computes); streamed: NSTAGE stages, each q rows
-// then W parts of KC rows, copied from `wp` (the bf16 parts [part][K][N],
-// split once per call by split_parts_kernel, or the bf16 weights
-// themselves).  Warp w owns rows (w / WN)*16*MI + [0, 16*MI) and columns
+// Shared memory.  Streamed: row budgets [PM] i32 | the digit tile [PM][AS]
+// bf16 | q_once: the tile's q rows over all of K, copied once | NSTAGE ring
+// stages, each (unless q_once) the q rows of a KC-column sub-chunk, then the
+// W parts of its KC rows, copied from `wp` (the bf16 parts
+// [part][K][N tile][PN] written once per call by split_parts_kernel).
+// Resident (8 columns, digits in registers): row budgets | W
+// parts of all of K laid out per sub-chunk, rows permuted by perm_k | two
+// buffers of a tile's q rows as copied (the next tile's rows land while this
+// one computes).  Warp w owns rows (w / WN)*16*MI + [0, 16*MI) and columns
 // (w % WN)*8*NI + [0, 8*NI) of the physical tile.  A streamed block computes
 // one tile; a resident block computes M tiles blockIdx.x, + gridDim.x, ...
 // of N tile blockIdx.y, with W staged once.
@@ -849,8 +871,6 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
     int n_bits, int D, int bm, int bn, int bk, int relu, PlaneGeom geo) {
   extern __shared__ __align__(16) uint8_t smem[];
   int* rbud_s = reinterpret_cast<int*>(smem);
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_a);
-  __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_p);
   uint8_t* q_area = smem + geo.off_q;
 
   const int lane = threadIdx.x % 32;
@@ -888,10 +908,13 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
   };
 
   if constexpr (!(MI == 4 && NI == 1)) if (!geo.resident) {
-    // ---- streamed: one tile, K through the cp.async ring
+    // ---- streamed: one tile, W (and q unless q_once) through the ring
+    __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_a);
     const long long m0 = static_cast<long long>(blockIdx.x) * bm;
     const QT* q_tile = q + m0 * K;
-    const int stage = PM * geo.q_stride + parts * geo.p_part * 2;
+    const int q_stage = geo.q_once ? 0 : PM * geo.q_stride;
+    const int stage = q_stage + parts * geo.p_part * 2;
+    uint8_t* ring = q_area + (geo.q_once ? PM * geo.q_stride : 0);
     const int total = limit * T;  // (plane, chunk, sub-chunk) items
     auto issue = [&](int item) {
       const int r = item % T;
@@ -899,24 +922,31 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
       const int s = r - c * S;
       const int k0 = c * bk + s * KC;
       const int v = min(KC, bk - s * KC);
-      uint8_t* st = q_area + (item % NSTAGE) * stage;
-      copy_rows(st, geo.q_stride,
-                reinterpret_cast<const uint8_t*>(q_tile + k0),
-                static_cast<long long>(K) * sizeof(QT), bm,
-                v * static_cast<int>(sizeof(QT)));
+      uint8_t* st = ring + (item % NSTAGE) * stage;
+      if (!geo.q_once)
+        copy_rows(st, geo.q_stride,
+                  reinterpret_cast<const uint8_t*>(q_tile + k0),
+                  static_cast<long long>(K) * sizeof(QT), bm,
+                  v * static_cast<int>(sizeof(QT)));
       for (int p = 0; p < parts; ++p)
-        copy_rows(st + PM * geo.q_stride + p * geo.p_part * 2, p_row * 2,
+        copy_rows(st + q_stage + p * geo.p_part * 2, p_row * 2,
                   reinterpret_cast<const uint8_t*>(
-                      wp + (p * static_cast<long long>(K) + k0) * N + n0),
-                  static_cast<long long>(N) * 2, v, bn * 2);
+                      wp + ((p * static_cast<long long>(K) + k0) * gridDim.y +
+                            blockIdx.y) * PN),
+                  static_cast<long long>(gridDim.y) * PN * 2, v, PN * 2);
     };
     fill_budgets(m0);
     zero_tile<MI, NI>(acc);
-    // zero the ring once: W columns past bn are never copied and must be 0
-    uint4* z = reinterpret_cast<uint4*>(q_area);
+    // zero the ring once: W rows past a chunk's end are multiplied by zero
+    // digits and must be finite
+    uint4* z = reinterpret_cast<uint4*>(ring);
     for (int e = threadIdx.x; e < NSTAGE * stage / 16; e += blockDim.x)
       z[e] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
+    if (geo.q_once && total > 0)  // lands with the first item
+      copy_rows(q_area, geo.q_stride, reinterpret_cast<const uint8_t*>(q_tile),
+                static_cast<long long>(K) * sizeof(QT), bm,
+                K * static_cast<int>(sizeof(QT)));
     for (int i = 0; i < NSTAGE - 1; ++i) {
       if (i < total) issue(i);
       cp_async_commit();
@@ -936,16 +966,18 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
           __syncthreads();  // item i landed; every thread is done with i-1
           if (i + NSTAGE - 1 < total) issue(i + NSTAGE - 1);
           cp_async_commit();
-          // W rows from v on hold an earlier item's weights; the digits
-          // there are zero
-          const uint8_t* st = q_area + (i % NSTAGE) * stage;
-          extract_digits<QT>(a_s, reinterpret_cast<const QT*>(st),
+          // W rows from v on hold an earlier item's weights (and q_once
+          // columns from v on the next sub-chunk's q); the digits there are
+          // zero
+          const uint8_t* st = ring + (i % NSTAGE) * stage;
+          const QT* q_sub = reinterpret_cast<const QT*>(
+              geo.q_once ? q_area : st) + (geo.q_once ? c * bk + s * KC : 0);
+          extract_digits<QT>(a_s, q_sub,
                              geo.q_stride / static_cast<int>(sizeof(QT)),
                              rbud_s, PM, shift, d, v);
           __syncthreads();
           mma_item<MI, NI>(
-              acc, a_s,
-              reinterpret_cast<const __nv_bfloat16*>(st + PM * geo.q_stride),
+              acc, a_s, reinterpret_cast<const __nv_bfloat16*>(st + q_stage),
               p_row, geo.p_part, parts, wm0, wn0, lane);
         }
         if (relu && tile_dead<MI, NI>(acc, sf, tot_c, pow2(shift), tail, wm0,
@@ -960,128 +992,117 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
     return;
   }
 
-  // ---- resident: W parts once per block, laid out per sub-chunk, zero
-  // past each chunk's end (rows permuted for the register path)
-  auto issue_q = [&](int tile, int buf) {  // a tile's q rows: one run
-    copy_rows(q_area + buf * geo.q_bytes, 0,
-              reinterpret_cast<const uint8_t*>(
-                  q + static_cast<long long>(tile) * bm * K),
-              0, 1, bm * K * static_cast<int>(sizeof(QT)));
-  };
-  int tile = blockIdx.x;
-  if (tile < Mt) issue_q(tile, 0);
-  cp_async_commit();
-  const int ck = S * KC;  // rows per chunk in the parts layout
-  for (int e = threadIdx.x; e < T * KC * PN; e += blockDim.x) {
-    const int n = e % PN;
-    const int kr = e / PN;
-    const int c = kr / ck;
-    const int kc = kr - c * ck;
-    const float x = (n < bn && kc < bk)
-        ? load_w(w, wtype, static_cast<long long>(c * bk + kc) * N + n0 + n)
-        : 0.0f;
-    split_w(p_s + (geo.reg ? perm_k(kr) : kr) * p_row + n, geo.p_part, x,
-            parts);
-  }
-  // one sub-chunk covers K (the conv): the words of q, the W fragments and
-  // the suffix sums are the same on every plane, so they stay in registers
-  const bool words =
-      NI == 1 && sizeof(QT) == 1 && geo.reg && T == 1 && n_bits <= 8;
-  uint32_t b[2][3][NI][2];
-  if (relu && Kt == 1) load_sf<NI>(sf, sfx, 0, N, n0, wn0, t4, bn);
-
-  for (int it = 0; tile < Mt; ++it, tile += gridDim.x) {
-    const long long m0 = static_cast<long long>(tile) * bm;
-    const int next = tile + gridDim.x;
-    if (next < Mt) issue_q(next, (it + 1) & 1);
+  if constexpr (NI == 1) {
+    // ---- resident, 8 columns: W parts once per block, laid out per
+    // sub-chunk with rows permuted for the register digits, zero past each
+    // chunk's end
+    __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_p);
+    auto issue_q = [&](int tile, int buf) {  // a tile's q rows: one run
+      copy_rows(q_area + buf * geo.q_bytes, 0,
+                reinterpret_cast<const uint8_t*>(
+                    q + static_cast<long long>(tile) * bm * K),
+                0, 1, bm * K * static_cast<int>(sizeof(QT)));
+    };
+    int tile = blockIdx.x;
+    if (tile < Mt) issue_q(tile, 0);
     cp_async_commit();
-    fill_budgets(m0);
-    cp_async_wait<1>();
-    __syncthreads();  // this tile's q, its budgets and the W parts are in
-    const QT* q_flat = reinterpret_cast<const QT*>(q_area + (it & 1) *
-                                                   geo.q_bytes);
-    zero_tile<MI, NI>(acc);
-    int planes = 0;
-    bool dead = false;
-    if (words) {  // false at compile time unless NI == 1
-      if (it == 0) load_b<NI>(b, p_s, p_row, geo.p_part, parts, wn0, lane);
-      const int k4 = 4 * t4;
-      uint32_t mag[MI][2][2], neg[MI][2][2];  // [mi][k step][row half]
-      int rb[MI][2];
+    const int ck = S * KC;  // rows per chunk in the parts layout
+    for (int e = threadIdx.x; e < T * KC * PN; e += blockDim.x) {
+      const int n = e % PN;
+      const int kr = e / PN;
+      const int c = kr / ck;
+      const int kc = kr - c * ck;
+      const float x = (n < bn && kc < bk)
+          ? load_w(w, wtype, static_cast<long long>(c * bk + kc) * N + n0 + n)
+          : 0.0f;
+      split_w(p_s + perm_k(kr) * p_row + n, geo.p_part, x, parts);
+    }
+    // one sub-chunk covers K (the conv): the words of q, the W fragments and
+    // the suffix sums are the same on every plane, so they stay in registers
+    const bool words = sizeof(QT) == 1 && T == 1 && n_bits <= 8;
+    uint32_t b[2][3][NI][2];
+    if (relu && Kt == 1) load_sf<NI>(sf, sfx, 0, N, n0, wn0, t4, bn);
+
+    for (int it = 0; tile < Mt; ++it, tile += gridDim.x) {
+      const long long m0 = static_cast<long long>(tile) * bm;
+      const int next = tile + gridDim.x;
+      if (next < Mt) issue_q(next, (it + 1) & 1);
+      cp_async_commit();
+      fill_budgets(m0);
+      cp_async_wait<1>();
+      __syncthreads();  // this tile's q, its budgets and the W parts are in
+      const QT* q_flat = reinterpret_cast<const QT*>(q_area + (it & 1) *
+                                                     geo.q_bytes);
+      zero_tile<MI, NI>(acc);
+      int planes = 0;
+      bool dead = false;
+      if (words) {
+        if (it == 0) load_b<NI>(b, p_s, p_row, geo.p_part, parts, wn0, lane);
+        const int k4 = 4 * t4;
+        uint32_t mag[MI][2][2], neg[MI][2][2];  // [mi][k step][row half]
+        int rb[MI][2];
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
+        for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm0 + mi * 16 + g + 8 * h;
-          rb[mi][h] = rbud_s[r];
-#pragma unroll
-          for (int ks = 0; ks < 2; ++ks)
-            mag_neg4<QT>(load_word4(q_flat + r * K + 16 * ks + k4,
-                                    bk - 16 * ks - k4),
-                         mag[mi][ks][h], neg[mi][ks][h]);
-        }
-      constexpr int G = MI * NI <= 4 ? MI : 1;
-      for (int d = 0; d < limit && !dead; ++d) {
-        ++planes;
-        const int shift = n_bits - 1 - d;
-        const uint32_t e_bits = static_cast<uint32_t>(127 + shift) << 7;
-#pragma unroll
-        for (int m0g = 0; m0g < MI; m0g += G) {
-          uint32_t a[G][2][4];
-#pragma unroll
-          for (int gg = 0; gg < G; ++gg)
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm0 + mi * 16 + g + 8 * h;
+            rb[mi][h] = rbud_s[r];
 #pragma unroll
             for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-                decode4(mag[m0g + gg][ks][h], neg[m0g + gg][ks][h], shift,
-                        e_bits, rb[m0g + gg][h] > d, a[gg][ks][h],
-                        a[gg][ks][h + 2]);
-          float t[G][NI][4];
-          mma_steps<G, NI>(t, a, b, parts);
-#pragma unroll
-          for (int gg = 0; gg < G; ++gg) flush<NI>(acc[m0g + gg], t[gg]);
-        }
-        if (relu && tile_dead<MI, NI>(acc, sf, tot_c, pow2(shift), tail, wm0,
-                                        wn0, g, t4, bm, bn))
-          dead = true;
-      }
-    } else {
-      int i = 0;
-      for (int d = 0; d < limit && !dead; ++d) {
-        ++planes;
-        const int shift = n_bits - 1 - d;
-        for (int c = 0; c < Kt && !dead; ++c) {
-          if (relu && Kt > 1) load_sf<NI>(sf, sfx, c, N, n0, wn0, t4, bn);
-          for (int s = 0; s < S; ++s, ++i) {
-            const int v = min(KC, bk - s * KC);
-            const __nv_bfloat16* p_sub = p_s + (c * S + s) * KC * p_row;
-            const QT* q_sub = q_flat + c * bk + s * KC;
-            if (NI == 1 && geo.reg) {
-              mma_item_reg<MI, NI, QT>(acc, q_sub, K, rbud_s, p_sub, p_row,
-                                       geo.p_part, parts, shift, d, v, wm0,
-                                       wn0, lane);
-            } else {
-              // this buffer was last read two items ago, before a barrier
-              __nv_bfloat16* a_cur = a_s + (i & 1) * PM * AS;
-              extract_digits<QT>(a_cur, q_sub, K, rbud_s, PM, shift, d, v);
-              __syncthreads();
-              mma_item<MI, NI>(acc, a_cur, p_sub, p_row, geo.p_part, parts,
-                               wm0, wn0, lane);
-            }
+              mag_neg4<QT>(load_word4(q_flat + r * K + 16 * ks + k4,
+                                      bk - 16 * ks - k4),
+                           mag[mi][ks][h], neg[mi][ks][h]);
           }
-          if (relu && tile_dead<MI, NI>(acc, sf, tot_c, pow2(shift), tail, wm0,
-                                        wn0, g, t4, bm, bn))
-          dead = true;
+        constexpr int G = MI * NI <= 4 ? MI : 1;
+        for (int d = 0; d < limit && !dead; ++d) {
+          ++planes;
+          const int shift = n_bits - 1 - d;
+          const uint32_t e_bits = static_cast<uint32_t>(127 + shift) << 7;
+#pragma unroll
+          for (int m0g = 0; m0g < MI; m0g += G) {
+            uint32_t a[G][2][4];
+#pragma unroll
+            for (int gg = 0; gg < G; ++gg)
+#pragma unroll
+              for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  decode4(mag[m0g + gg][ks][h], neg[m0g + gg][ks][h], shift,
+                          e_bits, rb[m0g + gg][h] > d, a[gg][ks][h],
+                          a[gg][ks][h + 2]);
+            float t[G][NI][4];
+            mma_steps<G, NI>(t, a, b, parts);
+#pragma unroll
+            for (int gg = 0; gg < G; ++gg) flush<NI>(acc[m0g + gg], t[gg]);
+          }
+          if (relu && tile_dead<MI, NI>(acc, sf, tot_c, pow2(shift), tail,
+                                          wm0, wn0, g, t4, bm, bn))
+            dead = true;
+        }
+      } else {
+        for (int d = 0; d < limit && !dead; ++d) {
+          ++planes;
+          const int shift = n_bits - 1 - d;
+          for (int c = 0; c < Kt && !dead; ++c) {
+            if (relu && Kt > 1) load_sf<NI>(sf, sfx, c, N, n0, wn0, t4, bn);
+            for (int s = 0; s < S; ++s)
+              mma_item_reg<MI, NI, QT>(
+                  acc, q_flat + c * bk + s * KC, K, rbud_s,
+                  p_s + (c * S + s) * KC * p_row, p_row, geo.p_part, parts,
+                  shift, d, min(KC, bk - s * KC), wm0, wn0, lane);
+            if (relu && tile_dead<MI, NI>(acc, sf, tot_c, pow2(shift), tail,
+                                            wm0, wn0, g, t4, bm, bn))
+              dead = true;
+          }
         }
       }
+      store_tile<MI, NI>(acc, out, used, m0, n0, N,
+                         tile * gridDim.y + blockIdx.y, planes, dead, relu,
+                         wm0, wn0, g, t4, bm, bn);
+      __syncthreads();  // done with this q buffer and the budgets
     }
-    store_tile<MI, NI>(acc, out, used, m0, n0, N,
-                       tile * gridDim.y + blockIdx.y, planes, dead, relu,
-                       wm0, wn0, g, t4, bm, bn);
-    __syncthreads();  // done with this q buffer and the budgets
+    cp_async_wait_all();
   }
-  cp_async_wait_all();
 }
 
 // ------------------------------------------------------------ launchers
@@ -1145,6 +1166,50 @@ int launch_product(const void* q, const void* w, int wtype, const void* npl,
   return cudaGetLastError();
 }
 
+// Function attributes of plane_kernel<MI, NI, QT>, once per device: the
+// most shared memory per SM (so that small tiles keep many blocks) and the
+// largest dynamic allocation a launch may ask for.
+template <int MI, int NI, typename QT>
+cudaError_t plane_attributes() {
+  static std::atomic<unsigned> done{0};  // bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 32 || (done.load() >> dev & 1u)) return err;
+  err = cudaFuncSetAttribute(plane_kernel<MI, NI, QT>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(plane_kernel<MI, NI, QT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MAX_SMEM);
+  if (err == cudaSuccess) done.fetch_or(1u << dev);
+  return err;
+}
+
+// Blocks of plane_kernel<MI, NI, QT> that fit on one SM at once, asked of
+// the runtime once per device, block size and shared memory.
+template <int MI, int NI, typename QT>
+cudaError_t blocks_per_sm(int threads, int smem, int* per_sm) {
+  static std::mutex mu;
+  static std::map<long long, int> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const long long key = (static_cast<long long>(dev) << 48) |
+                        (static_cast<long long>(threads) << 32) | smem;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find(key);
+  if (it == known.end()) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, plane_kernel<MI, NI, QT>, threads, smem);
+    if (err != cudaSuccess) return err;
+    it = known.emplace(key, n).first;
+  }
+  *per_sm = it->second;
+  return cudaSuccess;
+}
+
 template <int MI, int NI, typename QT>
 int launch_plane_mn(const void* q, const void* w, int wtype, const float* sfx,
                     const float* tot, const int* npl, const int* bnd,
@@ -1152,22 +1217,13 @@ int launch_plane_mn(const void* q, const void* w, int wtype, const float* sfx,
                     int K, int N, int n_bits, int D, int bm, int bn, int bk,
                     int relu, PlaneGeom geo, cudaStream_t s) {
   auto kernel = plane_kernel<MI, NI, QT>;
-  // the most shared memory per SM, so that small tiles keep many blocks
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && geo.smem > 49152)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
+  cudaError_t err = plane_attributes<MI, NI, QT>();
   if (err != cudaSuccess) return err;
-  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w);
-  if (!geo.resident && wtype == W_F32) {
+  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(ws);
+  if (!geo.resident) {
     if (ws == nullptr) return cudaErrorInvalidValue;
-    const long long n = static_cast<long long>(K) * N;
-    split_parts_kernel<<<static_cast<unsigned>(min(4096LL, (n + 255) / 256)),
-                         256, 0, s>>>(static_cast<const float*>(w),
-                                      static_cast<__nv_bfloat16*>(ws), n);
-    wp = static_cast<const __nv_bfloat16*>(ws);
+    split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(
+        w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, bn, geo.PN);
   }
   const int threads = (geo.PM / (16 * MI)) * geo.WN * 32;
   const int Mt = M / bm;
@@ -1175,8 +1231,7 @@ int launch_plane_mn(const void* q, const void* w, int wtype, const float* sfx,
   int gx = Mt;
   if (geo.resident) {  // as many blocks as fit at once, each over M tiles
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, geo.smem);
+    err = blocks_per_sm<MI, NI, QT>(threads, geo.smem, &per_sm);
     if (err != cudaSuccess) return err;
     const long long fit = static_cast<long long>(per_sm > 1 ? per_sm : 1) *
                           NUM_SMS;
@@ -1193,26 +1248,25 @@ long long align16(long long x) { return (x + 15) / 16 * 16; }
 
 // Warp tiles: (MI, NI) = (1, 1), (2, 2) or (4, 4) with the fewest rows per
 // warp that keeps at most 16 warps (8 for 2 x 2 and 4 x 4, which need more
-// registers); a resident tile whose
-// warps each span all columns builds its digits in registers, and one of
-// 8 columns with a multiple of 64 rows takes 64 x 8 warp tiles (the CNN
-// conv: two warps per 128 x 8 tile).
+// registers).  A tile of 8 columns whose q rows and W parts fit in
+// RESIDENT_BYTES stays resident and builds its digits in registers, with
+// 64 x 8 warp tiles when its rows are a multiple of 64 (the CNN conv: two
+// warps per 128 x 8 tile).  Every other tile streams; its q rows over all of
+// K are staged once where they fit beside the ring, else with each
+// sub-chunk.  A staged q row is padded to 32 bytes past a multiple of 128,
+// so that the four rows a warp decodes at once fall in distinct banks.
 template <typename QT>
-int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
-                 const void* tot, const void* npl, const void* bnd,
-                 const void* bud, void* out, void* used, void* ws, int M,
-                 int K, int N, int n_bits, int D, int bm, int bn, int bk,
-                 int relu, cudaStream_t s) {
-  PlaneGeom geo{};
+int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
+                   PlaneGeom& geo, int& mi, int& ni) {
   geo.PM = (bm + 15) / 16 * 16;
   geo.PN = (bn + 7) / 8 * 8;
-  int mi = 0;
+  mi = 0;
   for (int r = 1; r <= 4 && mi == 0; r *= 2)  // fewest rows a warp keeps
     if (geo.PM % (16 * r) == 0 && geo.PN % (8 * r) == 0 &&
         (geo.PM / (16 * r)) * (geo.PN / (8 * r)) <= (r == 1 ? 16 : 8))
       mi = r;
   if (mi == 0 || N / bn > 65535) return cudaErrorInvalidValue;
-  int ni = mi;
+  ni = mi;
   if (geo.PN == 8 && geo.PM % 64 == 0) mi = 4, ni = 1;
   geo.WN = geo.PN / (8 * ni);
 
@@ -1221,33 +1275,51 @@ int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
   const long long T = static_cast<long long>(K / bk) * ((bk + KC - 1) / KC);
   const long long p_row = geo.PN + 8;
   const long long budgets = geo.PM * 4;
-  const long long tiles = 2LL * geo.PM * AS * 2;
   const long long res_p = parts * T * KC * p_row * 2;
   const long long res_q = align16(static_cast<long long>(geo.PM) * K * es + 256);
-  const int reg = geo.WN == 1 && ni == 1;  // register path: 8 columns
-  const long long res_bytes = budgets + (reg ? 0 : tiles) + res_p + 2 * res_q;
-  geo.off_a = static_cast<int>(budgets);
-  if (res_bytes <= RESIDENT_BYTES) {
+  const long long res_bytes = budgets + res_p + 2 * res_q;
+  if (geo.PN == 8 && res_bytes <= RESIDENT_BYTES) {
     geo.resident = 1;
-    geo.reg = reg;
     geo.p_part = static_cast<int>(T * KC * p_row);
     geo.q_bytes = static_cast<int>(res_q);
-    geo.off_p = static_cast<int>(res_bytes - res_p - 2 * res_q);
-    geo.off_q = static_cast<int>(res_bytes - 2 * res_q);
+    geo.off_p = static_cast<int>(budgets);
+    geo.off_q = static_cast<int>(budgets + res_p);
     geo.smem = static_cast<int>(res_bytes);
   } else {
     if (ni == 1 && mi == 4) mi = 1, ni = 1, geo.WN = 1;  // digit tile path
     geo.p_part = static_cast<int>(KC * p_row);
-    geo.q_stride = static_cast<int>(align16(KC * es) + 16);
-    geo.off_p = static_cast<int>(budgets + tiles);
-    geo.off_q = geo.off_p;
-    const long long bytes =
-        budgets + tiles +
-        NSTAGE * (static_cast<long long>(geo.PM) * geo.q_stride +
-                  parts * KC * p_row * 2);
+    geo.off_a = static_cast<int>(budgets);
+    geo.off_q = static_cast<int>(budgets + geo.PM * AS * 2);
+    const long long w_stage = parts * KC * p_row * 2;
+    const long long once_stride = (K * es + 127) / 128 * 128 + 32;
+    const long long once = geo.off_q + geo.PM * once_stride + NSTAGE * w_stage;
+    const long long chunk_stride = align16(KC * es) + 16;
+    const long long each =
+        geo.off_q + NSTAGE * (geo.PM * chunk_stride + w_stage);
+    geo.q_once = once <= MAX_SMEM;
+    geo.q_stride = static_cast<int>(geo.q_once ? once_stride : chunk_stride);
+    const long long bytes = geo.q_once ? once : each;
     if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
     geo.smem = static_cast<int>(bytes);
   }
+  return cudaSuccess;
+}
+
+// Bytes of the streamed tiles' W parts (split_parts_kernel's layout).
+long long parts_bytes(int K, int N, int bn, int PN, int wtype) {
+  return (wtype == W_F32 ? 3LL : 1LL) * 2 * K * (N / bn) * PN;
+}
+
+template <typename QT>
+int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
+                 const void* tot, const void* npl, const void* bnd,
+                 const void* bud, void* out, void* used, void* ws, int M,
+                 int K, int N, int n_bits, int D, int bm, int bn, int bk,
+                 int relu, cudaStream_t s) {
+  PlaneGeom geo{};
+  int mi = 0, ni = 0;
+  const int err = plane_geometry<QT>(K, N, bm, bn, bk, wtype, geo, mi, ni);
+  if (err != cudaSuccess) return err;
   const float* sf = static_cast<const float*>(sfx);
   const float* tt = static_cast<const float*>(tot);
   const int* np = static_cast<const int*>(npl);
@@ -1285,33 +1357,69 @@ int launch_typed(const void* q, int wtype, const void* w, const void* sfx,
 
 extern "C" {
 
-// Bytes of scratch the launch needs, for the wrapper to allocate: the
-// plane path's bf16 parts of f32 weights (used when the tile streams K).
-long long dslot_matmul_workspace(int M, int K, int N, int n_bits, int relu,
-                                 int wtype) {
-  if (M <= 0 || K <= 0 || N <= 0 || product_path(n_bits, relu)) return 0;
-  return wtype == W_F32 ? 3LL * 2 * K * N : 0;
+// Bytes of scratch a launch with these arguments needs, for the wrapper to
+// allocate: the bf16 parts of W for tiles that stream it (0 for the product
+// path and for resident tiles), or -1 for a shape the kernel does not take.
+long long dslot_matmul_workspace(int K, int N, int bm, int bn, int bk,
+                                 int n_bits, int relu, int qtype, int wtype) {
+  if (K <= 0 || N <= 0 || bm <= 0 || bn <= 0 || bk <= 0 || N % bn != 0 ||
+      K % bk != 0 || wtype < W_F32 || wtype > W_BF16)
+    return -1;
+  if (product_path(n_bits, relu)) return 0;
+  PlaneGeom geo{};
+  int mi = 0, ni = 0, err = cudaErrorInvalidValue;
+#define DSLOT_GEOM(CODE, T) \
+  if (qtype == CODE) err = plane_geometry<T>(K, N, bm, bn, bk, wtype, geo, mi, ni);
+  DSLOT_GEOM(Q_U8, uint8_t)
+  DSLOT_GEOM(Q_I8, int8_t)
+  DSLOT_GEOM(Q_U16, uint16_t)
+  DSLOT_GEOM(Q_I16, int16_t)
+  DSLOT_GEOM(Q_I32, int32_t)
+#undef DSLOT_GEOM
+  if (err != cudaSuccess) return -1;
+  return geo.resident ? 0 : parts_bytes(K, N, bn, geo.PN, wtype);
 }
+
+// One launch's arguments, every field 8 bytes, so that the caller packs them
+// in one step (22 int64 in this order).
+struct DslotArgs {
+  const void* q;
+  long long qtype;
+  const void* w;
+  long long wtype;
+  const void* sfx;
+  const void* tot;
+  const void* npl;
+  const void* bnd;
+  const void* bud;   // null: every row takes all planes
+  void* out;
+  void* used;
+  void* ws;          // dslot_matmul_workspace bytes, or null when 0
+  long long M, K, N, n_bits, D, bm, bn, bk, relu;
+  void* stream;
+};
 
 // Returns a cudaError_t as int: cudaErrorInvalidValue for shapes the kernel
 // does not take, else cudaGetLastError() right after the launches.
-int dslot_matmul_launch(const void* q, int qtype, const void* w, int wtype,
-                        const void* sfx, const void* tot, const void* npl,
-                        const void* bnd, const void* bud, void* out,
-                        void* used, void* ws, int M, int K, int N, int n_bits,
-                        int D, int bm, int bn, int bk, int relu,
-                        void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
-      M % bm != 0 || N % bn != 0 || K % bk != 0 || D < 1 || D > n_bits ||
-      n_bits > 30 || qtype < Q_U8 || qtype > Q_I32 || wtype < W_F32 ||
-      wtype > W_BF16) {
+int dslot_matmul_launch(const DslotArgs* a) {
+  if (a->M <= 0 || a->N <= 0 || a->K <= 0 || a->bm <= 0 || a->bn <= 0 ||
+      a->bk <= 0 || a->M > INT_MAX || a->N > INT_MAX || a->K > INT_MAX ||
+      a->M % a->bm != 0 || a->N % a->bn != 0 || a->K % a->bk != 0 ||
+      a->D < 1 || a->D > a->n_bits || a->n_bits > 30 || a->qtype < Q_U8 ||
+      a->qtype > Q_I32 || a->wtype < W_F32 || a->wtype > W_BF16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DSLOT_TYPED(CODE, T)                                                \
-  if (qtype == CODE)                                                        \
-    return launch_typed<T>(q, wtype, w, sfx, tot, npl, bnd, bud, out, used, \
-                           ws, M, K, N, n_bits, D, bm, bn, bk, relu, s);
+  const int M = static_cast<int>(a->M), K = static_cast<int>(a->K),
+            N = static_cast<int>(a->N), n_bits = static_cast<int>(a->n_bits),
+            D = static_cast<int>(a->D), bm = static_cast<int>(a->bm),
+            bn = static_cast<int>(a->bn), bk = static_cast<int>(a->bk),
+            relu = static_cast<int>(a->relu), wtype = static_cast<int>(a->wtype);
+  cudaStream_t s = static_cast<cudaStream_t>(a->stream);
+#define DSLOT_TYPED(CODE, T)                                                 \
+  if (a->qtype == CODE)                                                      \
+    return launch_typed<T>(a->q, wtype, a->w, a->sfx, a->tot, a->npl, a->bnd,\
+                           a->bud, a->out, a->used, a->ws, M, K, N, n_bits,  \
+                           D, bm, bn, bk, relu, s);
   DSLOT_TYPED(Q_U8, uint8_t)
   DSLOT_TYPED(Q_I8, int8_t)
   DSLOT_TYPED(Q_U16, uint16_t)

@@ -43,6 +43,7 @@ logical chunk through shared memory in fixed sub-tiles whatever its size.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import NamedTuple
 
 import torch
@@ -198,53 +199,62 @@ def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/dslot_matmul.cu`` on the current stream (same
     arguments and results as ``_replay``).  One call is one launch for the
-    counter, also where it takes two grids (the bf16 split of f32 weights
-    before tiles that stream K)."""
+    counter, also where it takes two grids (W's bf16 parts written before
+    tiles that stream W).  The host work per call is kept small: an H100
+    runs the CNN head's kernel in about 11 us, so there the wrapper's own
+    time is what an eager caller waits for."""
     M, K = q.shape
     N = w.shape[1]
-    dev = q.device
-    if q.dtype not in _Q_CODES:
+    q_code = _Q_CODES.get(q.dtype)
+    w_code = _W_CODES.get(w.dtype)
+    if q_code is None:
         raise TypeError(f"q dtype {q.dtype} not supported by the kernel")
-    if w.dtype not in _W_CODES:
+    if w_code is None:
         raise TypeError(f"w dtype {w.dtype} not supported by the kernel")
     if w.shape[0] != K or M % block_m or N % block_n or K % bk:
         raise ValueError(f"shapes q{tuple(q.shape)} w{tuple(w.shape)} do not "
                          f"tile by ({block_m}, {block_n}, {bk})")
-    ins = {"q": q, "w": w, "suffix": suffix, "total": total, "npl": npl,
-           "tile_bound": tile_bound, "row_budget": row_budget}
-    for name, t in ins.items():
-        if t is not None and t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    q, w = q.contiguous(), w.contiguous()
-    suffix = suffix.to(torch.float32).contiguous()
-    total = total.to(torch.float32).contiguous()
-    npl = npl.to(torch.int32).reshape(1).contiguous()
-    tile_bound = tile_bound.to(torch.int32).contiguous()
+    dev = q.get_device()
+    for name, t in (("w", w), ("suffix", suffix), ("total", total),
+                    ("npl", npl), ("tile_bound", tile_bound),
+                    ("row_budget", row_budget)):
+        if t is not None and t.get_device() != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    q, w = _dense(q, q.dtype), _dense(w, w.dtype)
+    suffix = _dense(suffix, torch.float32)
+    total = _dense(total, torch.float32)
+    npl = _dense(npl, torch.int32)
+    tile_bound = _dense(tile_bound, torch.int32)
     if row_budget is not None:
-        row_budget = row_budget.to(torch.int32).contiguous()
+        row_budget = _dense(row_budget, torch.int32)
     if suffix.shape != (K // bk, N) or total.numel() != N \
-            or tile_bound.shape != (N // block_n,) \
+            or npl.numel() != 1 or tile_bound.shape != (N // block_n,) \
             or (row_budget is not None and row_budget.shape != (M,)):
-        raise ValueError("termination tables, plane bound or row budget do "
-                         "not match the tiled shapes")
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    used = torch.empty((M // block_m, N // block_n), dtype=torch.int32,
-                       device=dev)
+        raise ValueError("termination tables, runtime precision, plane bound "
+                         "or row budget do not match the tiled shapes")
     lib = _library()
-    ws_bytes = lib.dslot_matmul_workspace(M, K, N, n_bits, int(relu),
-                                          _W_CODES[w.dtype])
-    ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=dev) \
+    key = (K, N, block_m, block_n, bk, n_bits, bool(relu), q_code, w_code)
+    ws_bytes = _WORKSPACE.get(key)
+    if ws_bytes is None:
+        ws_bytes = _WORKSPACE[key] = max(0, lib.dslot_matmul_workspace(
+            K, N, block_m, block_n, bk, n_bits, int(relu), q_code, w_code))
+    out = torch.empty((M, N), dtype=torch.float32, device=q.device)
+    used = torch.empty((M // block_m, N // block_n), dtype=torch.int32,
+                       device=q.device)
+    ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=q.device) \
         if ws_bytes else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dslot_matmul_launch(
-            q.data_ptr(), _Q_CODES[q.dtype], w.data_ptr(), _W_CODES[w.dtype],
-            suffix.data_ptr(), total.data_ptr(), npl.data_ptr(),
-            tile_bound.data_ptr(),
-            None if row_budget is None else row_budget.data_ptr(),
-            out.data_ptr(), used.data_ptr(),
-            None if ws is None else ws.data_ptr(), M, K, N, n_bits,
-            n_planes, block_m, block_n, bk, int(relu), stream)
+    args = _ARGS.pack(
+        q.data_ptr(), q_code, w.data_ptr(), w_code, suffix.data_ptr(),
+        total.data_ptr(), npl.data_ptr(), tile_bound.data_ptr(),
+        0 if row_budget is None else row_budget.data_ptr(), out.data_ptr(),
+        used.data_ptr(), 0 if ws is None else ws.data_ptr(), M, K, N, n_bits,
+        n_planes, block_m, block_n, bk, int(relu),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if dev == torch.cuda.current_device():
+        err = lib.dslot_matmul_launch(args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.dslot_matmul_launch(args)
     if err != 0:
         raise RuntimeError("dslot_matmul kernel launch failed: "
                            + lib.dslot_error_string(err).decode())
@@ -252,14 +262,25 @@ def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
     return out, used
 
 
+def _dense(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype`` (itself when it is one)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+# The C entry point's argument record (struct DslotArgs): 22 int64 fields.
+_ARGS = struct.Struct("=22q")
+_WORKSPACE: dict[tuple, int] = {}   # workspace bytes by launch shape
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("dslot_matmul")
     if lib.dslot_matmul_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dslot_matmul_launch.argtypes = [p, i, p, i, p, p, p, p, p, p, p,
-                                            p, i, i, i, i, i, i, i, i, i, p]
+        i = ctypes.c_int
+        lib.dslot_matmul_launch.argtypes = [ctypes.c_char_p]
         lib.dslot_matmul_launch.restype = i
-        lib.dslot_matmul_workspace.argtypes = [i, i, i, i, i, i]
+        lib.dslot_matmul_workspace.argtypes = [i] * 9
         lib.dslot_matmul_workspace.restype = ctypes.c_longlong
         lib.dslot_error_string.argtypes = [i]
         lib.dslot_error_string.restype = ctypes.c_char_p

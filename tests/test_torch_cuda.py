@@ -103,10 +103,13 @@ def test_split_k_product_matches_plain(cuda, signed, wdtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("block_m,block_n,K", [(16, 5, 1024), (32, 24, 1024),
-                                               (24, 10, 200), (48, 12, 1024)])
+                                               (24, 10, 200), (48, 12, 1024),
+                                               (256, 32, 1024)])
 def test_padded_mma_geometries(cuda, block_m, block_n, K):
     """Tiles that the mma shape (16 rows, 8 columns) pads: the physical pad
-    neither votes nor is stored; K = 1024 streams, K = 200 stays resident."""
+    neither votes nor is stored.  Each of these tiles streams W with its q
+    rows staged once, except 256 x 32 at K = 1024, whose q rows do not fit
+    beside the ring and are copied with each sub-chunk."""
     q, w = _dyadic_case(cuda, True, torch.float32, M=block_m * 8, K=K,
                         N=block_n * 6)
     bud = torch.as_tensor(np.random.default_rng(10).integers(1, 9,
