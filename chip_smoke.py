@@ -50,10 +50,34 @@ Phases (any failure exits non-zero and prints no result line):
    time alone) and by their host issue time.  ``forward_dslot`` is timed in
    7 repeats (median, min, max) and traced once with ``torch.profiler``
    for its device time per call.
+5. LM serving path: full-width seamless-m4t-medium (12 encoder + 12
+   decoder layers, d_model 1024, d_ff 4096, vocab 256206, bf16) with the
+   config's own ``DslotConfig(enabled=True)`` (8 bits, block 128 x 128,
+   sorted columns, ``block_k`` auto), weights from a seeded generator on the
+   card, ``prepare_dslot``, and the launcher's batch: 4 prompts of 16 tokens,
+   ``frontend`` (4, 1024, 1024) and ``src_embeds`` (4, 8, 1024).
+   ``generate`` of 16 new tokens at ``n_planes`` 8 and per request
+   [8, 8, 4, 2] must each launch the kernel exactly 216 times (24 MLPs at
+   prefill, 12 per decode step), give tokens in [0, vocab), and the 2-plane
+   request must report ``planes_used_mean <= 2``.  One launch of each shape
+   (encoder, decoder prefill, decode step) is held against the plain
+   version as in phase 2 and timed as in phase 4; a prefill with ``run``
+   swapped for the plain version must give logits within ``LM_LOGIT_RTOL``
+   of the largest (the reason is at its definition), and the token
+   agreement of a whole plain ``generate`` is printed, as is the agreement
+   with the dense MLP and the plane statistics per request (random weights:
+   not gated).  Times: ``generate`` (median of 5 after a warm-up, tokens/s,
+   with the dense MLP beside it), prefill and decode step (median of 5),
+   one of each traced with ``torch.profiler`` (device time, idle share, top
+   kernels), and peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
-printed just before that.
+printed just before that.  The record's ``launches`` counts the kernel
+launches of both driven paths (phase 3's CNN and phase 5's two
+``generate`` runs); its times and bound are sums over the five main-path
+launches timed in phases 4 and 5 (CNN conv and head; LM encoder, prefill
+and decode).
 """
 
 from __future__ import annotations
@@ -459,6 +483,219 @@ def forward_profile(fn, calls: int = 5) -> tuple[float, list] | None:
     return sum(r[0] for r in rows), rows
 
 
+# ------------------------------------------------------------ phase 5
+
+LM_ARCH = "seamless-m4t-medium"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 16, 16
+# Prefill logits of the kernel's generate against the plain version's: both
+# run the same bf16 model and differ only where the kernel's f32 sums (in
+# another order) round an MLP output to another bf16 value, or move a later
+# layer's 8-bit activation across a rounding edge; each such flip is one
+# bf16 ulp (2^-8 to 2^-7 relative) or one quantization step.  Flips stay
+# sparse, so the logits must agree within 2^-4 of their largest magnitude,
+# 8 to 16 bf16 ulps there; a wrong tile moves logits by their own size.
+LM_LOGIT_RTOL = 2.0 ** -4
+
+
+def lm_setup(dev):
+    """Full-width seamless-m4t-medium with the config's own DSLOT defaults,
+    seeded weights drawn on the card, prepared once; the launcher's batch."""
+    from repro_torch.configs.base import DslotConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH),
+                              dslot=DslotConfig(enabled=True))
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prepared = model.prepare_dslot(params)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {model.param_count(params) / 1e9:.4f} B parameters "
+        f"({cfg.dtype}), {cfg.encoder_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; init {t1 - t0:.2f} s, prepare_dslot "
+        f"{time.perf_counter() - t1:.2f} s; {cfg.dslot}")
+    g = torch.Generator(dev).manual_seed(1)
+    batch = {
+        "tokens": torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                                generator=g, device=dev),
+        "frontend": torch.randn((LM_BATCH, cfg.frontend_len, cfg.d_model),
+                                generator=g, device=dev) * 0.02,
+        "src_embeds": torch.randn((LM_BATCH, 8, cfg.d_model), generator=g,
+                                  device=dev) * 0.02}
+    dense = build_model(dataclasses.replace(cfg,
+                                            dslot=DslotConfig(enabled=False)))
+    return cfg, model, params, prepared, dense, batch
+
+
+def median_ms(fn, reps: int = 5) -> tuple[float, list]:
+    """Median wall time of ``fn`` (ending in a synchronize) after one
+    warm-up call, with all the times."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2], times
+
+
+def phase5(card, dev):
+    """The LM serving path: ``generate`` on full-width seamless-m4t-medium.
+    Returns (kernel launches in the driven runs, max abs error, the three
+    kernel shapes' times)."""
+    from repro_torch.kernels import dslot_matmul as dm
+    from repro_torch.runtime import precision_scope
+    from repro_torch.serve.engine import generate
+
+    cfg, model, params, prep, dense, batch = lm_setup(dev)
+    n_layers = cfg.encoder_layers + cfg.n_layers
+    expected = n_layers + cfg.n_layers * LM_NEW
+    budgets = {"n_planes=8": 8,
+               "n_planes=[8,8,4,2]": torch.tensor([8, 8, 4, 2], device=dev)}
+    launches = 0
+    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    for label, npl in budgets.items():
+        dm.dslot_matmul_cuda.launches = 0
+        res = generate(model, prep, batch, LM_NEW, n_planes=npl)
+        torch.cuda.synchronize()
+        n = dm.dslot_matmul_cuda.launches
+        launches += n
+        results[label] = res
+        if n != expected:
+            raise AssertionError(f"generate ({label}) launched the kernel {n} "
+                                 f"times, expected {expected}")
+        toks = res.tokens
+        if toks.shape != (LM_BATCH, LM_NEW) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{label}: tokens {tuple(toks.shape)} out of "
+                                 f"[0, {cfg.vocab_size})")
+        log(f"  generate {label}: {n} kernel launches; planes_used_mean "
+            f"{[round(float(v), 4) for v in res.planes_used_mean]}, "
+            f"skipped_frac {[round(float(v), 4) for v in res.skipped_frac]}, "
+            f"planes_bounded_mean {float(res.planes_bounded_mean):.4f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    low = float(results["n_planes=[8,8,4,2]"].planes_used_mean[3])
+    if low > 2.0:
+        raise AssertionError(f"the 2-plane request used {low} planes")
+    ref = generate(dense, params, batch, LM_NEW)
+    for label, res in results.items():
+        agree = float((res.tokens == ref.tokens).float().mean())
+        log(f"  token agreement {label} vs the dense MLP: {agree:.4f} "
+            f"(random weights: not gated)")
+
+    # one launch of each shape, held against the plain version
+    calls = []
+    orig_run = dm.run
+    dm.run = lambda *args: calls.append(args) or orig_run(*args)
+    try:
+        generate(model, prep, batch, 1, n_planes=8)
+    finally:
+        dm.run = orig_run
+    shapes = (("LM encoder launch", calls[0], LM_BATCH * 8),
+              ("LM prefill launch", calls[cfg.encoder_layers],
+               LM_BATCH * (cfg.frontend_len + LM_PROMPT)),
+              ("LM decode launch", calls[n_layers], LM_BATCH))
+    max_err, times = 0.0, []
+    for label, args, rows in shapes:
+        q, w = args[0], args[1]
+        kw = dict(n_bits=args[2], relu=args[4], block_m=args[5],
+                  block_n=args[6], block_k=args[7], suffix_colsum=args[8],
+                  total_colsum=args[9][None], n_planes_rt=args[10],
+                  row_budget=args[11], plane_bound=args[12])
+        a = dm.DslotMatmulOut(*dm._launch(*args))
+        b = dm.DslotMatmulOut(*dm._replay(*args))
+        torch.cuda.synchronize()
+        err = compare(label, a, b, False, q, w, kw)
+        max_err = max(max_err, err)
+        log(f"  {label}: q {tuple(q.shape)} ({rows} rows), max err "
+            f"{err:.3g}, planes_used mean "
+            f"{float(a.planes_used.float().mean()):.3f}")
+        times.append(time_call(
+            label, q, w, kw, (rows, cfg.d_model, cfg.d_ff),
+            lambda a=args: dm._launch(*a), lambda a=args: dm._replay(*a),
+            card))
+    del calls
+
+    # the whole generate on the plain version
+    def prefill(m, p):
+        with precision_scope(torch.full((LM_BATCH,), 8, dtype=torch.int32,
+                                        device=dev)):
+            return m.prefill(p, batch)[0]
+
+    kernel_logits = prefill(model, prep)
+    dm.run = dm._replay
+    try:
+        plain_logits = prefill(model, prep)
+        plain = generate(model, prep, batch, LM_NEW, n_planes=8)
+    finally:
+        dm.run = orig_run
+    for lg in (kernel_logits, plain_logits):
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError("prefill logits are not finite")
+    diff = float((kernel_logits.float() - plain_logits.float()).abs().max())
+    scale = float(plain_logits.float().abs().max())
+    agree = float((plain.tokens == results["n_planes=8"].tokens)
+                  .float().mean())
+    log(f"  prefill logits, kernel vs plain version: max |diff| {diff:.4g}, "
+        f"max |logit| {scale:.4g} (limit {LM_LOGIT_RTOL * scale:.4g}); "
+        f"token streams agree {agree:.4f}")
+    if diff > LM_LOGIT_RTOL * scale:
+        raise AssertionError(f"prefill logits differ by {diff}")
+
+    # times
+    log(f"  times [{card}]")
+    npl8 = torch.full((LM_BATCH,), 8, dtype=torch.int32, device=dev)
+    gen_ms, gen_all = median_ms(
+        lambda: generate(model, prep, batch, LM_NEW, n_planes=npl8))
+    dense_ms, _ = median_ms(lambda: generate(dense, params, batch, LM_NEW))
+    log(f"  generate B={LM_BATCH} prompt {LM_PROMPT} + {cfg.frontend_len} "
+        f"frames, {LM_NEW} new tokens, n_planes 8: median {gen_ms:.2f} ms "
+        f"({LM_BATCH * LM_NEW / gen_ms * 1e3:.1f} tokens/s) of "
+        f"{[round(t, 2) for t in gen_all]}; dense MLP {dense_ms:.2f} ms "
+        f"({LM_BATCH * LM_NEW / dense_ms * 1e3:.1f} tokens/s)")
+
+    def run_prefill():
+        with precision_scope(npl8):
+            return model.prefill(prep, batch)
+
+    _, state = run_prefill()
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.int32, device=dev)
+
+    def run_decode():
+        with precision_scope(npl8):
+            return model.decode_step(prep, state, tok)
+
+    pre_ms, _ = median_ms(run_prefill)
+    dec_ms, _ = median_ms(run_decode)
+    log(f"  prefill {pre_ms:.2f} ms, decode step {dec_ms:.3f} ms "
+        f"(median of 5 each)")
+    for label, fn, wall in (("prefill", run_prefill, pre_ms),
+                            ("decode step", run_decode, dec_ms)):
+        prof = forward_profile(fn, calls=1)
+        if prof is None:
+            log(f"  {label} device time: not measured (the profiler trace "
+                f"holds no device time)")
+            continue
+        dev_ms, rows = prof
+        kern = sum(r[0] for r in rows if any(
+            k in r[2] for k in ("plane_kernel", "product_kernel",
+                                "split_parts_kernel")))
+        log(f"  {label} device time (torch.profiler): {dev_ms:.3f} ms, idle "
+            f"share {max(0.0, 1 - dev_ms / wall):.3f} of the median "
+            f"{wall:.3f} ms; dslot kernels {kern:.3f} ms; top kernels:")
+        for ms, count, key in rows[:8]:
+            log(f"    {ms:.4f} ms x{count} {key[:90]}")
+    log(f"  peak memory in the generate runs: {peak_gb:.2f} GB [{card}]")
+    return launches, max_err, times
+
+
 # ------------------------------------------------------------ phase 3
 
 def cpu_copy(prep):
@@ -650,11 +887,17 @@ def main() -> int:
         log(f"  shape {shape}: kernel {t['ms']:.4f} ms vs bound "
             f"{t['bound_ms']:.4g} ms")
 
+    # -------------------------------------------------- 5. LM serving path
+    log(f"phase 5: LM serving path, {LM_ARCH} through generate")
+    lm_launches, lm_err, lm_times = phase5(card, dev)
+    max_err = max(max_err, lm_err)
+    main_times += lm_times
+
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)
     record = {"kernels": [{
         "name": "dslot_matmul", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": main_launches,
+        "replaces": REPLACES, "launches": main_launches + lm_launches,
         "max_abs_err": max_err,
         "ms": sum(t["ms"] for t in main_times),
         "plain_ms": sum(t["plain_ms"] for t in main_times),

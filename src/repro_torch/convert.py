@@ -6,8 +6,13 @@ packages, so conversion is a copy onto the device plus shape checks:
 
 * ``cnn_params``: the MNIST CNN's ``(conv (M, k, k), dense (M*S*S, C))``;
 * ``layer_params``: a layer's ``{"w": ...}`` — a dense ``(K, N)`` weight or
-  a conv ``(k, k, C, M)`` weight.  The reference's prepared state
-  (``"dslot"``) is dropped: the port prepares its own.
+  a conv ``(k, k, C, M)`` weight;
+* ``model_params``: a ``Model.init`` tree — nested dicts and lists, stacked
+  groups kept stacked (layer ``g * period + pos`` is entry ``g`` of
+  ``groups[pos]`` in both packages).
+
+The reference's prepared state (``"dslot"``) is dropped: the port prepares
+its own.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from repro_torch.core.mnist_cnn import CNNParams
 from repro_torch.device import resolve_device
 
-__all__ = ["cnn_params", "layer_params", "to_tensor"]
+__all__ = ["cnn_params", "layer_params", "model_params", "to_tensor"]
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -48,3 +53,21 @@ def layer_params(params: dict, device=None) -> dict:
         raise ValueError(f"weight must be (K, N) or (k, k, C, M), got "
                          f"{tuple(w.shape)}")
     return {"w": w}
+
+
+def model_params(tree, device=None):
+    """The port's params tree from the reference's ``Model.init`` tree:
+    every leaf onto ``device`` (default ``cuda``), bf16 kept bf16, lists and
+    tuples kept, prepared ``"dslot"`` entries dropped."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items() if k != "dslot"}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, tuple):
+            return tuple(walk(v) for v in node)
+        return to_tensor(node, dev)
+
+    return walk(tree)

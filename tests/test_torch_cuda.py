@@ -11,16 +11,24 @@ so the kernel and its plain version must agree bit for bit, ``planes_used``
 included.
 """
 
+import dataclasses
 import shutil
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
+from repro_torch.configs.base import DslotConfig
 from repro_torch.configs.dslot_mnist import CONFIG
+from repro_torch.configs.registry import ARCHS
 from repro_torch.core import mnist_cnn
 from repro_torch.kernels import _build
 from repro_torch.kernels import dslot_matmul as dm
+from repro_torch.models import stats
+from repro_torch.models.model_zoo import build_model
+from repro_torch.runtime import precision_scope
+from repro_torch.serve.engine import generate
 
 
 @pytest.fixture
@@ -198,6 +206,60 @@ def test_forward_dslot_launches_twice_and_matches_cpu(cuda):
     # separately calibrated head scales may differ in the last ulp
     torch.testing.assert_close(res.logits.cpu(), ref.logits, rtol=1e-4,
                                atol=1e-4)
+
+
+def _seamless_dead_columns(device):
+    """Reduced seamless-m4t-medium with DSLOT on (block_m = B = 4, so a
+    decode step's rows fill their tile) and half of every up-projection's
+    columns ReLU-dead (norm2 bias 1, those columns' weights lowered by 0.5),
+    so whole tiles terminate early; params on ``device``."""
+    cfg = dataclasses.replace(
+        ARCHS["seamless-m4t-medium"].reduced(),
+        dslot=DslotConfig(enabled=True, block_m=4, block_n=32))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    for stack in ("encoder", "decoder"):
+        for layer in params[stack]["rest"]:
+            layer["norm2"]["bias"] += 1.0
+            layer["mlp"]["up"]["w"][:, ::2] -= 0.5
+    params = convert.model_params(params, device=device)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 6), generator=g),
+             "frontend": torch.randn((4, cfg.frontend_len, cfg.d_model),
+                                     generator=g) * 0.5,
+             "src_embeds": torch.randn((4, 8, cfg.d_model), generator=g)}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    return cfg, model, model.prepare_dslot(params), batch
+
+
+@pytest.mark.gpu
+def test_seamless_generate_on_card_matches_cpu(cuda):
+    """The reduced LM serving path through the kernel equals the same run on
+    the CPU (the kernel's plain version): tokens and plane statistics."""
+    cfg, model, params, batch = _seamless_dead_columns(cuda)
+    _, _, params_cpu, batch_cpu = _seamless_dead_columns("cpu")
+    budgets = torch.tensor([8, 8, 4, 2], dtype=torch.int32)
+    n0 = dm.dslot_matmul_cuda.launches
+    res = generate(model, params, batch, 5, n_planes=budgets.to(cuda))
+    torch.cuda.synchronize()
+    layers = cfg.encoder_layers + cfg.n_layers
+    assert dm.dslot_matmul_cuda.launches == n0 + layers + 5 * cfg.n_layers
+    ref = generate(model, params_cpu, batch_cpu, 5, n_planes=budgets)
+    assert torch.equal(res.tokens.cpu(), ref.tokens)
+    assert torch.equal(res.planes_used_mean.cpu(), ref.planes_used_mean)
+    assert torch.equal(res.skipped_frac.cpu(), ref.skipped_frac)
+    assert float(ref.skipped_frac.max()) > 0, "termination must fire"
+    with stats.collect() as card, precision_scope(6):
+        logits, _ = model.forward(params, batch, mode="prefill")
+    with stats.collect() as host, precision_scope(6):
+        want, _ = model.forward(params_cpu, batch_cpu, mode="prefill")
+    for a, b in zip(card["mlp_up_dslot.row_planes_used"],
+                    host["mlp_up_dslot.row_planes_used"]):
+        assert torch.equal(a.cpu(), b)
+    # f32 products in another order (and on the tensor cores as three bf16
+    # parts inside the kernel): the CPU parity tests' bound
+    torch.testing.assert_close(logits.cpu(), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
