@@ -40,7 +40,8 @@ Phases (any failure exits non-zero and prints no result line):
    products / 989 TFLOP/s, both H100 SXM data-sheet peaks at 700 W.  A
    product with f32 weights needs 3 bf16 products (hi, mid and lo parts of
    each weight: f32 accuracy without TF32), one with bf16 weights needs 1.
-   Products count the unpadded shape: ``planes_used`` per tile under ReLU
+   Bytes and products count the unpadded shape (not the pad rows of a
+   tile): ``planes_used`` products per tile under ReLU
    (the early exit reads every plane's partial sum), one product of the
    truncated q without it.  The earlier yardstick, needed f32 flops / 67
    TFLOP/s on the CUDA cores, is printed beside it.  Times are eager
@@ -341,26 +342,29 @@ def compare(name, a, b, exact, q, w, kw):
     return err
 
 
-def bound_ms(q, w, kw, out, used, dims) -> tuple[float, str, float, float]:
+def bound_ms(q, w, kw, used, dims) -> tuple[float, str, float, float]:
     """Least time for the call on an H100 SXM at 700 W: bytes moved once
     over 3.35 TB/s against the bf16 tensor-core flops this run's data needs
     over 989 TFLOP/s (3 bf16 products per product with f32 weights, 1 with
     bf16 weights).  Returns (bound ms, what bounds it, bytes, f32 flops).
 
-    ``dims`` is the unpadded (M, K, N).  Flops count only real rows, columns
-    and K.  A ReLU tile needs its partial sum after every plane it entered
-    (the termination check reads it), so it costs ``planes_used`` products
-    of its rows and columns; a tile without ReLU needs one product of the
+    ``dims`` is the unpadded (M, K, N), and both terms count only real
+    rows, columns and K: bytes are q (M, K), W (K, N), the f32 out (M, N),
+    the termination tables, ``planes_used`` per tile and the M row budgets,
+    not the pad rows and columns the wrapper adds for its tiles.  A ReLU
+    tile needs its partial sum after every plane it entered (the
+    termination check reads it), so it costs ``planes_used`` products of
+    its rows and columns; a tile without ReLU needs one product of the
     truncated q, and none when it entered no plane.
     """
-    nbytes = (q.numel() * q.element_size() + w.numel() * w.element_size()
+    M, K, N = dims
+    nbytes = (M * K * q.element_size() + K * N * w.element_size()
               + kw["suffix_colsum"].numel() * 4 + kw["total_colsum"].numel()
-              * 4 + out.numel() * 4 + used.numel() * 4 + 4)
+              * 4 + M * N * 4 + used.numel() * 4 + 4)
     if kw["plane_bound"] is not None:
         nbytes += kw["plane_bound"].numel() * 4
     if kw["row_budget"] is not None:
-        nbytes += kw["row_budget"].numel() * 4
-    M, K, N = dims
+        nbytes += M * 4
     bm, bn = kw["block_m"], kw["block_n"]
     Mt, Nt = used.shape
     rows = (M - bm * torch.arange(Mt, dtype=torch.float64)).clamp(0, bm)
@@ -420,7 +424,7 @@ def time_call(label, q, w, kw, dims, launch, replay, card):
     same calls from a CUDA graph: device time alone, inputs warm in L2."""
     from repro_torch.device import full_f32
 
-    out, used = launch()
+    _, used = launch()
     torch.cuda.synchronize()
     k_ms = cuda_ms(launch)
     k_graph = graph_ms(launch)
@@ -436,7 +440,7 @@ def time_call(label, q, w, kw, dims, launch, replay, card):
         lib_graph = graph_ms(mm)
         lib_host = host_us(mm)
     k_host = host_us(launch)
-    b_ms, b_by, nbytes, flops = bound_ms(q, w, kw, out, used, dims)
+    b_ms, b_by, nbytes, flops = bound_ms(q, w, kw, used, dims)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     old_ms = max(t_bytes, flops / PEAK_F32_FLOPS * 1e3)
     log(f"  {label}: kernel {k_ms:.4f} ms (graph {k_graph:.4f}, host issue "
@@ -688,7 +692,7 @@ def phase5(card, dev):
             k in r[2] for k in ("plane_kernel", "product_kernel",
                                 "split_parts_kernel")))
         log(f"  {label} device time (torch.profiler): {dev_ms:.3f} ms, idle "
-            f"share {max(0.0, 1 - dev_ms / wall):.3f} of the median "
+            f"share {1 - dev_ms / wall:.3f} of the median "
             f"{wall:.3f} ms; dslot kernels {kern:.3f} ms; top kernels:")
         for ms, count, key in rows[:8]:
             log(f"    {ms:.4f} ms x{count} {key[:90]}")

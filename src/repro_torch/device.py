@@ -27,18 +27,25 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def full_f32() -> Iterator[None]:
-    """Full float32 products and convolutions (no TF32) inside the block.
+    """Products and convolutions accumulate in full float32 inside the
+    block: no TF32, and no half-precision reduction of bf16/f16 products.
 
-    The reference computes in full f32.  cuBLAS matmuls default to f32 in
-    PyTorch, but cuDNN convolutions default to TF32; both flags are pinned
-    here and restored on exit.
+    The reference computes in full f32 and accumulates its bf16 products in
+    f32.  cuBLAS matmuls default to f32 in PyTorch, but cuDNN convolutions
+    default to TF32, and cuBLAS may reduce the split-K partial sums of a
+    bf16 or f16 product in that type; every flag is pinned here and
+    restored on exit.
     """
-    matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
-                     torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, cudnn.allow_tf32,
+             mm.allow_bf16_reduced_precision_reduction,
+             mm.allow_fp16_reduced_precision_reduction)
+    mm.allow_tf32 = cudnn.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
+    mm.allow_fp16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
+        (mm.allow_tf32, cudnn.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction,
+         mm.allow_fp16_reduced_precision_reduction) = saved

@@ -9,7 +9,8 @@ so CPU results keep the reference's rounding.
 
 Decode uses a ring-buffer KV cache: slot = position % capacity, with an
 explicit per-row position array (-1 = empty) for exact masking.  Full
-attention uses capacity = seq_len (no wraparound).
+attention uses capacity = seq_len (no wraparound).  Decode writes the ring
+in place, where the reference returns a new cache value.
 
 Sliding-window attention (``swa_attention`` and the SWA branches of
 ``attention_forward``) belongs to a later slice of the port: a config with
@@ -183,9 +184,9 @@ def chunked_causal_attention(q, k, v, q_pos, k_pos, *, chunk: int
 # ------------------------------------------------------------------ module API
 
 def _ring_write(cache: KVCache, k, v, pos_b, q_valid) -> KVCache:
-    """Write a chunk's KV at each row's slots ``pos % C``; rows where
-    ``q_valid`` is False write back what the ring already holds.  Returns a
-    new cache (the old one is left as it was)."""
+    """Write a chunk's KV into each row's slots ``pos % C``, in place; rows
+    where ``q_valid`` is False write back what the ring already holds.
+    Returns ``cache``."""
     B = k.shape[0]
     C = cache.k.shape[1]
     slots = pos_b % C                                       # (B, S)
@@ -195,11 +196,10 @@ def _ring_write(cache: KVCache, k, v, pos_b, q_valid) -> KVCache:
         k = torch.where(keep, k, cache.k[bidx, slots])
         v = torch.where(keep, v, cache.v[bidx, slots])
         pos_b = torch.where(q_valid, pos_b, cache.positions[bidx, slots])
-    kc, vc, pc = cache.k.clone(), cache.v.clone(), cache.positions.clone()
-    kc[bidx, slots] = k.to(kc.dtype)
-    vc[bidx, slots] = v.to(vc.dtype)
-    pc[bidx, slots] = pos_b.to(torch.int32)
-    return KVCache(k=kc, v=vc, positions=pc)
+    cache.k[bidx, slots] = k.to(cache.k.dtype)
+    cache.v[bidx, slots] = v.to(cache.v.dtype)
+    cache.positions[bidx, slots] = pos_b.to(torch.int32)
+    return cache
 
 
 def _build_ring(k, v, kv_pos, C: int, q_valid) -> KVCache:
@@ -251,9 +251,9 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
     x: (B, S, d_model).  positions: (S,) shared or (B, S) per-row int32
     absolute positions.
     cache: with a self-attention cache (decode, or a multi-token extension)
-    the new KV are written into each row's ring at its own offsets and
-    attention runs against the whole ring; ``return_cache`` on a pass
-    without one (prefill) builds the ring, sized for ``cache_len``.
+    the new KV are written into each row's ring at its own offsets, in
+    place, and attention runs against the whole ring; ``return_cache`` on a
+    pass without one (prefill) builds the ring, sized for ``cache_len``.
     kv_x: encoder output for cross-attention (keys/values from there, no
     causal mask, rope at the encoder positions).  A cross-attention call
     with a cache and no ``kv_x`` attends to that static cache.

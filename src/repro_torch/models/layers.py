@@ -112,8 +112,9 @@ def init_dense(gen, d_in: int, d_out: int, dtype, device, bias: bool = False
 def _matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype
             ) -> torch.Tensor:
     """``x @ w`` in the promoted type of both, output in ``out_dtype``: the
-    reference's ``preferred_element_type`` (the product accumulates in f32
-    either way)."""
+    reference's ``preferred_element_type``.  The product accumulates in f32
+    where the caller pins it (``Model``'s entry points run under
+    ``repro_torch.device.full_f32``), like the reference's."""
     ct = torch.promote_types(x.dtype, w.dtype)
     return torch.matmul(x.to(ct), w.to(ct)).to(out_dtype)
 

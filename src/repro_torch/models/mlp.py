@@ -15,7 +15,6 @@ through ``repro_torch.models.stats``.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.ops import dslot_prepare
 from repro_torch.layers import DslotDense
@@ -23,9 +22,25 @@ from repro_torch.layers import DslotDense
 from . import stats
 from .layers import Params, apply_dense, init_dense
 
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * 1 / (1 + exp(-x)), each op rounded to x's dtype
+    (``F.silu`` rounds once, which differs in bf16)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh form) op by op in x's dtype, its constants
+    rounded to that dtype first, as the reference's trace has them."""
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = (x + x ** 3 * c(0.044715)) * c((2 / torch.pi) ** 0.5)
+    return x * ((1 + torch.tanh(inner)) * c(0.5))
+
+
 _ACTS = {
-    "silu": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu default
+    "silu": _silu,
+    "gelu": _gelu,
     "relu": lambda x: torch.clamp_min(x, 0.0),
 }
 

@@ -14,16 +14,19 @@ Batch dicts (tensors on the model's device):
     LM       : {"tokens": (B, S) int}
     +frontend: {"frontend": (B, F, d_model)}
     enc-dec  : {"src_embeds": (B, F, d_model), "tokens": (B, S)}
-Decode state: {"caches": ..., "pos": (B,) int32}
+Decode state: {"caches": [one per decoder layer], "pos": (B,) int32}; decode
+writes the caches in place.
 
 The training loss (``loss_fn``) belongs to the training slice of the port.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import full_f32, resolve_device
 
 from .layers import (Params, apply_norm, embed_tokens, init_embedding,
                      init_lm_head, init_norm, lm_logits)
@@ -34,6 +37,17 @@ def _last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Each row's position ``lengths - 1`` of (B, S, D), as (B, 1, D)."""
     idx = torch.clamp(lengths.to(torch.int64) - 1, 0, x.shape[1] - 1)
     return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+
+
+def _full_f32(method):
+    """Run a model entry point with f32 accumulation pinned in every product
+    (``full_f32``: no TF32, no half-precision split-K reduction in cuBLAS),
+    as the reference accumulates; one scope per call, not per product."""
+    @functools.wraps(method)
+    def run(*args, **kwargs):
+        with full_f32():
+            return method(*args, **kwargs)
+    return run
 
 
 class Model:
@@ -113,6 +127,7 @@ class Model:
 
     # ------------------------------------------------------------- forward
 
+    @_full_f32
     def forward(self, params, batch, mode: str = "train",
                 cache_len: int | None = None,
                 lengths: torch.Tensor | None = None):
@@ -171,12 +186,15 @@ class Model:
                              device=tokens.device)
         return logits[:, -1], {"caches": caches, "pos": pos}
 
+    @_full_f32
     def decode_step(self, params, state: dict, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, dict]:
         """One token for every row.  tokens: (B, 1) int.
 
         ``state["pos"]`` is a per-row (B,) vector (rows may sit at different
-        depths); a scalar means every row is at that depth.
+        depths); a scalar means every row is at that depth.  The caches are
+        written in place: the returned state holds ``state``'s cache
+        tensors.
         """
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg)
@@ -189,6 +207,7 @@ class Model:
         logits = lm_logits(params["head"], params["embed"], x, cfg)
         return logits[:, 0], {"caches": caches, "pos": state["pos"] + 1}
 
+    @_full_f32
     def extend(self, params, state: dict, tokens: torch.Tensor,
                lengths: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, dict]:
@@ -199,7 +218,8 @@ class Model:
         row's ring at its own offsets.  Returns each row's last position's
         logits and the extended state.  ``lengths``: optional per-row (B,)
         valid token counts of ragged chunks right-padded to S; pad rows
-        write nothing and do not advance ``pos``.
+        write nothing and do not advance ``pos``.  The caches are written in
+        place, as in ``decode_step``.
         """
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg)

@@ -12,10 +12,11 @@ A model is a sequence of blocks drawn from the config's ``block_pattern``
 "rest": [...]}``, where ``groups[pos]`` holds the layers at pattern
 position ``pos`` of every group stacked on a leading axis, and layer
 ``g * period + pos`` is group ``g``'s entry.  The reference scans over the
-groups; here a Python loop walks them.  Caches mirror the parameter
-stacking.  Statistics recorded inside a group come out stacked over the
-groups, as the reference's scan emits them, so consumers that average
-records weigh groups and rest layers as the reference does.
+groups; here a Python loop walks them.  Caches are a plain list, one per
+layer in layer order (the reference stacks them like the parameters), and
+decode writes them in place.  Statistics recorded inside a group come out
+stacked over the groups, as the reference's scan emits them, so consumers
+that average records weigh groups and rest layers as the reference does.
 """
 
 from __future__ import annotations
@@ -122,34 +123,22 @@ def apply_layer(p: Params, x: torch.Tensor, cfg, kind: str, *,
 # ------------------------------------------------------------- layer stacks
 
 def _index(tree, g: int):
-    """Group ``g``'s layer from a stacked tree: tensors are sliced on their
+    """Group ``g``'s layer from stacked params: tensors are sliced on their
     leading axis, and a list (prepared DSLOT state, one per layer) is
     indexed."""
-    if isinstance(tree, torch.Tensor):
-        return tree[g]
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
-    if isinstance(tree, list):
+    if isinstance(tree, (torch.Tensor, list)):
         return tree[g]
-    if isinstance(tree, KVCache):
-        return KVCache(*(_index(v, g) for v in tree))
-    if isinstance(tree, tuple):
-        return tuple(_index(v, g) for v in tree)
     return tree
 
 
 def _stack(trees: list):
-    """The inverse of ``_index`` for tensors, caches and tuples."""
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return torch.stack(trees)
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, KVCache):
-        return KVCache(*(_stack(list(vs)) for vs in zip(*trees)))
-    if isinstance(first, tuple):
-        return tuple(_stack(list(vs)) for vs in zip(*trees))
-    return first
+    """Stack layers' params on a new leading axis (the inverse of
+    ``_index``)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 class Stack:
@@ -173,9 +162,14 @@ class Stack:
             self.n_rest = n_layers
 
     @property
+    def kinds(self) -> tuple[str, ...]:
+        """Every layer's kind, in layer order."""
+        full = self.pattern * (-(-self.n_layers // self.period))
+        return full[:self.n_layers]
+
+    @property
     def rest_kinds(self) -> tuple[str, ...]:
-        full = (self.pattern * (-(-self.n_layers // self.period)))
-        return full[self.n_groups * self.period: self.n_layers]
+        return self.kinds[self.n_groups * self.period:]
 
     def init(self, gen, device) -> Params:
         p: Params = {"groups": [], "rest": []}
@@ -189,55 +183,44 @@ class Stack:
         return p
 
     def init_cache(self, batch: int, seq_len: int, enc_len: int, dtype,
-                   device):
-        c = {"groups": [], "rest": []}
-        for pos in range(self.period if self.n_groups else 0):
-            kind = self.pattern[pos]
-            c["groups"].append(_stack([
-                init_layer_cache(self.cfg, kind, batch, seq_len, enc_len,
-                                 dtype, device)
-                for _ in range(self.n_groups)]))
-        for kind in self.rest_kinds:
-            c["rest"].append(init_layer_cache(self.cfg, kind, batch, seq_len,
-                                              enc_len, dtype, device))
-        return c
+                   device) -> list:
+        """Empty caches, one per layer in layer order."""
+        return [init_layer_cache(self.cfg, kind, batch, seq_len, enc_len,
+                                 dtype, device) for kind in self.kinds]
 
     def apply(self, p: Params, x: torch.Tensor, *, positions, caches=None,
               enc_out=None, mode: str = "train", cache_len: int | None = None,
               q_valid: torch.Tensor | None = None):
-        """Returns (x, new_caches); caches come back for "prefill" and
-        "decode", and as empty lists for "train"."""
+        """Returns (x, new_caches): for "prefill" and "decode" one cache per
+        layer in layer order (decode's are ``caches``, written in place),
+        for "train" an empty list."""
         cfg = self.cfg
-        new_caches = {"groups": [], "rest": []}
+        new_caches = []
         kw = dict(enc_out=enc_out, mode=mode, causal=self.causal,
                   cache_len=cache_len, q_valid=q_valid)
 
-        if self.n_groups:
-            per_pos = [[] for _ in range(self.period)]
-            sinks = []
-            for g in range(self.n_groups):
-                with model_stats.collect() as sink:
-                    for pos, kind in enumerate(self.pattern):
-                        c = None if caches is None \
-                            else _index(caches["groups"][pos], g)
-                        x, nc = apply_layer(_index(p["groups"][pos], g), x,
-                                            cfg, kind, positions=positions,
-                                            cache=c, **kw)
-                        per_pos[pos].append(nc)
-                sinks.append(sink)
+        def layer(lp, x, kind, i):
+            c = None if caches is None else caches[i]
+            x, nc = apply_layer(lp, x, cfg, kind, positions=positions,
+                                cache=c, **kw)
             if mode != "train":
-                new_caches["groups"] = [_stack(ncs) for ncs in per_pos]
-            # one record per (name, call) with a leading group axis — the
-            # shape the reference's scan gives its stacked outputs
-            for name, vals in sinks[0].items():
-                for i in range(len(vals)):
-                    model_stats.record(name, torch.stack(
-                        [s[name][i] for s in sinks]))
+                new_caches.append(nc)
+            return x
+
+        sinks = []
+        for g in range(self.n_groups):
+            with model_stats.collect() as sink:
+                for pos, kind in enumerate(self.pattern):
+                    x = layer(_index(p["groups"][pos], g), x, kind,
+                              g * self.period + pos)
+            sinks.append(sink)
+        # one record per (name, call) with a leading group axis — the shape
+        # the reference's scan gives its stacked outputs
+        for name, vals in (sinks[0].items() if sinks else ()):
+            for i in range(len(vals)):
+                model_stats.record(name, torch.stack(
+                    [s[name][i] for s in sinks]))
 
         for i, kind in enumerate(self.rest_kinds):
-            c = None if caches is None else caches["rest"][i]
-            x, nc = apply_layer(p["rest"][i], x, cfg, kind,
-                                positions=positions, cache=c, **kw)
-            if mode != "train":
-                new_caches["rest"].append(nc)
+            x = layer(p["rest"][i], x, kind, self.n_groups * self.period + i)
         return x, new_caches

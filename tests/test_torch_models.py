@@ -159,6 +159,18 @@ def test_dense_with_bias_and_embedding_match_reference():
                                         jnp.asarray(tok), jc)))
 
 
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+def test_activations_bf16_match_reference_exactly(act):
+    """The activations round to the value dtype op by op, as the reference's
+    trace does (``F.silu`` and ``F.gelu`` round once and differ in bf16)."""
+    x = jnp.asarray(rng_normal(12, (50_000,), 3.0), jnp.bfloat16)
+    ref = jax.jit(jmlp._ACTS[act])(x)
+    out = tmlp._ACTS[act](t(x.astype(jnp.float32)).to(torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+
+
 # ----------------------------------------------------------------- attention
 
 def attn_params(jc, seed, cross=False):
@@ -395,10 +407,26 @@ def leaves(tree):
     return []
 
 
-def same_state(jstate, tstate):
+def ref_caches(stack, caches):
+    """The port's per-layer caches in the reference's layout: each pattern
+    position's layers stacked over the groups, then the rest layers."""
+    def stacked(trees):
+        if isinstance(trees[0], torch.Tensor):
+            return torch.stack(trees)
+        vals = [stacked(list(v)) for v in zip(*trees)]
+        return tatt.KVCache(*vals) if isinstance(trees[0], tatt.KVCache) \
+            else tuple(vals)
+    G, P = stack.n_groups, stack.period
+    return {"groups": [stacked(caches[pos:G * P:P])
+                       for pos in range(P if G else 0)],
+            "rest": caches[G * P:]}
+
+
+def same_state(jstate, tstate, stack):
     np.testing.assert_array_equal(tstate["pos"].numpy(),
                                   np.asarray(jstate["pos"]))
-    jl, tl = jax.tree.leaves(jstate["caches"]), leaves(tstate["caches"])
+    jl = jax.tree.leaves(jstate["caches"])
+    tl = leaves(ref_caches(stack, tstate["caches"]))
     assert [tuple(a.shape) for a in tl] == [b.shape for b in jl]
     for a, b in zip(tl, jl):
         if a.dtype == torch.int32:
@@ -424,24 +452,170 @@ def test_model_forward_prefill_decode_extend_match_reference(arch):
     jl, jst = jm.prefill(jp, jb, max_len=24, lengths=jnp.asarray(lengths))
     tl, tst = tm.prefill(tp, tb, max_len=24, lengths=t(lengths))
     close(tl, jl)
-    same_state(jst, tst)
+    same_state(jst, tst, tm.decoder)
 
     tok = np.array([[5], [9]], np.int32)
     jl, jst = jm.decode_step(jp, jst, jnp.asarray(tok))
     tl, tst = tm.decode_step(tp, tst, t(tok).long())
     close(tl, jl)
-    same_state(jst, tst)
+    same_state(jst, tst, tm.decoder)
 
     chunk = np.random.default_rng(3).integers(0, 256, (2, 4)).astype(np.int32)
     ext = np.array([4, 2], np.int32)
     jl, jst = jm.extend(jp, jst, jnp.asarray(chunk), lengths=jnp.asarray(ext))
     tl, tst = tm.extend(tp, tst, t(chunk).long(), lengths=t(ext))
     close(tl, jl)
-    same_state(jst, tst)
+    same_state(jst, tst, tm.decoder)
     jl, jst = jm.extend(jp, jst, jnp.asarray(chunk))
     tl, tst = tm.extend(tp, tst, t(chunk).long())
     close(tl, jl)
-    same_state(jst, tst)
+    same_state(jst, tst, tm.decoder)
+
+
+def test_decode_state_with_groups_and_rest_matches_reference():
+    """Five decoder layers of period 2 (two groups and a rest layer): the
+    port's per-layer caches are the reference's stacked ones, layer
+    ``g * period + pos`` at group ``g``, position ``pos``."""
+    jc, tc = cfg_pair("seamless-m4t-medium", scan_unroll=2, n_layers=5)
+    jm, tm = jbuild(jc), tbuild(tc)
+    assert (tm.decoder.n_groups, tm.decoder.n_rest) == (2, 1)
+    jp, tp = ref_params(jc, seed=4)
+    jp = jax.tree.map(jnp.asarray, jp)
+    jb, tb = model_batch(tc, 2, 5, seed=5)
+    jl, jst = jm.prefill(jp, jb, max_len=12)
+    tl, tst = tm.prefill(tp, tb, max_len=12)
+    close(tl, jl)
+    same_state(jst, tst, tm.decoder)
+    tok = np.array([[7], [1]], np.int32)
+    jl, jst = jm.decode_step(jp, jst, jnp.asarray(tok))
+    tl, tst2 = tm.decode_step(tp, tst, t(tok).long())
+    close(tl, jl)
+    same_state(jst, tst2, tm.decoder)
+    assert all(a is b for a, b in zip(leaves(tst2["caches"]),
+                                      leaves(tst["caches"]))), \
+        "decode writes the caches in place"
+
+
+# bf16 parity runs the reference op by op (``jax.disable_jit``).  Compiled,
+# XLA may fuse a bf16 op into its f32 consumer and skip the rounding in
+# between (``xla_allow_excess_precision``, on by default), so the compiled
+# reference's bf16 values depend on its fusion; op by op, every op rounds to
+# the value dtype, as the port's do.  What is left is the order of the f32
+# sums inside products, which now and then flips an output's last bf16 bit;
+# a flip spreads through the later layers (a DSLOT layer's quantizer turns
+# it into a whole quantization step).  Measured on these seeds: port vs
+# reference 0 to 1.6e-3 mean relative difference on the logits; the same
+# model in f32, or the port with any one bf16 rounding step left out
+# (probabilities, normalization, dense output, DSLOT MLP output), 7e-3 and
+# more.  Each test also checks that the f32 model fails the tolerance.
+BF16_MEAN = 3e-3     # mean |port - ref| / mean |ref|
+BF16_MAX = 2 ** -5   # max |port - ref| / max |ref|: 4 to 8 bf16 ulps
+
+
+def bf16_deviation(port, ref) -> tuple[float, float]:
+    port = port.detach().to(torch.float32).numpy()
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    assert port.shape == ref.shape, (port.shape, ref.shape)
+    d = np.abs(port - ref)
+    return (float(d.mean() / np.abs(ref).mean()),
+            float(d.max() / np.abs(ref).max()))
+
+
+def bf16_close(port, ref, port_f32):
+    """bf16 logits within the tolerance of the reference's, and the same
+    model computed in f32 outside it."""
+    assert port.dtype == torch.bfloat16
+    mean, mx = bf16_deviation(port, ref)
+    assert mean <= BF16_MEAN and mx <= BF16_MAX, (mean, mx)
+    assert bf16_deviation(port_f32, ref)[0] > BF16_MEAN
+
+
+def to_f32(tree):
+    """A port tree with every floating tensor in f32."""
+    if isinstance(tree, torch.Tensor):
+        return tree.float() if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_f32(v) for v in tree]
+    return tree
+
+
+@pytest.mark.parametrize("arch,dslot", [("seamless-m4t-medium", True),
+                                        ("seamless-m4t-medium", False),
+                                        ("olmo-1b", False),
+                                        ("qwen2.5-3b", False)])
+def test_model_bf16_matches_eager_reference(arch, dslot):
+    """forward / prefill / decode_step / extend in bf16, the reference run
+    op by op; with DSLOT the MLP up-projections run digit-serially (half of
+    their columns ReLU-dead, so termination fires)."""
+    kw = dict(dslot=dict(enabled=True, block_m=4, block_n=32)) if dslot \
+        else {}
+    jc, tc = cfg_pair(arch, dtype="bfloat16", **kw)
+    tc32 = dataclasses.replace(tc, dtype="float32")
+    jm, tm, tm32 = jbuild(jc), tbuild(tc), tbuild(tc32)
+    p, _ = ref_params(jc, seed=1)
+    if dslot:
+        p = dead_columns(p)
+    tp = tm.prepare_dslot(model_params(p, device="cpu"))
+    tp32 = tm32.prepare_dslot(to_f32(model_params(p, device="cpu")))
+    jb, tb = model_batch(tc, 4, 6, seed=2)
+    lengths = np.array([6, 3, 5, 6], np.int32)
+    tok = np.array([[5], [9], [3], [4]], np.int32)
+    chunk = np.random.default_rng(3).integers(0, 256, (4, 3)).astype(np.int32)
+    ext = np.array([3, 2, 0, 3], np.int32)
+    with jax.disable_jit():
+        jp = jm.prepare_dslot(jax.tree.map(jnp.asarray, p))
+        ref, _, _ = jm.forward(jp, jb)
+        bf16_close(tm.forward(tp, tb)[0], ref, tm32.forward(tp32, tb)[0])
+        jl, jst = jm.prefill(jp, jb, max_len=16,
+                             lengths=jnp.asarray(lengths))
+        tl, tst = tm.prefill(tp, tb, max_len=16, lengths=t(lengths))
+        tl32, tst32 = tm32.prefill(tp32, tb, max_len=16, lengths=t(lengths))
+        bf16_close(tl, jl, tl32)
+        jl, jst = jm.decode_step(jp, jst, jnp.asarray(tok))
+        tl, tst = tm.decode_step(tp, tst, t(tok).long())
+        tl32, tst32 = tm32.decode_step(tp32, tst32, t(tok).long())
+        bf16_close(tl, jl, tl32)
+        jl, jst = jm.extend(jp, jst, jnp.asarray(chunk),
+                            lengths=jnp.asarray(ext))
+        tl, tst = tm.extend(tp, tst, t(chunk).long(), lengths=t(ext))
+        tl32, _ = tm32.extend(tp32, tst32, t(chunk).long(), lengths=t(ext))
+        bf16_close(tl, jl, tl32)
+    np.testing.assert_array_equal(tst["pos"].numpy(), np.asarray(jst["pos"]))
+    for a, b in zip(leaves(ref_caches(tm.decoder, tst["caches"])),
+                    jax.tree.leaves(jst["caches"])):
+        assert a.dtype == (torch.int32 if b.dtype == np.int32
+                           else torch.bfloat16)
+        if a.dtype == torch.int32:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_model_products_accumulate_in_f32(monkeypatch):
+    """Every product of forward, prefill, decode_step and extend runs with
+    TF32 and cuBLAS's half-precision split-K reduction off (PyTorch allows
+    the latter for bf16 by default; the reference accumulates in f32), and
+    the caller's flags come back afterwards."""
+    mm = torch.backends.cuda.matmul
+    flags = ("allow_tf32", "allow_bf16_reduced_precision_reduction",
+             "allow_fp16_reduced_precision_reduction")
+    for f in flags:
+        monkeypatch.setattr(mm, f, True)
+    seen = []
+    for name in ("matmul", "einsum"):
+        monkeypatch.setattr(torch, name, lambda *a, _fn=getattr(torch, name):
+                            seen.append(tuple(getattr(mm, f) for f in flags))
+                            or _fn(*a))
+    _, tc = cfg_pair("seamless-m4t-medium", dtype="bfloat16")
+    tm = tbuild(tc)
+    tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    _, tb = model_batch(tc, 2, 4, seed=6)
+    tm.forward(tp, tb)
+    _, st = tm.prefill(tp, tb, max_len=8)
+    _, st = tm.decode_step(tp, st, torch.zeros((2, 1), dtype=torch.long))
+    tm.extend(tp, st, torch.zeros((2, 2), dtype=torch.long))
+    assert len(seen) > 50 and set(seen) == {(False, False, False)}
+    assert all(getattr(mm, f) for f in flags)
 
 
 def test_init_decode_state_and_param_count_match_reference():
@@ -456,7 +630,7 @@ def test_init_decode_state_and_param_count_match_reference():
     assert tm.param_count(own) == tm.param_count(tp) == jm.param_count(jp)
     jst = jm.init_decode_state(2, 16, enc_len=8)
     tst = tm.init_decode_state(2, 16, enc_len=8, device="cpu")
-    same_state(jst, tst)
+    same_state(jst, tst, tm.decoder)
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "granite-moe-1b-a400m",

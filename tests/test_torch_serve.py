@@ -92,6 +92,35 @@ def test_generate_dslot_matches_reference(seamless, n_planes):
         assert float(tr.planes_used_mean[3]) <= 2.0
 
 
+@pytest.mark.parametrize("dslot,n_planes", [(False, None),
+                                             (True, [8, 8, 4, 2])])
+def test_generate_bf16_matches_eager_reference(seamless, dslot, n_planes):
+    """The same model in bf16, the reference run op by op (see
+    ``BF16_MEAN`` in test_torch_models: compiled, its bf16 roundings depend
+    on XLA's fusion).  Tokens equal, plane statistics within 1e-6."""
+    jb, tb = seamless[4:]
+    jc, tc = cfg_pair("seamless-m4t-medium", dslot={**DSLOT, "enabled": dslot},
+                      dtype="bfloat16")
+    jm, tm = jbuild(jc), tbuild(tc)
+    p = dead_columns(ref_params(jc, seed=3)[0])
+    tp = tm.prepare_dslot(model_params(p, device="cpu"))
+    assert tp["embed"]["embedding"].dtype == torch.bfloat16
+    jn = None if n_planes is None else jnp.asarray(n_planes, jnp.int32)
+    tn = None if n_planes is None else torch.as_tensor(n_planes)
+    with jax.disable_jit():
+        jp = jm.prepare_dslot(jax.tree.map(jnp.asarray, p))
+        jr = jgenerate(jm, jp, jb, MAX_NEW, n_planes=jn)
+    tr = tgenerate(tm, tp, tb, MAX_NEW, n_planes=tn)
+    np.testing.assert_array_equal(tr.tokens.numpy(), np.asarray(jr.tokens))
+    if not dslot:
+        assert tr.planes_used_mean is None and jr.planes_used_mean is None
+        return
+    stat_close(tr.planes_used_mean.numpy(), jr.planes_used_mean)
+    stat_close(tr.skipped_frac.numpy(), jr.skipped_frac)
+    stat_close(float(tr.planes_bounded_mean), float(jr.planes_bounded_mean))
+    assert float(tr.skipped_frac.max()) > 0, "termination must fire"
+
+
 def test_generate_launch_count(seamless, monkeypatch):
     """One digit-serial MLP call per layer: encoder and decoder at prefill,
     then the decoder at each of the ``max_new`` decode steps."""
