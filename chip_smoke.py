@@ -71,19 +71,45 @@ Phases (any failure exits non-zero and prints no result line):
    with the dense MLP beside it), prefill and decode step (median of 5),
    one of each traced with ``torch.profiler`` (device time, idle share, top
    kernels), and peak memory.
+6. Serving engine: full-width olmo-1b with a ReLU, non-GLU MLP (16 layers,
+   d_model 2048, d_ff 8192, vocab 50304, bf16; random weights from a seeded
+   generator on the card) on ``DslotConfig(block_m=16, block_n=128,
+   block_k=None)`` with an ``act_scale`` calibrated from one seeded prefill,
+   through ``ServeEngine`` with ``ServeConfig(n_slots=16, max_len=512,
+   prefill_chunk=64, chunks_per_step=2)`` and the SLO loop (thresholds at
+   ``ENGINE_SLO``).  Traffic: 32 requests from a numpy seed (prompts of
+   16-256 tokens, 16-32 new tokens, tiers reserved : standard : degradable
+   = 1 : 2 : 1), 16 at step 0 and 16 as one burst once those are admitted,
+   then ``drain()`` and idle steps until every tier is restored.  Gates:
+   every request ``done``; ``audit_engine`` empty after every step; no
+   errors, quarantines or timeouts; kernel launches = 16 x (decode forwards
+   + admission lane forwards); the kernel equal to its plain version at
+   both engine shapes (decode (16, 2048) and admission (128, 2048) @ (2048,
+   8192)) with mixed per-row budgets, as in phase 2; at least one shed
+   event after the burst; every reserved slot decoded at 8 planes at every
+   step; every tier back at its ceiling; the degradable tier's mean
+   ``planes_used_mean`` at most the reserved tier's; and every token of a
+   reserved stream within ``LM_LOGIT_RTOL`` of the best logit of a forward
+   of that stream (reason at ``hold_reserved``), its token agreement with
+   solo ``generate`` printed.  Printed: tokens/s, step and forward wall
+   medians, device time and idle share of one traced forward of each kind
+   (from a warm-up run on 6 of the requests), TTFT per tier, plane
+   statistics per tier, SLO events, kernel times as in phase 4, peak memory,
+   and the same traffic on the dense MLP (same weights) for its tokens/s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
 printed just before that.  The record's ``launches`` counts the kernel
-launches of both driven paths (phase 3's CNN and phase 5's two
-``generate`` runs); its times and bound are sums over the five main-path
-launches timed in phases 4 and 5 (CNN conv and head; LM encoder, prefill
-and decode).
+launches of the driven paths (phase 3's CNN, phase 5's two ``generate``
+runs and phase 6's timed engine run); its times and bound are sums over the
+seven main-path launches timed in phases 4, 5 and 6 (CNN conv and head; LM
+encoder, prefill and decode; engine decode and admission).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -462,15 +488,21 @@ def forward_profile(fn, calls: int = 5) -> tuple[float, list] | None:
     """Device kernel time per call of ``fn`` and the kernels that take it,
     from one ``torch.profiler`` trace of ``calls`` calls; None when the
     trace holds no device time."""
+    fn()
+    torch.cuda.synchronize()
+    return traced(lambda: [fn() for _ in range(calls)], calls)[1]
+
+
+def traced(fn, calls: int = 1):
+    """``fn()`` under one ``torch.profiler`` trace: (its result, (device
+    kernel time per call, [(ms per call, launches per call, kernel)]) or
+    None when the trace holds no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+        out = fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -482,9 +514,9 @@ def forward_profile(fn, calls: int = 5) -> tuple[float, list] | None:
         if us > 0:
             rows.append((us / calls / 1e3, e.count // calls, e.key))
     if not rows:
-        return None
+        return out, None
     rows.sort(reverse=True)
-    return sum(r[0] for r in rows), rows
+    return out, (sum(r[0] for r in rows), rows)
 
 
 # ------------------------------------------------------------ phase 5
@@ -700,6 +732,416 @@ def phase5(card, dev):
     return launches, max_err, times
 
 
+# ------------------------------------------------------------ phase 6
+
+ENGINE_ARCH = "olmo-1b"
+ENGINE_SLOTS, ENGINE_MAX_LEN = 16, 512
+ENGINE_CHUNK, ENGINE_LANES = 64, 2
+ENGINE_REQUESTS = 32            # 16 at step 0, then a burst of 16
+# The SLO loop's thresholds (the reference's defaults, stated here): a queue
+# deeper than 4 requests, or a rolling p95 TTFT above 8 engine steps, is
+# pressure; 2 such steps in a row shed one plane, 4 slack steps in a row
+# restore one.  The 16 requests of step 0 and the burst of 16 each queue 4x
+# the high-water mark, so both force shedding.
+ENGINE_SLO = dict(queue_high_water=4, target_ttft_steps=8, shed_patience=2,
+                  restore_patience=4)
+ENGINE_IDLE_MAX = 400           # idle steps allowed for the restore
+ENGINE_KERNEL_ROWS = {"engine decode launch": ENGINE_SLOTS,
+                      "engine admission launch": ENGINE_LANES * ENGINE_CHUNK}
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def engine_traffic(n: int, vocab: int, seed: int = 6) -> list[dict]:
+    """``n`` requests from a numpy seed: prompts of 16-256 tokens, 16-32 new
+    tokens each, tiers reserved : standard : degradable = 1 : 2 : 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tiers = rng.permutation(["reserved", "standard", "standard",
+                             "degradable"] * (n // 4))
+    return [dict(uid=i, tier=str(tiers[i]),
+                 prompt=rng.integers(0, vocab, int(rng.integers(16, 257)))
+                 .astype(np.int32),
+                 max_new=int(rng.integers(16, 33))) for i in range(n)]
+
+
+def calibrated_act_scale(model, params, vocab: int, dev, n_bits: int = 8
+                         ) -> float:
+    """The MLP's activation step from one seeded prefill of the dense model
+    (4 prompts of 256 tokens): ``calibrate_scale`` of every MLP input,
+    the largest over the layers (the signed range of the DSLOT MLP)."""
+    from repro_torch.kernels.ops import calibrate_scale
+    from repro_torch.models import transformer
+
+    scales = []
+    apply_mlp = transformer.apply_mlp
+
+    def record(p, x, cfg):
+        scales.append(calibrate_scale(x.reshape(-1, x.shape[-1]).float(),
+                                      n_bits=n_bits, signed=True))
+        return apply_mlp(p, x, cfg)
+
+    g = torch.Generator(dev).manual_seed(5)
+    tokens = torch.randint(0, vocab, (4, 256), generator=g, device=dev)
+    transformer.apply_mlp = record
+    try:
+        model.prefill(params, {"tokens": tokens})
+    finally:
+        transformer.apply_mlp = apply_mlp
+    return float(torch.stack(scales).max())
+
+
+class Timed:
+    """Wraps one engine forward: counts its calls, times each (synchronized
+    before and after, so a call's wall time is its host issue plus the
+    device finishing it) and traces call ``trace_at`` with the profiler."""
+
+    def __init__(self, fn, dev, trace_at: int | None = None):
+        self.fn, self.dev, self.trace_at = fn, dev, trace_at
+        self.calls, self.walls, self.trace = 0, [], None
+
+    def __call__(self, *args):
+        self.calls += 1
+        sync(self.dev)
+        if self.calls == self.trace_at:
+            out, self.trace = traced(lambda: self.fn(*args))
+            return out
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        sync(self.dev)
+        self.walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def drive_engine(eng, specs: list[dict], dev, n_first: int,
+                 idle_max: int = ENGINE_IDLE_MAX) -> dict:
+    """The phase's traffic through ``eng``: ``n_first`` requests at step 0,
+    the rest as one burst once those have all been admitted (the queue is
+    empty), ``drain()``, then idle steps until every tier is back at its
+    ceiling.  After every step ``audit_engine`` must be empty and every
+    reserved slot must have decoded at ``n_bits``."""
+    from repro_torch.serve import RESERVED, Request, audit_engine
+
+    reqs = [Request(uid=s["uid"], prompt=s["prompt"], max_new=s["max_new"],
+                    tier=s["tier"]) for s in specs]
+    enqueued, step_end, levels, walls = {}, {}, [], []
+    step = eng.step
+
+    def checked_step():
+        f0, t = eng.pipeline.forwards, time.perf_counter()
+        done = step()
+        sync(dev)
+        step_end[eng.steps] = time.perf_counter()
+        walls.append(((step_end[eng.steps] - t) * 1e3,
+                      eng.pipeline.forwards > f0))
+        problems = audit_engine(eng)
+        if problems:
+            raise AssertionError(f"step {eng.steps}: {problems}")
+        if eng.last_budget is not None:
+            for i, r in enumerate(eng.slot_req):
+                if r is not None and r.tier == RESERVED \
+                        and int(eng.last_budget[i]) != eng.n_bits:
+                    raise AssertionError(
+                        f"step {eng.steps}: reserved request {r.uid} in slot "
+                        f"{i} decoded at {int(eng.last_budget[i])} planes")
+        levels.append(dict(eng.slo.levels))
+        return done
+
+    def add(batch):
+        for r in batch:
+            enqueued[r.uid] = time.perf_counter()
+            if not eng.try_add(r):
+                raise AssertionError(f"request {r.uid} refused")
+
+    eng.step = checked_step
+    t0 = time.perf_counter()
+    add(reqs[:n_first])
+    while eng.queue_depth:
+        eng.step()
+    burst_step, shed0 = eng.steps, eng.slo.shed_events
+    add(reqs[n_first:])
+    eng.drain()
+    t1 = time.perf_counter()
+    run_steps = eng.steps
+    ceiling = {n: t.ceiling for n, t in eng.slo.tiers.items()}
+    for _ in range(idle_max):
+        if eng.slo.levels == ceiling:
+            break
+        eng.step()
+    return dict(reqs=reqs, seconds=t1 - t0, burst_step=burst_step,
+                burst_sheds=eng.slo.shed_events - shed0, run_steps=run_steps,
+                idle_steps=eng.steps - run_steps, levels=levels,
+                enqueued=enqueued, step_end=step_end,
+                step_walls=walls[:run_steps],
+                tokens=sum(len(r.out) for r in reqs))
+
+
+def engine_gates(eng, run: dict) -> None:
+    """Phase 6's gates on one DSLOT engine run (see ``phase6``)."""
+    reqs = run["reqs"]
+    bad = [(r.uid, r.phase) for r in reqs if r.phase != "done"]
+    if bad:
+        raise AssertionError(f"requests not done: {bad}")
+    if eng.errors or eng.quarantined or eng.timeouts:
+        raise AssertionError(f"errors {eng.errors}, quarantined "
+                             f"{eng.quarantined}, timeouts {eng.timeouts}")
+    if run["burst_sheds"] < 1:
+        raise AssertionError("the burst shed no plane")
+    ceiling = {n: t.ceiling for n, t in eng.slo.tiers.items()}
+    if eng.slo.levels != ceiling:
+        raise AssertionError(f"tiers not restored after "
+                             f"{run['idle_steps']} idle steps: "
+                             f"{eng.slo.levels}")
+    mean = tier_means(reqs, "planes_used_mean")
+    if mean["degradable"] > mean["reserved"]:
+        raise AssertionError(f"degradable used {mean['degradable']} planes, "
+                             f"reserved {mean['reserved']}")
+
+
+def pct(xs: list, p: float):
+    """The ``p`` quantile of sorted ``xs`` (the SLO controller's rule)."""
+    return xs[min(len(xs) - 1, int(p * (len(xs) - 1) + 0.5))]
+
+
+def tier_means(reqs, key: str) -> dict:
+    out = {}
+    for tier in ("reserved", "standard", "degradable"):
+        vals = [float(getattr(r.result, key)) for r in reqs
+                if r.tier == tier and getattr(r.result, key) is not None]
+        out[tier] = sum(vals) / len(vals) if vals else float("nan")
+    return out
+
+
+# Reserved streams of the engine against solo ``generate`` of the same
+# request: both run the same bf16 model at 8 planes, but the engine's
+# products have other shapes (64-token chunks in a 2-lane batch, a 16-row
+# decode) than solo's (the whole prompt, one row), so cuBLAS and the
+# attention sums add in other orders and a bf16 output or an 8-bit
+# activation can round the other way — the effects phase 5 bounds with
+# LM_LOGIT_RTOL.  Where such noise meets a near-tie of the two best logits,
+# greedy streams part and then differ for good, so the token agreement is
+# reported and the gate is on logits.  Each reserved request's prompt and
+# output go through one forward of the model (8 planes, the calibrated
+# scale, so in exact arithmetic the same function as the engine's chunks and
+# decode steps): at every position, the token the engine emitted must be
+# within LM_LOGIT_RTOL of the largest logit.  Where the stream parts from
+# solo's, that is the near-tie rule.  A wrong ring row or another slot's
+# budget moves logits by their own size.
+def hold_reserved(model, params, reqs, dev, n_bits: int) -> dict:
+    import numpy as np
+
+    from repro_torch.runtime import precision_scope
+    from repro_torch.serve.engine import generate
+
+    agree, parted, worst = [], [], (0.0, None)
+    for r in reqs:
+        if r.tier != "reserved":
+            continue
+        solo = generate(model, params, {"tokens": torch.as_tensor(
+            r.prompt[None]).to(dev)}, r.max_new, n_planes=n_bits)
+        same = [a == b for a, b in zip(r.out, solo.tokens[0].tolist())]
+        agree.append(sum(same) / len(same))
+        if not all(same):
+            parted.append((r.uid, same.index(False)))
+        ctx = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+        with precision_scope(n_bits):
+            logits, _ = model.forward(params, {"tokens": torch.as_tensor(
+                ctx[None]).to(dev)})
+        lg = logits[0, len(r.prompt) - 1:].float()        # row k -> out[k]
+        out = torch.as_tensor(r.out, device=dev)[:, None]
+        ratio = (lg.max(dim=-1).values - lg.gather(1, out)[:, 0]) \
+            / lg.abs().max(dim=-1).values
+        k = int(ratio.argmax())
+        if float(ratio[k]) >= worst[0]:
+            worst = (float(ratio[k]), (r.uid, k))
+    if worst[0] > LM_LOGIT_RTOL:
+        raise AssertionError(
+            f"reserved request {worst[1][0]}, token {worst[1][1]}: "
+            f"{worst[0]:.4g} of the largest logit below the best token "
+            f"(limit {LM_LOGIT_RTOL})")
+    return dict(agreement=sum(agree) / len(agree), per_request=agree,
+                parted=parted, worst=worst)
+
+
+def phase6(card, dev):
+    """The slot-pool engine at full width: olmo-1b with ReLU MLPs on the
+    kernel.  Returns (kernel launches of the driven run, max abs error, the
+    two kernel shapes' times)."""
+    from repro_torch.configs.base import DslotConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import dslot_matmul as dm
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine, SloConfig
+
+    base = dataclasses.replace(get_arch(ENGINE_ARCH), act="relu", glu=False)
+    dense = build_model(base)
+    t0 = time.perf_counter()
+    params = dense.init(torch.Generator(dev).manual_seed(0), device=dev)
+    sync(dev)
+    scale = calibrated_act_scale(dense, params, base.vocab_size, dev)
+    cfg = dataclasses.replace(base, dslot=DslotConfig(
+        enabled=True, block_m=ENGINE_SLOTS, block_n=128, block_k=None,
+        act_scale=scale))
+    model = build_model(cfg)
+    scfg = ServeConfig(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                       prefill_chunk=ENGINE_CHUNK,
+                       chunks_per_step=ENGINE_LANES,
+                       slo=SloConfig(**ENGINE_SLO))
+    specs = engine_traffic(ENGINE_REQUESTS, cfg.vocab_size)
+    # warm-up: 6 of the requests on an engine of their own, whose forwards
+    # are traced (the pool is always 16 rows and the lanes 2 x 64, so the
+    # shapes are the timed run's); the timed run below is not traced
+    warm = ServeEngine(model, params, scfg)
+    warm._decode = Timed(warm._decode, dev, trace_at=3)
+    warm.pipeline._extend_lanes = Timed(warm.pipeline._extend_lanes, dev,
+                                        trace_at=3)
+    drive_engine(warm, specs[:6], dev, n_first=6, idle_max=0)
+    traces = {"decode forward": warm._decode.trace,
+              "admission forward": warm.pipeline._extend_lanes.trace}
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    eng = ServeEngine(model, params, scfg)
+    sync(dev)
+    log(f"  {cfg.name} with a ReLU MLP (act relu, no GLU): "
+        f"{model.param_count(params) / 1e9:.4f} B parameters ({cfg.dtype}), "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}; init + calibration {t1 - t0:.2f} s, "
+        f"engine (prepare_dslot) {time.perf_counter() - t1:.2f} s; "
+        f"calibrated act_scale {scale!r}; {cfg.dslot}; {scfg}")
+    eng._decode = Timed(eng._decode, dev)
+    eng.pipeline._extend_lanes = Timed(eng.pipeline._extend_lanes, dev)
+    captured = {}
+    orig_run = dm.run
+
+    def capture(*args):
+        rows = args[0].shape[0]
+        if rows in ENGINE_KERNEL_ROWS.values() and rows not in captured:
+            captured[rows] = args
+        return orig_run(*args)
+
+    dm.dslot_matmul_cuda.launches = 0
+    dm.run = capture
+    try:
+        run = drive_engine(eng, specs, dev, n_first=ENGINE_SLOTS)
+    finally:
+        dm.run = orig_run
+    launches = dm.dslot_matmul_cuda.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decodes, lanes = eng._decode.calls, eng.pipeline._extend_lanes.calls
+    expected = cfg.n_layers * (decodes + eng.pipeline.forwards)
+    log(f"  {ENGINE_REQUESTS} requests ({ENGINE_SLOTS} at step 0, a burst of "
+        f"{ENGINE_REQUESTS - ENGINE_SLOTS} at step {run['burst_step']}): "
+        f"{run['run_steps']} steps to drain, {run['idle_steps']} idle steps "
+        f"to restore; {decodes} decode forwards, {lanes} admission lane "
+        f"forwards; {launches} kernel launches (expected {expected})")
+    if launches != expected or lanes != eng.pipeline.forwards:
+        raise AssertionError(f"{launches} kernel launches, expected "
+                             f"{expected}")
+    engine_gates(eng, run)
+
+    # the kernel at the engine's two shapes, mixed per-row budgets
+    g = torch.Generator(dev).manual_seed(7)
+    max_err, times = 0.0, []
+    for label, rows in ENGINE_KERNEL_ROWS.items():
+        args = list(captured[rows])
+        bud = torch.randint(1, cfg.dslot.n_bits + 1, (rows,), generator=g,
+                            device=dev, dtype=torch.int32)
+        args[10], args[11] = bud.max(), bud
+        q, w = args[0], args[1]
+        kw = dict(n_bits=args[2], relu=args[4], block_m=args[5],
+                  block_n=args[6], block_k=args[7], suffix_colsum=args[8],
+                  total_colsum=args[9][None], n_planes_rt=args[10],
+                  row_budget=args[11], plane_bound=args[12])
+        a = dm.DslotMatmulOut(*dm._launch(*args))
+        b = dm.DslotMatmulOut(*dm._replay(*args))
+        torch.cuda.synchronize()
+        err = compare(label, a, b, False, q, w, kw)
+        max_err = max(max_err, err)
+        log(f"  {label}: q {tuple(q.shape)}, row budgets "
+            f"{bud[:8].tolist()}..., max err {err:.3g}, planes_used mean "
+            f"{float(a.planes_used.float().mean()):.3f}")
+        times.append(time_call(
+            label, q, w, kw, (rows, cfg.d_model, cfg.d_ff),
+            lambda a=args: dm._launch(*a), lambda a=args: dm._replay(*a),
+            card))
+    del captured
+
+    held = hold_reserved(model, eng.params, run["reqs"], dev,
+                         cfg.dslot.n_bits)
+    log(f"  reserved streams vs solo generate: token agreement "
+        f"{held['agreement']:.4f} (per request "
+        f"{[round(a, 4) for a in held['per_request']]}; parted at (uid, "
+        f"token) {held['parted']}); emitted tokens below the best logit of "
+        f"a forward of the stream by at most {held['worst'][0]:.4g} of the "
+        f"largest (uid, token {held['worst'][1]}; limit {LM_LOGIT_RTOL})")
+
+    # what it reads
+    log(f"  times [{card}]")
+    log(f"  engine: {run['tokens']} tokens in {run['seconds']:.2f} s, "
+        f"{run['tokens'] / run['seconds']:.1f} tokens/s")
+    for label, adm in (("decode-only steps", False),
+                       ("steps with admission", True)):
+        walls = sorted(w for w, a in run["step_walls"] if a == adm)
+        log(f"  engine step wall, {label}: median {pct(walls, 0.5):.2f} ms "
+            f"(min {walls[0]:.2f}, max {walls[-1]:.2f}, {len(walls)} steps)")
+    for label, timed in (("decode forward", eng._decode),
+                         ("admission forward", eng.pipeline._extend_lanes)):
+        walls = sorted(timed.walls)
+        wall = walls[len(walls) // 2]
+        line = (f"  {label}: wall median {wall:.2f} ms (min {walls[0]:.2f}, "
+                f"max {walls[-1]:.2f}, {len(walls)} calls)")
+        if traces[label] is None:
+            log(line + "; device time: not measured (the profiler trace "
+                "holds no device time)")
+            continue
+        dev_ms, rows = traces[label]
+        kern = sum(r[0] for r in rows if any(
+            k in r[2] for k in ("plane_kernel", "product_kernel",
+                                "split_parts_kernel")))
+        log(line + f"; device time (torch.profiler, the warm-up's third "
+            f"call) {dev_ms:.3f} ms, idle share {1 - dev_ms / wall:.3f}; "
+            f"dslot kernels {kern:.3f} ms; top kernels:")
+        for ms, count, key in rows[:6]:
+            log(f"    {ms:.4f} ms x{count} {key[:90]}")
+    for tier in ("reserved", "standard", "degradable"):
+        rs = [r for r in run["reqs"] if r.tier == tier]
+        steps = sorted(r.ttft_steps for r in rs)
+        ms = sorted((run["step_end"][r.first_token_step]
+                     - run["enqueued"][r.uid]) * 1e3 for r in rs)
+        log(f"  {tier} ({len(rs)} requests): TTFT p50 {pct(steps, 0.5)} / "
+            f"p95 {pct(steps, 0.95)} steps, {pct(ms, 0.5):.1f} / "
+            f"{pct(ms, 0.95):.1f} ms; planes_used_mean "
+            f"{tier_means(rs, 'planes_used_mean')[tier]:.4f}, skipped_frac "
+            f"{tier_means(rs, 'skipped_frac')[tier]:.4f}")
+    lv = run["levels"]
+    log(f"  SLO: {eng.slo.shed_events} shed events ({run['burst_sheds']} "
+        f"after the burst), {eng.slo.restore_events} restore events, min "
+        f"levels {eng.slo.min_levels}; levels every 8 steps "
+        f"{[tuple(v.values()) for v in lv[::8]]}")
+    log(f"  peak memory: {peak_gb:.2f} GB [{card}]")
+
+    del eng
+    torch.cuda.empty_cache()
+    plain_eng = ServeEngine(dense, params, scfg)
+    plain = drive_engine(plain_eng, specs, dev, n_first=ENGINE_SLOTS)
+    if any(r.phase != "done" for r in plain["reqs"]):
+        raise AssertionError("dense-MLP engine left requests unfinished")
+    same = [a.out == b.out for a, b in zip(run["reqs"], plain["reqs"])]
+    log(f"  same run, dense MLP on the same weights: {plain['tokens']} "
+        f"tokens in {plain['seconds']:.2f} s, "
+        f"{plain['tokens'] / plain['seconds']:.1f} tokens/s; streams equal "
+        f"to the DSLOT engine's: {sum(same)} of {len(same)} (random "
+        f"weights: not gated)")
+    return launches, max_err, times
+
+
 # ------------------------------------------------------------ phase 3
 
 def cpu_copy(prep):
@@ -897,11 +1339,18 @@ def main() -> int:
     max_err = max(max_err, lm_err)
     main_times += lm_times
 
+    # -------------------------------------------------- 6. serving engine
+    log(f"phase 6: the slot-pool ServeEngine, {ENGINE_ARCH} with ReLU MLPs")
+    eng_launches, eng_err, eng_times = phase6(card, dev)
+    max_err = max(max_err, eng_err)
+    main_times += eng_times
+
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)
     record = {"kernels": [{
         "name": "dslot_matmul", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": main_launches + lm_launches,
+        "replaces": REPLACES,
+        "launches": main_launches + lm_launches + eng_launches,
         "max_abs_err": max_err,
         "ms": sum(t["ms"] for t in main_times),
         "plain_ms": sum(t["plain_ms"] for t in main_times),

@@ -17,8 +17,8 @@ Three implementations:
 
 Policies are plain python state machines: they run outside the model code,
 between engine steps, and only ever hand integers (or dicts of integers) to
-the layers through ``precision_scope``.  The port has no serving engine yet;
-the classes are here for ``precision_scope`` callers and later slices.
+the layers through ``precision_scope``.  ``repro_torch.serve.ServeEngine``
+consults them at enqueue and feeds them each request's account on finish.
 """
 
 from __future__ import annotations

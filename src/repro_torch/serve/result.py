@@ -1,17 +1,19 @@
 """Generation result type (port of ``repro.serve.result``).
 
-``generate`` returns a :class:`GenerateResult`: the tokens plus the
-per-request planes-executed account when the DSLOT path ran.
+``generate`` (the batch API) returns a :class:`GenerateResult`; the
+slot-pool engine attaches one to every finished request
+(``Request.result``).
 
 Conventions:
 
-* ``tokens`` is a ``(B, T)`` tensor on the batch path.
+* ``tokens`` is a ``(B, T)`` tensor on the batch path and a ``list[int]``
+  on the engine path (one request = one sequence).
 * plane statistics (``planes_used_mean`` / ``skipped_frac``) are ``None``
-  unless the model ran the DSLOT digit-serial path, else per-request
-  ``(B,)`` tensors.
-* ``ttft_steps`` is ``None`` on the batch path (there is no admission
-  queue, so there is no TTFT to observe); ``uid`` and ``tier`` belong to the
-  slot-pool engine of a later slice.
+  unless the model ran the DSLOT digit-serial path; on the batch path they
+  are per-request ``(B,)`` tensors, on the engine path python floats.
+* ``ttft_steps`` / ``steps`` are in the engine-steps clock and
+  ``ttft_steps`` is ``None`` on the batch path (there is no admission
+  queue, so there is no TTFT to observe).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ __all__ = ["GenerateResult"]
 class GenerateResult:
     """What one generation produced, and what it cost.
 
-    tokens: generated tokens, (B, T).
+    tokens: generated tokens — (B, T) tensor (batch path) or list[int]
+        (engine path).
     n_planes: the granted DSLOT plane budget the run decoded at (int,
         per-request (B,) tensor, or None when the digit-serial path is off).
     planes_used_mean: effective digit planes executed per output row — the
@@ -38,8 +41,12 @@ class GenerateResult:
         because the prepare-time weight-side MSR bound capped the tile
         (request-independent, a scalar; None when DSLOT is off).
     ttft_steps: engine steps from enqueue to first token (engine path).
-    steps: the decode length on the batch path.
-    phase: terminal lifecycle phase — "done" on the batch path.
+    steps: engine steps from enqueue to finish (engine path) or the decode
+        length (batch path).
+    phase: terminal lifecycle phase — "done" on the batch path; the engine
+        also evicts with "cancelled", "timeout" (deadline expired),
+        "quarantined" (non-finite logits isolated) or "failed" (admission
+        kept raising past the retry budget).
     uid / tier: request identity and QoS tier (engine path only).
     """
     tokens: Any

@@ -28,6 +28,8 @@ from repro_torch.kernels import dslot_matmul as dm
 from repro_torch.models import stats
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime import precision_scope
+from repro_torch.serve import (Request, ServeConfig, ServeEngine, SloConfig,
+                               check_invariants)
 from repro_torch.serve.engine import generate
 
 
@@ -261,6 +263,60 @@ def test_seamless_generate_on_card_matches_cpu(cuda):
     torch.testing.assert_close(logits.cpu(), want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
 
+
+
+def _olmo_engine_run(device):
+    """The reduced f32 olmo-1b with a ReLU MLP on the digit-serial path
+    (calibrated act_scale, block_m = n_slots) through the slot-pool engine:
+    a burst of 6 requests on 2 slots, chunked batched admission, per-request
+    budgets and SLO plane shedding.  Returns the requests and the engine's
+    decode forward count."""
+    cfg = dataclasses.replace(
+        ARCHS["olmo-1b"].reduced(), act="relu", glu=False,
+        dslot=DslotConfig(enabled=True, block_m=2, block_n=32, block_k=16,
+                          act_scale=0.05))
+    model = build_model(cfg)
+    params = convert.model_params(
+        model.init(torch.Generator().manual_seed(0), device="cpu"),
+        device=device)
+    eng = ServeEngine(model, params, ServeConfig(
+        n_slots=2, max_len=64, prefill_chunk=4, chunks_per_step=2,
+        slo=SloConfig(queue_high_water=1, shed_patience=1,
+                      restore_patience=2, target_ttft_steps=100)))
+    decodes = []
+    decode = eng._decode
+    eng._decode = lambda *a: decodes.append(1) or decode(*a)
+    rng = np.random.default_rng(2)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 256, 5 + 2 * i),
+                    max_new=4, n_planes=(8, 6, None, 3, 8, 5)[i],
+                    tier=("reserved", "degradable", "standard")[i % 3])
+            for i in range(6)]
+    for r in reqs:
+        assert eng.try_add(r)
+    while not all(r.done for r in reqs):
+        eng.step()
+        check_invariants(eng)
+    return cfg, eng, reqs, len(decodes)
+
+
+@pytest.mark.gpu
+def test_olmo_engine_on_card_matches_cpu(cuda):
+    """The engine's reduced DSLOT scenario on the card gives the streams and
+    per-request plane accounts of the same run on the CPU (the kernel's
+    plain version), with one kernel launch per layer per forward."""
+    n0 = dm.dslot_matmul_cuda.launches
+    cfg, eng, reqs, decodes = _olmo_engine_run(cuda)
+    torch.cuda.synchronize()
+    launched = dm.dslot_matmul_cuda.launches - n0
+    assert launched == cfg.n_layers * (decodes + eng.pipeline.forwards)
+    _, ref_eng, ref, _ = _olmo_engine_run("cpu")
+    assert eng.slo.shed_events == ref_eng.slo.shed_events > 0
+    for a, b in zip(reqs, ref):
+        assert a.phase == b.phase == "done"
+        assert a.out == b.out, a.uid
+        assert a.token_steps == b.token_steps
+        assert abs(a.result.planes_used_mean - b.result.planes_used_mean) \
+            <= 1e-6, a.uid
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No compiler means a clear error, never a silent plain-version
