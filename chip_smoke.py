@@ -97,13 +97,37 @@ Phases (any failure exits non-zero and prints no result line):
    statistics per tier, SLO events, kernel times as in phase 4, peak memory,
    and the same traffic on the dense MLP (same weights) for its tokens/s.
 
+7. The paper's experiment (``repro_torch.launch.mnist_dslot`` at its full
+   setting): ``train_cnn`` on 300 synthetic images (38 a class, 80 held
+   out), 20 epochs at lr 2e-2, on the card (timed after a one-epoch
+   warm-up) and again on the CPU from the same seeded weights; the trained
+   parameters must agree within ``TRAIN_RTOL`` of their largest (reason at
+   its definition).  ``dslot_conv2d_stats`` per class on the held-out
+   images on the card and on the CPU with the card's weights:
+   ``is_negative``, ``term_digit`` and ``cycles_used`` must be equal; the
+   per-class negative rate and cycles saved (Figs. 8/9) and the
+   simulator's time are printed.  DSLOT against ``sip_conv2d`` on 16
+   images: max |diff| must be 0.  ``table1_model()`` is printed, labelled
+   as modeled FPGA figures.  Then ``prepare_cnn(block_m=32)`` once,
+   ``calibrate_cnn`` on 16 held-out images and ``forward_dslot`` on the 80
+   at n_planes 8, 6, 4 and 2 (two launches each, no re-prepare, argmax
+   agreement with the float ``forward`` >= 0.95 at 8), and once at
+   B = 1024 and 8 planes; every one of these launches is held against the
+   plain version as in phase 2 (from its own arguments and results, no
+   launch again).  Printed: per-layer ``planes_used_mean``, ``skipped_frac``
+   and accuracy, the conv tiles that terminated at B = 1024, the times of
+   the conv and head launches at B = 80 and B = 1024 as in phase 4, and the
+   B = 1024 forward's median and device time.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
 printed just before that.  The record's ``launches`` counts the kernel
 launches of the driven paths (phase 3's CNN, phase 5's two ``generate``
-runs and phase 6's timed engine run); its times and bound are sums over the
-seven main-path launches timed in phases 4, 5 and 6 (CNN conv and head; LM
-encoder, prefill and decode; engine decode and admission).
+runs, phase 6's timed engine run and phase 7's calibrate, sweep and
+B = 1024 forward); its times and bound are sums over the eleven main-path
+launches timed in phases 4-7 (CNN conv and head; LM encoder, prefill and
+decode; engine decode and admission; trained conv and head at B = 80 and
+B = 1024).
 """
 
 from __future__ import annotations
@@ -366,6 +390,36 @@ def compare(name, a, b, exact, q, w, kw):
     if len(diff) > 20:
         raise AssertionError(f"{name}: {len(diff)} tiles differ")
     return err
+
+
+def kernel_kw(args) -> dict:
+    """``compare``'s and ``time_call``'s keywords from ``dm.run``'s
+    positional arguments."""
+    return dict(n_bits=args[2], relu=args[4], block_m=args[5],
+                block_n=args[6], block_k=args[7], suffix_colsum=args[8],
+                total_colsum=args[9][None], n_planes_rt=args[10],
+                row_budget=args[11], plane_bound=args[12])
+
+
+class Captured:
+    """Stands in for ``dm.run``: runs it and keeps every call's arguments
+    and results, so each launch of a driven path can be held against the
+    plain version afterwards without launching again."""
+
+    def __init__(self, dm):
+        self.dm, self.run, self.calls = dm, dm.run, []
+
+    def __enter__(self):
+        self.dm.run = self
+        return self
+
+    def __exit__(self, *exc):
+        self.dm.run = self.run
+
+    def __call__(self, *args):
+        out = self.run(*args)
+        self.calls.append((args, out))
+        return out
 
 
 def bound_ms(q, w, kw, used, dims) -> tuple[float, str, float, float]:
@@ -641,10 +695,7 @@ def phase5(card, dev):
     max_err, times = 0.0, []
     for label, args, rows in shapes:
         q, w = args[0], args[1]
-        kw = dict(n_bits=args[2], relu=args[4], block_m=args[5],
-                  block_n=args[6], block_k=args[7], suffix_colsum=args[8],
-                  total_colsum=args[9][None], n_planes_rt=args[10],
-                  row_budget=args[11], plane_bound=args[12])
+        kw = kernel_kw(args)
         a = dm.DslotMatmulOut(*dm._launch(*args))
         b = dm.DslotMatmulOut(*dm._replay(*args))
         torch.cuda.synchronize()
@@ -1055,10 +1106,7 @@ def phase6(card, dev):
                             device=dev, dtype=torch.int32)
         args[10], args[11] = bud.max(), bud
         q, w = args[0], args[1]
-        kw = dict(n_bits=args[2], relu=args[4], block_m=args[5],
-                  block_n=args[6], block_k=args[7], suffix_colsum=args[8],
-                  total_colsum=args[9][None], n_planes_rt=args[10],
-                  row_budget=args[11], plane_bound=args[12])
+        kw = kernel_kw(args)
         a = dm.DslotMatmulOut(*dm._launch(*args))
         b = dm.DslotMatmulOut(*dm._replay(*args))
         torch.cuda.synchronize()
@@ -1139,6 +1187,227 @@ def phase6(card, dev):
         f"{plain['tokens'] / plain['seconds']:.1f} tokens/s; streams equal "
         f"to the DSLOT engine's: {sum(same)} of {len(same)} (random "
         f"weights: not gated)")
+    return launches, max_err, times
+
+
+# ------------------------------------------------------------ phase 7
+
+MNIST_PER_CLASS = 30 + 8        # the example's default, with 8 held out
+MNIST_EPOCHS, MNIST_LR, MNIST_EVAL = 20, 2e-2, 80
+MNIST_PLANES = (8, 6, 4, 2)
+# Trained parameters on the card against the same training on the CPU: both
+# run the same f32 SGD (cuDNN and the CPU's convolutions in full f32) from
+# the same seeded weights and differ only in summation order, which SGD
+# carries forward.  Over this run's 80 steps two f32 orders drift apart by
+# 7.8e-6 of the largest parameter (the port on the CPU against the JAX
+# reference) and 2.8e-5 (an H100's cuDNN against the CPU); the gate allows
+# 2^-12 (2.4e-4).  One wrong gradient or update moves the parameters by a
+# step's size, about 1e-2.
+TRAIN_RTOL = 2.0 ** -12
+
+
+def train_gate(dev):
+    """Phase 7.1: ``train_cnn`` on the card and on the CPU from the same
+    seeded weights.  Returns the card's params and accuracy, and the
+    held-out images and labels."""
+    from repro_torch.configs.dslot_mnist import CONFIG
+    from repro_torch.core.mnist_cnn import train_cnn
+    from repro_torch.data.mnist import synth_mnist
+
+    imgs, labels = synth_mnist(MNIST_PER_CLASS, seed=0)
+    tx, ty = imgs[:-MNIST_EVAL], labels[:-MNIST_EVAL]
+    kw = dict(epochs=MNIST_EPOCHS, lr=MNIST_LR)
+    train_cnn(CONFIG, tx[:128], ty[:128], epochs=1, device=dev)   # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    params, acc = train_cnn(CONFIG, tx, ty, device=dev, **kw)
+    sync(dev)
+    t1 = time.perf_counter()
+    cpu, cpu_acc = train_cnn(CONFIG, tx, ty, device="cpu", **kw)
+    t2 = time.perf_counter()
+    steps = MNIST_EPOCHS * (len(tx) // 64)
+    errs = {}
+    for name, a, b in zip(("conv", "dense"), params, cpu):
+        errs[name] = (float((a.cpu() - b).abs().max()), float(b.abs().max()))
+    log(f"  train_cnn: {len(tx)} images, {MNIST_EPOCHS} epochs, {steps} SGD "
+        f"steps at lr {MNIST_LR}: card {(t1 - t0) * 1e3:.1f} ms "
+        f"(accuracy {acc:.4f}), CPU {(t2 - t1) * 1e3:.1f} ms (accuracy "
+        f"{cpu_acc:.4f}); card vs CPU max |diff| "
+        + ", ".join(f"{n} {e:.3g} of max {m:.4f}" for n, (e, m) in
+                    errs.items()) + f" (limit {TRAIN_RTOL:.3g} of max)")
+    for name, (err, mx) in errs.items():
+        if err > TRAIN_RTOL * mx:
+            raise AssertionError(f"trained {name} on the card differs from "
+                                 f"the CPU's by {err} (max {mx})")
+    return params, acc, imgs[-MNIST_EVAL:], labels[-MNIST_EVAL:]
+
+
+def simulator_gate(params, held, held_labels, dev) -> float:
+    """Phases 7.2-7.4: per-class Algorithm-1 statistics on the card against
+    the CPU, DSLOT against SIP, and the modeled Table I.  Returns the mean
+    cycles-saved fraction over the classes."""
+    from repro_torch.core import dslot_conv2d_stats, sip_conv2d, table1_model
+
+    xe = torch.as_tensor(held).to(dev)
+    w_cpu = params.conv.cpu()
+    card_s = cpu_s = 0.0
+    rates, saved = [], []
+    log("  class  neg-rate  cycles-saved  SOPs   (paper Fig. 8 / Fig. 9)")
+    for d in range(10):
+        sel = held_labels == d
+        sync(dev)
+        t0 = time.perf_counter()
+        res = dslot_conv2d_stats(xe[torch.as_tensor(sel).to(dev)],
+                                 params.conv)
+        sync(dev)
+        t1 = time.perf_counter()
+        ref = dslot_conv2d_stats(torch.as_tensor(held[sel]), w_cpu)
+        cpu_s += time.perf_counter() - t1
+        card_s += t1 - t0
+        for field in ("is_negative", "term_digit", "cycles_used"):
+            if not torch.equal(getattr(res.report, field).cpu(),
+                               getattr(ref.report, field)):
+                raise AssertionError(f"class {d}: {field} on the card "
+                                     f"differs from the CPU's")
+        rates.append(float(res.report.negative_rate))
+        saved.append(float(res.report.mean_savings))
+        log(f"    {d}     {rates[-1]:.4f}    {saved[-1]:.4f}      "
+            f"{res.report.is_negative.numel()}")
+    mean_saved = sum(saved) / len(saved)
+    log(f"  mean negative rate {sum(rates) / len(rates):.4f} (paper: "
+        f"~0.125), mean cycles saved {mean_saved:.4f}; is_negative, "
+        f"term_digit and cycles_used equal to the CPU's for every class; "
+        f"simulator time, 10 classes: card {card_s * 1e3:.1f} ms, CPU "
+        f"{cpu_s * 1e3:.1f} ms")
+
+    res = dslot_conv2d_stats(xe[:16], params.conv)
+    diff = float((res.y_conv - sip_conv2d(xe[:16], params.conv)).abs().max())
+    log(f"  DSLOT vs SIP on 16 images: max |diff| {diff} (must be 0)")
+    if diff != 0.0:
+        raise AssertionError(f"DSLOT differs from SIP by {diff}")
+
+    label = ("modeled Virtex-7 FPGA figures from the paper's eqs. 8-11 and "
+             "Table I's power (not measured; not card numbers)")
+    m = table1_model()
+    engines = list(m.values()) + [
+        m["dslot"].with_early_termination(mean_saved)]
+    for e in engines:
+        log(f"  Table I, {label}: {e.name}: CPD {e.cpd_ns:.3f} ns, "
+            f"{e.dynamic_power_mw} mW, {e.luts} LUTs, II "
+            f"{e.init_interval_cycles:.3f} cycles, {e.gops:.4f} GOPS, "
+            f"{e.gops_per_watt:.2f} GOPS/W, "
+            f"{e.energy_per_window_nj():.4f} nJ per window")
+    return mean_saved
+
+
+def phase7(card, dev):
+    """The paper's experiment on the card: train the CNN, the simulators,
+    then the trained weights through the kernel.  Returns (kernel launches
+    of the driven path, max abs error, the four launches' times)."""
+    from repro_torch.configs.dslot_mnist import CONFIG
+    from repro_torch.core import mnist_cnn
+    from repro_torch.data.mnist import synth_mnist
+    from repro_torch.kernels import dslot_matmul as dm
+    from repro_torch.kernels import ops
+
+    params, train_acc, held, held_labels = train_gate(dev)
+    simulator_gate(params, held, held_labels, dev)
+
+    # 7.5: trained weights through the kernel, prepared once
+    xe = torch.as_tensor(held).to(dev)
+    ey = torch.as_tensor(held_labels).to(dev)
+    images_np, _ = synth_mnist(103, seed=0)
+    images = torch.as_tensor(images_np[:1024]).to(dev)
+    ref = mnist_cnn.forward(params, xe, CONFIG)
+    dm.dslot_matmul_cuda.launches = 0
+    n0 = ops.prepare_call_count()
+    with Captured(dm) as cap:
+        prep = mnist_cnn.calibrate_cnn(
+            mnist_cnn.prepare_cnn(params, CONFIG, block_m=32), xe[:16],
+            CONFIG)
+        n_prep = ops.prepare_call_count() - n0
+        agreement = {}
+        for npl in MNIST_PLANES:
+            k0 = dm.dslot_matmul_cuda.launches
+            res = mnist_cnn.forward_dslot(prep, xe, CONFIG, n_planes=npl)
+            sync(dev)
+            if dm.dslot_matmul_cuda.launches - k0 != 2:
+                raise AssertionError(f"forward_dslot launched "
+                                     f"{dm.dslot_matmul_cuda.launches - k0} "
+                                     f"times, expected 2")
+            pred = res.logits.argmax(-1)
+            agreement[npl] = float((pred == ref.argmax(-1)).float().mean())
+            log(f"  B={MNIST_EVAL} n_planes {npl}: accuracy "
+                f"{float((pred == ey).float().mean()):.4f}, argmax agreement "
+                f"{agreement[npl]:.4f}; " + "; ".join(
+                    f"{k} planes_used_mean "
+                    f"{float(v.planes_used.float().mean()):.4f} skipped_frac "
+                    f"{float(v.skipped_frac):.4f}"
+                    for k, v in res.layer_stats.items()))
+        big = mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=8)
+        sync(dev)
+    launches = dm.dslot_matmul_cuda.launches
+    if ops.prepare_call_count() - n0 != n_prep:
+        raise AssertionError("the precision sweep re-prepared the weights")
+    if len(cap.calls) != 1 + 2 * len(MNIST_PLANES) + 2:
+        raise AssertionError(f"{len(cap.calls)} kernel calls captured")
+    log(f"  kernel launches on the path: {launches} (calibrate 1, 2 per "
+        f"forward_dslot: {len(MNIST_PLANES)} at B={MNIST_EVAL}, 1 at "
+        f"B=1024); prepares {n_prep}, none in the sweep")
+    if agreement[8] < 0.95:
+        raise AssertionError(f"argmax agreement {agreement[8]} < 0.95")
+
+    max_err = 0.0
+    for i, (args, out) in enumerate(cap.calls):
+        kw = kernel_kw(args)
+        a = dm.DslotMatmulOut(*out)
+        b = dm.DslotMatmulOut(*dm._replay(*args))
+        sync(dev)
+        max_err = max(max_err, compare(f"phase 7 launch {i}", a, b, False,
+                                       args[0], args[1], kw))
+    log(f"  every launch held against the plain version: max err "
+        f"{max_err:.3g}")
+
+    # 7.6: the two shapes of the sweep at 8 planes and phase 3's B = 1024
+    st = big.layer_stats["conv1"].planes_used
+    log(f"  B=1024 n_planes 8: conv tiles terminated {int((st < 8).sum())} "
+        f"of {st.numel()} (planes_used mean {float(st.float().mean()):.4f})")
+    shapes = (("trained conv launch B=80", cap.calls[1], MNIST_EVAL),
+              ("trained head launch B=80", cap.calls[2], MNIST_EVAL),
+              ("trained conv launch B=1024", cap.calls[-2], 1024),
+              ("trained head launch B=1024", cap.calls[-1], 1024))
+    side = CONFIG.image_size - CONFIG.kernel_size + 1
+    dims = {"conv": lambda b: (b * side * side, prep.conv_params["dslot"]
+                               .d_in, prep.conv_params["dslot"].d_out),
+            "head": lambda b: (b, prep.head_params["dslot"].d_in,
+                               prep.head_params["dslot"].d_out)}
+    times = []
+    for label, (args, out), b in shapes:
+        log(f"  {label}: planes_used mean "
+            f"{float(out[1].float().mean()):.4f} over {out[1].numel()} tiles")
+        times.append(time_call(
+            label, args[0], args[1], kernel_kw(args),
+            dims[label.split()[1]](b), lambda a=args: dm._launch(*a),
+            lambda a=args: dm._replay(*a), card))
+    del cap
+
+    def fwd():
+        return mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=8)
+
+    fwd_all = sorted(cuda_ms(fwd) for _ in range(7))
+    fwd_ms = fwd_all[len(fwd_all) // 2]
+    log(f"  trained forward_dslot B=1024 n_planes=8: median {fwd_ms:.4f} ms, "
+        f"min {fwd_all[0]:.4f}, max {fwd_all[-1]:.4f} over 7 repeats of 10 "
+        f"calls [{card}]")
+    prof = forward_profile(fwd)
+    if prof is None:
+        log("  trained forward_dslot device time: not measured (the "
+            "profiler trace holds no device time)")
+    else:
+        dev_ms, rows = prof
+        log(f"  trained forward_dslot device time (torch.profiler, 5 "
+            f"calls): {dev_ms:.4f} ms per call, idle share "
+            f"{1 - dev_ms / fwd_ms:.3f} of the median")
     return launches, max_err, times
 
 
@@ -1280,13 +1549,10 @@ def main() -> int:
 
     # -------------------------------------------------- 4. times
     log(f"phase 4: times [{card}]")
-    calls = []
-    orig_run = dm.run
-    dm.run = lambda *args: calls.append(args) or orig_run(*args)
-    try:
+    with Captured(dm) as cap:
         mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=8)
-    finally:
-        dm.run = orig_run
+    calls = [args for args, _ in cap.calls]
+    del cap
     if len(calls) != 2:
         raise AssertionError(f"forward_dslot made {len(calls)} kernel calls, "
                              f"expected 2 (conv, head)")
@@ -1298,10 +1564,7 @@ def main() -> int:
                images.shape[0]))
     for (label, dw, rows), args in zip(layers, calls):
         q, w = args[0], args[1]
-        kw = dict(n_bits=args[2], relu=args[4], block_m=args[5],
-                  block_n=args[6], block_k=args[7], suffix_colsum=args[8],
-                  total_colsum=args[9][None], n_planes_rt=args[10],
-                  row_budget=args[11], plane_bound=args[12])
+        kw = kernel_kw(args)
         dims = (rows, dw.d_in, dw.d_out)
         a = dm.DslotMatmulOut(*dm._launch(*args))
         b = dm.DslotMatmulOut(*dm._replay(*args))
@@ -1345,12 +1608,18 @@ def main() -> int:
     max_err = max(max_err, eng_err)
     main_times += eng_times
 
+    # -------------------------------------------------- 7. paper experiment
+    log("phase 7: the paper's experiment, the MNIST CNN trained on the card")
+    mn_launches, mn_err, mn_times = phase7(card, dev)
+    max_err = max(max_err, mn_err)
+    main_times += mn_times
+
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)
     record = {"kernels": [{
         "name": "dslot_matmul", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": main_launches + lm_launches + eng_launches,
+        "launches": main_launches + lm_launches + eng_launches + mn_launches,
         "max_abs_err": max_err,
         "ms": sum(t["ms"] for t in main_times),
         "plain_ms": sum(t["plain_ms"] for t in main_times),

@@ -1,8 +1,9 @@
 """The paper's evaluation network (Fig. 6): bias-free MNIST CNN (port of
-``repro.core.mnist_cnn``, inference only).
+``repro.core.mnist_cnn``).
 
 conv 5x5 (no bias) -> ReLU -> 2x2 maxpool -> dense -> softmax.  ``forward``
-is the float network; inference on the DSLOT engine goes through the layer
+is the float network, trained by ``train_cnn`` (SGD with momentum on
+autograd, in full f32); inference on the DSLOT engine goes through the layer
 API with a prepare/execute split: ``prepare_cnn`` lowers the weights once,
 ``calibrate_cnn`` fixes the activation scales, and ``forward_dslot``
 executes at a runtime precision, reporting per-layer ``planes_used``.  On
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -22,7 +24,8 @@ from repro_torch.device import full_f32, resolve_device
 from repro_torch.layers import DslotConv2d, DslotDense
 
 __all__ = ["CNNParams", "DslotForwardResult", "PreparedCNN", "calibrate_cnn",
-           "forward", "forward_dslot", "init_cnn", "prepare_cnn"]
+           "fit_cnn", "forward", "forward_dslot", "init_cnn", "prepare_cnn",
+           "train_cnn"]
 
 
 class CNNParams(NamedTuple):
@@ -60,10 +63,12 @@ def init_cnn(cfg: MnistCNNConfig, generator: torch.Generator,
 def forward(params: CNNParams, images: torch.Tensor, cfg: MnistCNNConfig
             ) -> torch.Tensor:
     """images: (B, 28, 28) in [0,1] (NCHW after the channel axis) ->
-    logits (B, 10).  Bias-free, full f32."""
+    logits (B, 10).  Bias-free, full f32.  The ReLU is ``torch.maximum``
+    against zero, whose gradient at ``x == 0`` is split 0.5 / 0.5 as the
+    reference's ``jnp.maximum``'s is."""
     with full_f32():
         x = F.conv2d(images[:, None], params.conv[:, None])  # (B, M, 24, 24)
-        x = F.max_pool2d(torch.clamp_min(x, 0.0), cfg.pool)
+        x = F.max_pool2d(torch.maximum(x, x.new_zeros(())), cfg.pool)
         return x.reshape(x.shape[0], -1) @ params.dense
 
 
@@ -138,3 +143,52 @@ def forward_dslot(params: CNNParams | PreparedCNN, images: torch.Tensor,
     return DslotForwardResult(
         logits=logits,
         layer_stats={"conv1": conv_stats, "dense1": head_stats})
+
+
+def fit_cnn(cfg: MnistCNNConfig, params: CNNParams, images: np.ndarray,
+            labels: np.ndarray, *, epochs: int = 20, batch: int = 64,
+            lr: float = 2e-2, seed: int = 0) -> tuple[CNNParams, float]:
+    """Plain SGD with momentum 0.9 from the initial ``params``, on their
+    device; returns (trained params, accuracy on ``images``).
+
+    The reference's loop: batches in the order of
+    ``np.random.default_rng(seed).permutation`` per epoch (a last partial
+    batch is dropped), loss ``-mean(log_softmax(logits)[label])``, then
+    ``m = 0.9 * m + g`` and ``p = p - lr * m``, each a separate rounding.
+    Forward and backward run in full f32 (cuDNN would take TF32).
+    """
+    dev = params.conv.device
+    p = [t.detach().clone().requires_grad_(True) for t in params]
+    mom = [torch.zeros_like(t) for t in p]
+    x_all = torch.as_tensor(images).to(dev, torch.float32)
+    y_all = torch.as_tensor(labels).to(dev, torch.int64)
+    n = len(images)
+    rng = np.random.default_rng(seed)
+    with full_f32():
+        for _ in range(epochs):
+            order = torch.as_tensor(rng.permutation(n), device=dev)
+            for i in range(0, n - batch + 1, batch):
+                idx = order[i:i + batch]
+                logits = forward(CNNParams(*p), x_all[idx], cfg)
+                logp = torch.log_softmax(logits, dim=-1)
+                loss = -logp.gather(1, y_all[idx][:, None]).mean()
+                grads = torch.autograd.grad(loss, p)
+                with torch.no_grad():
+                    for t, m, g in zip(p, mom, grads):
+                        m.mul_(0.9).add_(g)
+                        t.sub_(lr * m)
+        trained = CNNParams(*(t.detach() for t in p))
+        logits = forward(trained, x_all, cfg)
+    acc = float((logits.argmax(-1) == y_all).to(torch.float32).mean())
+    return trained, acc
+
+
+def train_cnn(cfg: MnistCNNConfig, images: np.ndarray, labels: np.ndarray,
+              *, epochs: int = 20, batch: int = 64, lr: float = 2e-2,
+              seed: int = 0, device=None) -> tuple[CNNParams, float]:
+    """Train from ``init_cnn`` with a CPU generator seeded with ``seed``, on
+    ``device`` (default ``cuda``); returns (params, final accuracy).  The
+    same seed gives the same initial weights on every device."""
+    params = init_cnn(cfg, torch.Generator().manual_seed(seed), device=device)
+    return fit_cnn(cfg, params, images, labels, epochs=epochs, batch=batch,
+                   lr=lr, seed=seed)

@@ -22,7 +22,9 @@ from repro_torch import convert
 from repro_torch.configs.base import DslotConfig
 from repro_torch.configs.dslot_mnist import CONFIG
 from repro_torch.configs.registry import ARCHS
-from repro_torch.core import mnist_cnn
+from repro_torch.core import (csd_matmul, dslot_conv2d_stats, mnist_cnn,
+                              sip_conv2d)
+from repro_torch.data.mnist import synth_mnist
 from repro_torch.kernels import _build
 from repro_torch.kernels import dslot_matmul as dm
 from repro_torch.models import stats
@@ -317,6 +319,51 @@ def test_olmo_engine_on_card_matches_cpu(cuda):
         assert a.token_steps == b.token_steps
         assert abs(a.result.planes_used_mean - b.result.planes_used_mean) \
             <= 1e-6, a.uid
+
+
+@pytest.mark.gpu
+def test_train_cnn_epoch_on_card_matches_cpu(cuda):
+    """One epoch of ``train_cnn`` on the card (cuDNN, full f32) against the
+    same epoch on the CPU from the same seeded weights: the two sum in
+    other orders, which over 5 steps stays far inside 1e-5 of the largest
+    parameter; the accuracy counts must be equal."""
+    imgs, labels = synth_mnist(8, seed=0)
+    kw = dict(epochs=1, batch=16, lr=2e-2, seed=0)
+    card, acc_card = mnist_cnn.train_cnn(CONFIG, imgs, labels, device=cuda,
+                                         **kw)
+    cpu, acc_cpu = mnist_cnn.train_cnn(CONFIG, imgs, labels, device="cpu",
+                                       **kw)
+    for a, b in zip(card, cpu):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+    assert round(acc_card * len(imgs)) == round(acc_cpu * len(imgs))
+
+
+@pytest.mark.gpu
+def test_dslot_conv2d_stats_on_card_matches_cpu(cuda):
+    """The digit-serial simulator on the card: every Algorithm-1 field and
+    the SOPs equal the CPU's, and DSLOT equals SIP there too."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.uniform(0, 1, (3, 16, 16)), dtype=torch.float32)
+    x[:, :3] = 0.0
+    w = torch.as_tensor(rng.normal(-0.05, 0.25, (8, 5, 5)),
+                        dtype=torch.float32)
+    card = dslot_conv2d_stats(x.to(cuda), w.to(cuda))
+    cpu = dslot_conv2d_stats(x, w)
+    for field in ("is_negative", "term_digit", "cycles_used", "cycles_saved",
+                  "savings_frac"):
+        assert torch.equal(getattr(card.report, field).cpu(),
+                           getattr(cpu.report, field)), field
+    assert torch.equal(card.y_conv.cpu(), cpu.y_conv)
+    assert torch.equal(card.y_pooled.cpu(), cpu.y_pooled)
+    assert torch.equal(sip_conv2d(x.to(cuda), w.to(cuda)), card.y_conv)
+    q = torch.as_tensor(rng.integers(-255, 256, (64, 48)), dtype=torch.int32)
+    w_q = torch.as_tensor(rng.integers(-127, 128, (48, 16)),
+                          dtype=torch.int32)
+    out, _ = csd_matmul(q.to(cuda), w_q.to(cuda))
+    assert torch.equal(out.cpu(), q @ w_q)
+
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No compiler means a clear error, never a silent plain-version
