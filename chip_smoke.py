@@ -118,16 +118,42 @@ Phases (any failure exits non-zero and prints no result line):
    and accuracy, the conv tiles that terminated at B = 1024, the times of
    the conv and head launches at B = 80 and B = 1024 as in phase 4, and the
    B = 1024 forward's median and device time.
+8. The rest of the model zoo, each at full published width and depth, bf16,
+   seeded weights on the card, one after another with memory freed:
+   ``generate`` of 16 new tokens on h2o-danube-3-4b (B = 4 prompts of
+   4608, so the prefill ring of its 4096 window wraps), granite-moe-1b-
+   a400m (4 x 2048: a prefill of 8192 tokens through two MoE token blocks;
+   the share of (token, choice) pairs dropped at prefill is printed and
+   none may drop at decode), mamba2-780m (4 x 2048: 8 SSD chunks; one
+   layer's ``ssd_chunked`` held against ``ssd_sequential`` on its own
+   inputs within ``SSD_RTOL``) and recurrentgemma-2b (4 x 2560: its 2048
+   local-attention ring wraps).  Gate (a): every decode step's logits, and
+   the prefill's, within ``ZOO_RTOL`` of a train-mode forward of prompt +
+   generated tokens at the same position, and within ``ZOO_F32_RTOL`` with
+   the weights widened to f32 (MoE at a dropless capacity; reasons at
+   ``ZOO_RTOL``).  Gate (b): the model's first 2 layers at full width,
+   weights widened to f32, give the same greedy tokens on the card and on
+   the CPU (or part only at near-ties, see ``gate_card_vs_cpu``) and
+   prefill logits within ``CARD_RTOL``.  Printed per run: tokens/s (median
+   of 3), prefill and decode-step ms with one ``torch.profiler`` trace each
+   (device time, idle share, top kernels), peak memory.  Then
+   recurrentgemma-2b with ReLU, non-GLU MLPs on the kernel through the
+   ``ServeEngine`` as phase 6 (``ServeConfig(n_slots=16, max_len=4096,
+   prefill_chunk=128, chunks_per_step=2)``, 24 seeded requests with prompts
+   of 16-3000 tokens, at least 4 longer than the window, 12 at step 0 and a
+   burst of 12) under phase 6's gates, the kernel held against its plain
+   version at its decode (16, 2560) and admission (256, 2560) @ (2560,
+   7680) shapes and timed as in phase 4.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
 printed just before that.  The record's ``launches`` counts the kernel
 launches of the driven paths (phase 3's CNN, phase 5's two ``generate``
-runs, phase 6's timed engine run and phase 7's calibrate, sweep and
-B = 1024 forward); its times and bound are sums over the eleven main-path
-launches timed in phases 4-7 (CNN conv and head; LM encoder, prefill and
-decode; engine decode and admission; trained conv and head at B = 80 and
-B = 1024).
+runs, phase 6's timed engine run, phase 7's calibrate, sweep and B = 1024
+forward, and phase 8's hybrid engine run); its times and bound are sums
+over the thirteen main-path launches timed in phases 4-8 (CNN conv and
+head; LM encoder, prefill and decode; engine decode and admission; trained
+conv and head at B = 80 and B = 1024; hybrid decode and admission).
 """
 
 from __future__ import annotations
@@ -931,8 +957,61 @@ def drive_engine(eng, specs: list[dict], dev, n_first: int,
                 tokens=sum(len(r.out) for r in reqs))
 
 
-def engine_gates(eng, run: dict) -> None:
-    """Phase 6's gates on one DSLOT engine run (see ``phase6``)."""
+def hold_engine_shapes(captured, kernel_rows, cfg, dev, card):
+    """The kernel at an engine's shapes (one captured launch each), with
+    mixed per-row budgets, held against its plain version by phase 2's rule
+    and timed as in phase 4.  Returns (max abs error, the times)."""
+    from repro_torch.kernels import dslot_matmul as dm
+
+    g = torch.Generator(dev).manual_seed(7)
+    max_err, times = 0.0, []
+    for label, rows in kernel_rows.items():
+        args = list(captured[rows])
+        bud = torch.randint(1, cfg.dslot.n_bits + 1, (rows,), generator=g,
+                            device=dev, dtype=torch.int32)
+        args[10], args[11] = bud.max(), bud
+        q, w = args[0], args[1]
+        kw = kernel_kw(args)
+        a = dm.DslotMatmulOut(*dm._launch(*args))
+        b = dm.DslotMatmulOut(*dm._replay(*args))
+        torch.cuda.synchronize()
+        err = compare(label, a, b, False, q, w, kw)
+        max_err = max(max_err, err)
+        log(f"  {label}: q {tuple(q.shape)}, row budgets "
+            f"{bud[:8].tolist()}..., max err {err:.3g}, planes_used mean "
+            f"{float(a.planes_used.float().mean()):.3f}")
+        times.append(time_call(
+            label, q, w, kw, (rows, cfg.d_model, cfg.d_ff),
+            lambda a=args: dm._launch(*a), lambda a=args: dm._replay(*a),
+            card))
+    return max_err, times
+
+
+def log_forward(label, walls, trace, which) -> None:
+    """One engine forward's wall times, with the device time, idle share
+    and top kernels of its trace (taken at ``which``)."""
+    walls = sorted(walls)
+    wall = walls[len(walls) // 2]
+    line = (f"  {label}: wall median {wall:.2f} ms (min {walls[0]:.2f}, "
+            f"max {walls[-1]:.2f}, {len(walls)} calls)")
+    if trace is None:
+        log(line + "; device time: not measured (the profiler trace holds "
+            "no device time)")
+        return
+    dev_ms, rows = trace
+    kern = sum(r[0] for r in rows if any(
+        k in r[2] for k in ("plane_kernel", "product_kernel",
+                            "split_parts_kernel")))
+    log(line + f"; device time (torch.profiler, {which}) {dev_ms:.3f} ms, "
+        f"idle share {1 - dev_ms / wall:.3f}; dslot kernels {kern:.3f} ms; "
+        f"top kernels:")
+    for ms, count, key in rows[:6]:
+        log(f"    {ms:.4f} ms x{count} {key[:90]}")
+
+
+def engine_gates(eng, run: dict, shed_after_burst: bool = True) -> None:
+    """Phase 6's gates on one DSLOT engine run (see ``phase6``); phase 8
+    asks for a shed anywhere in the run (``shed_after_burst=False``)."""
     reqs = run["reqs"]
     bad = [(r.uid, r.phase) for r in reqs if r.phase != "done"]
     if bad:
@@ -940,7 +1019,7 @@ def engine_gates(eng, run: dict) -> None:
     if eng.errors or eng.quarantined or eng.timeouts:
         raise AssertionError(f"errors {eng.errors}, quarantined "
                              f"{eng.quarantined}, timeouts {eng.timeouts}")
-    if run["burst_sheds"] < 1:
+    if (run["burst_sheds"] if shed_after_burst else eng.slo.shed_events) < 1:
         raise AssertionError("the burst shed no plane")
     ceiling = {n: t.ceiling for n, t in eng.slo.tiers.items()}
     if eng.slo.levels != ceiling:
@@ -1000,7 +1079,7 @@ def hold_reserved(model, params, reqs, dev, n_bits: int) -> dict:
             parted.append((r.uid, same.index(False)))
         ctx = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
         with precision_scope(n_bits):
-            logits, _ = model.forward(params, {"tokens": torch.as_tensor(
+            logits, _, _ = model.forward(params, {"tokens": torch.as_tensor(
                 ctx[None]).to(dev)})
         lg = logits[0, len(r.prompt) - 1:].float()        # row k -> out[k]
         out = torch.as_tensor(r.out, device=dev)[:, None]
@@ -1097,28 +1176,8 @@ def phase6(card, dev):
                              f"{expected}")
     engine_gates(eng, run)
 
-    # the kernel at the engine's two shapes, mixed per-row budgets
-    g = torch.Generator(dev).manual_seed(7)
-    max_err, times = 0.0, []
-    for label, rows in ENGINE_KERNEL_ROWS.items():
-        args = list(captured[rows])
-        bud = torch.randint(1, cfg.dslot.n_bits + 1, (rows,), generator=g,
-                            device=dev, dtype=torch.int32)
-        args[10], args[11] = bud.max(), bud
-        q, w = args[0], args[1]
-        kw = kernel_kw(args)
-        a = dm.DslotMatmulOut(*dm._launch(*args))
-        b = dm.DslotMatmulOut(*dm._replay(*args))
-        torch.cuda.synchronize()
-        err = compare(label, a, b, False, q, w, kw)
-        max_err = max(max_err, err)
-        log(f"  {label}: q {tuple(q.shape)}, row budgets "
-            f"{bud[:8].tolist()}..., max err {err:.3g}, planes_used mean "
-            f"{float(a.planes_used.float().mean()):.3f}")
-        times.append(time_call(
-            label, q, w, kw, (rows, cfg.d_model, cfg.d_ff),
-            lambda a=args: dm._launch(*a), lambda a=args: dm._replay(*a),
-            card))
+    max_err, times = hold_engine_shapes(captured, ENGINE_KERNEL_ROWS, cfg,
+                                        dev, card)
     del captured
 
     held = hold_reserved(model, eng.params, run["reqs"], dev,
@@ -1141,23 +1200,8 @@ def phase6(card, dev):
             f"(min {walls[0]:.2f}, max {walls[-1]:.2f}, {len(walls)} steps)")
     for label, timed in (("decode forward", eng._decode),
                          ("admission forward", eng.pipeline._extend_lanes)):
-        walls = sorted(timed.walls)
-        wall = walls[len(walls) // 2]
-        line = (f"  {label}: wall median {wall:.2f} ms (min {walls[0]:.2f}, "
-                f"max {walls[-1]:.2f}, {len(walls)} calls)")
-        if traces[label] is None:
-            log(line + "; device time: not measured (the profiler trace "
-                "holds no device time)")
-            continue
-        dev_ms, rows = traces[label]
-        kern = sum(r[0] for r in rows if any(
-            k in r[2] for k in ("plane_kernel", "product_kernel",
-                                "split_parts_kernel")))
-        log(line + f"; device time (torch.profiler, the warm-up's third "
-            f"call) {dev_ms:.3f} ms, idle share {1 - dev_ms / wall:.3f}; "
-            f"dslot kernels {kern:.3f} ms; top kernels:")
-        for ms, count, key in rows[:6]:
-            log(f"    {ms:.4f} ms x{count} {key[:90]}")
+        log_forward(label, timed.walls, traces[label],
+                    "the warm-up's third call")
     for tier in ("reserved", "standard", "degradable"):
         rs = [r for r in run["reqs"] if r.tier == tier]
         steps = sorted(r.ttft_steps for r in rs)
@@ -1411,6 +1455,443 @@ def phase7(card, dev):
     return launches, max_err, times
 
 
+# ------------------------------------------------------------ phase 8
+
+# (arch, rows, prompt tokens): each prompt is long enough for its model's
+# own path: h2o-danube's 4608 wrap its 4096-slot window ring at prefill,
+# granite-moe's 4 x 2048 = 8192 prefill tokens take the two-block MoE path,
+# mamba2's 2048 make 8 SSD chunks of 256, recurrentgemma's 2560 wrap its
+# 2048-slot local-attention ring.
+ZOO_RUNS = (("h2o-danube-3-4b", 4, 4608), ("granite-moe-1b-a400m", 4, 2048),
+            ("mamba2-780m", 4, 2048), ("recurrentgemma-2b", 4, 2560))
+ZOO_NEW = 16
+ZOO_SMALL = (2, 256, 8)     # gate (b): rows, prompt, new tokens at 2 layers
+# Gate (a) holds each decode step's logits, and the prefill's, against a
+# train-mode forward of prompt + generated tokens at the same position; for
+# MoE at a dropless capacity (at the published 1.25 the seeded router drops
+# a quarter of the (token, choice) pairs at prefill, and a dropped choice is
+# by design a different function from the dropless decode).  It runs twice.
+# In the model's bf16 the two sides round apart now and then and the flips
+# spread through the layers: a 48-layer mamba2 prompt of 512 tokens on the
+# CPU gives 0.045 of the largest logit in bf16 and 1.2e-5 in f32 on the same
+# weights, and phase 8's first card run measured 0.019-0.076 over the four
+# models; the bound is 2^-3.  The same weights widened to f32 leave only
+# the order of f32 sums: within ``ZOO_F32_RTOL``.  A wrong ring slot, a lost
+# recurrent state or a dropped MoE choice moves logits by their own size.
+ZOO_RTOL = 2.0 ** -3
+ZOO_F32_RTOL = 1e-3
+# Gate (b): the model's first 2 layers (weights widened to f32) on the card
+# and on the CPU, the CPU parity tests' bound.  In bf16 the copies part by
+# rounding as above, and granite-moe's router then moves choices across its
+# top-8 and capacity edges (0.109 of the largest logit in the first card
+# run), so the device comparison is made where only summation order differs.
+CARD_RTOL = 1e-4
+# The SSD chunked form against its sequential recurrence on one layer's own
+# inputs at full width, both f32: the reference's tests hold the two to
+# about 1e-4; here within 1e-4 of the largest output.
+SSD_RTOL = 1e-4
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_SLOTS, HYBRID_MAX_LEN = 16, 4096
+HYBRID_CHUNK, HYBRID_LANES = 128, 2
+HYBRID_REQUESTS, HYBRID_LONG = 24, 4     # 12 at step 0, a burst of 12
+HYBRID_LONGEST = 3000
+HYBRID_KERNEL_ROWS = {"hybrid decode launch": HYBRID_SLOTS,
+                      "hybrid admission launch": HYBRID_LANES * HYBRID_CHUNK}
+
+
+class MoeDrops:
+    """Stands in for ``moe.route`` and counts the (token, choice) pairs
+    kept and dropped by prefill blocks and by decode steps."""
+
+    def __init__(self, moe):
+        self.moe, self.route = moe, moe.route
+        self.prefill = [0, 0]
+        self.decode = [0, 0]
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def __call__(self, p, flat, cfg, C):
+        out = self.route(p, flat, cfg, C)
+        keep = out[3]
+        side = self.decode if C == flat.shape[1] * cfg.top_k else self.prefill
+        side[0] += keep.numel()
+        side[1] += int((~keep).sum())
+        return out
+
+
+def greedy_decode(model, params, batch, n_new, max_len):
+    """Prefill and ``n_new`` greedy decode steps (what ``generate`` runs),
+    keeping every step's logits: (prefill logits, [decode logits], tokens
+    (B, n_new + 1))."""
+    logits, state = model.prefill(params, batch, max_len=max_len)
+    tok = logits.argmax(-1)
+    toks, steps = [tok], []
+    for _ in range(n_new):
+        lg, state = model.decode_step(params, state, tok[:, None])
+        steps.append(lg)
+        tok = lg.argmax(-1)
+        toks.append(tok)
+    return logits, steps, torch.stack(toks, dim=1)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    b = b.float()
+    return float((a.float() - b).abs().max() / b.abs().max())
+
+
+def gate_decode_vs_train(model, params, batch, n_new) -> float:
+    """Gate (a): each decode step's logits against a train forward of the
+    prompt and the generated tokens.  Returns the worst relative error."""
+    S = batch["tokens"].shape[1]
+    pre, steps, toks = greedy_decode(model, params, batch, n_new,
+                                     S + n_new)
+    full = {"tokens": torch.cat([batch["tokens"], toks[:, :n_new]], dim=1)}
+    logits, _, _ = model.forward(params, full)
+    worst = rel_err(pre, logits[:, S - 1])
+    for i, lg in enumerate(steps):
+        worst = max(worst, rel_err(lg, logits[:, S + i]))
+    del logits
+    return worst
+
+
+def widened(cfg, params):
+    """The f32 model and the same weights widened to f32 (exact)."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.prefill import tree_map
+
+    return (build_model(dataclasses.replace(cfg, dtype="float32")),
+            tree_map(lambda a: a.float() if a.is_floating_point() else a,
+                     params))
+
+
+def gate_card_vs_cpu(cfg, params, dev) -> tuple[float, str]:
+    """Gate (b): the model's first 2 layers, weights widened to f32, on the
+    card and on the CPU: greedy tokens and prefill logits.  Where the
+    streams part, the card's token must be within ``CARD_RTOL`` of the
+    CPU's best logit at that step, with the CPU fed the card's tokens (an
+    f32 near-tie)."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.prefill import tree_map
+
+    two = {**params, "decoder": {"groups": [], "rest": two_layers(
+        params["decoder"], build_model(cfg).decoder)}}
+    model, two = widened(dataclasses.replace(cfg, n_layers=2), two)
+    B, S, n_new = ZOO_SMALL
+    g = torch.Generator(dev).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device=dev)}
+    card = greedy_decode(model, two, batch, n_new, S + n_new)
+    cpu_p, cpu_b = tree_map(lambda a: a.cpu(), (two, batch))
+    host = greedy_decode(model, cpu_p, cpu_b, n_new, S + n_new)
+    err = rel_err(card[0].cpu(), host[0])
+    if err > CARD_RTOL:
+        raise AssertionError(f"{cfg.name} 2 layers: prefill logits card vs "
+                             f"CPU {err:.4g} of the largest")
+    if torch.equal(card[2].cpu(), host[2]):
+        return err, "same tokens"
+    logits, state = model.prefill(cpu_p, cpu_b, max_len=S + n_new)
+    toks = card[2].cpu()
+    worst = 0.0
+    for i in range(n_new + 1):
+        gap = (logits.max(-1).values - logits.gather(1, toks[:, i:i + 1])
+               [:, 0]) / logits.abs().max(-1).values
+        worst = max(worst, float(gap.max()))
+        if i < n_new:
+            logits, state = model.decode_step(cpu_p, state, toks[:, i:i + 1])
+    if worst > CARD_RTOL:
+        raise AssertionError(f"{cfg.name} 2 layers: card token {worst:.4g} "
+                             f"of the largest logit below the CPU's best")
+    return err, f"streams part at near-ties (worst gap {worst:.4g})"
+
+
+def two_layers(stack_params, stack):
+    """Layers 0 and 1 of a stack's params, as a 2-layer stack's rest."""
+    from repro_torch.models.transformer import _index
+
+    out = []
+    for i in range(2):
+        if stack.n_groups:
+            g, pos = divmod(i, stack.period)
+            out.append(_index(stack_params["groups"][pos], g))
+        else:
+            out.append(stack_params["rest"][i])
+    return out
+
+
+def ssd_gate(model, params, batch) -> float:
+    """One layer's ``ssd_chunked`` against ``ssd_sequential`` on the inputs
+    that layer gets at prefill (the first call's arguments)."""
+    from repro_torch.device import full_f32
+    from repro_torch.models import ssm
+
+    seen = []
+    chunked = ssm.ssd_chunked
+
+    def capture(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return chunked(*args, **kw)
+
+    ssm.ssd_chunked = capture
+    try:
+        model.prefill(params, batch)
+    finally:
+        ssm.ssd_chunked = chunked
+    (x, dtv, A, B, C, chunk), kw = seen[0]
+    with full_f32():
+        y1, h1 = chunked(x, dtv, A, B, C, chunk, **kw)
+        y2, h2 = ssm.ssd_sequential(x, dtv, A, B, C, **kw)
+    err = max(rel_err(y1, y2), rel_err(h1, h2))
+    log(f"  ssd_chunked vs ssd_sequential, layer 0 at full width (x "
+        f"{tuple(x.shape)}, chunk {chunk}): max |diff| {err:.3g} of the "
+        f"largest (limit {SSD_RTOL})")
+    if err > SSD_RTOL:
+        raise AssertionError(f"ssd_chunked vs ssd_sequential: {err}")
+    return err
+
+
+def profile_line(label, fn, wall, card):
+    prof = forward_profile(fn, calls=1)
+    if prof is None:
+        log(f"  {label}: {wall:.2f} ms; device time: not measured (the "
+            f"profiler trace holds no device time) [{card}]")
+        return
+    dev_ms, rows = prof
+    log(f"  {label}: {wall:.2f} ms (median), device time (torch.profiler) "
+        f"{dev_ms:.3f} ms, idle share {1 - dev_ms / wall:.3f} [{card}]; top "
+        f"kernels:")
+    for ms, count, key in rows[:6]:
+        log(f"    {ms:.4f} ms x{count} {key[:90]}")
+
+
+def zoo_run(card, dev, arch, B, S):
+    """Phase 8, one architecture at full width and depth through
+    ``generate``, with gates (a) and (b) and its times."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import generate
+
+    cfg = get_arch(arch)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
+    sync(dev)
+    g = torch.Generator(dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device=dev)}
+    log(f"  {arch}: {model.param_count(params) / 1e9:.4f} B parameters "
+        f"({cfg.dtype}), {cfg.n_layers} layers {cfg.block_pattern}, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, window {cfg.window or '-'}; "
+        f"init {time.perf_counter() - t0:.2f} s; B = {B}, prompt {S}, "
+        f"{ZOO_NEW} new tokens")
+    with MoeDrops(moe) as drops:
+        res = generate(model, params, batch, ZOO_NEW)
+        sync(dev)
+    toks = res.tokens
+    if toks.shape != (B, ZOO_NEW) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: tokens {tuple(toks.shape)} out of "
+                             f"[0, {cfg.vocab_size})")
+    if cfg.n_experts:
+        kept, dropped = drops.prefill
+        log(f"  MoE dispatch: prefill dropped {dropped} of {kept} (token, "
+            f"choice) pairs ({dropped / kept:.4f}); decode dropped "
+            f"{drops.decode[1]} of {drops.decode[0]}")
+        if drops.decode[1] or not drops.decode[0]:
+            raise AssertionError(f"{arch}: decode dropped {drops.decode}")
+    gate_cfg, note = cfg, ""
+    if cfg.n_experts:
+        # dropless: every expert can take every token (reason at ZOO_RTOL)
+        gate_cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        note = f" (capacity_factor {gate_cfg.capacity_factor:g}, dropless)"
+    errs = {}
+    with MoeDrops(moe) as gate_drops:
+        errs["bf16"] = gate_decode_vs_train(build_model(gate_cfg), params,
+                                            batch, ZOO_NEW)
+        errs["f32"] = gate_decode_vs_train(*widened(gate_cfg, params), batch,
+                                           ZOO_NEW)
+    if cfg.n_experts and (gate_drops.prefill[1] or gate_drops.decode[1]):
+        raise AssertionError(f"{arch}: the dropless gate dropped "
+                             f"{gate_drops.prefill} {gate_drops.decode}")
+    log(f"  gate (a), decode steps vs a train forward of prompt + tokens"
+        f"{note}: max |diff| {errs['bf16']:.4g} of the largest logit in "
+        f"bf16 (limit {ZOO_RTOL}), {errs['f32']:.4g} with the weights in "
+        f"f32 (limit {ZOO_F32_RTOL})")
+    if errs["bf16"] > ZOO_RTOL or errs["f32"] > ZOO_F32_RTOL:
+        raise AssertionError(f"{arch}: decode vs train {errs}")
+    if cfg.family == "ssm":
+        ssd_gate(model, params, batch)
+    err_b, how = gate_card_vs_cpu(cfg, params, dev)
+    log(f"  gate (b), 2 layers at full width in f32, card vs CPU (B = "
+        f"{ZOO_SMALL[0]}, prompt {ZOO_SMALL[1]}, {ZOO_SMALL[2]} new): prefill "
+        f"logits {err_b:.4g} of the largest (limit {CARD_RTOL}); {how}")
+
+    gen_ms, gen_all = median_ms(lambda: generate(model, params, batch,
+                                                 ZOO_NEW), reps=3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  generate: median {gen_ms:.1f} ms of "
+        f"{[round(t, 1) for t in gen_all]}, {B * ZOO_NEW / gen_ms * 1e3:.1f} "
+        f"tokens/s [{card}]")
+
+    def run_prefill():
+        return model.prefill(params, batch, max_len=S + ZOO_NEW)
+
+    _, state = run_prefill()
+    tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+
+    def run_decode():
+        return model.decode_step(params, state, tok)
+
+    pre_ms, _ = median_ms(run_prefill, reps=3)
+    dec_ms, _ = median_ms(run_decode, reps=5)
+    profile_line(f"prefill ({B} x {S} tokens)", run_prefill, pre_ms, card)
+    profile_line("decode step", run_decode, dec_ms, card)
+    log(f"  peak memory: {peak_gb:.2f} GB [{card}]")
+    del params, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hybrid_traffic(n: int, vocab: int, window: int, seed: int = 8
+                   ) -> list[dict]:
+    """``n`` requests from a numpy seed: prompts of 16 to ``HYBRID_LONGEST``
+    tokens, at least ``HYBRID_LONG`` of them longer than ``window``, 16-32
+    new tokens, tiers reserved : standard : degradable = 1 : 2 : 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tiers = rng.permutation(["reserved", "standard", "standard",
+                             "degradable"] * (n // 4))
+    lens = rng.integers(16, HYBRID_LONGEST + 1, n)
+    lens[rng.permutation(n)[:HYBRID_LONG]] = rng.integers(
+        window + 1, HYBRID_LONGEST + 1, HYBRID_LONG)
+    return [dict(uid=i, tier=str(tiers[i]),
+                 prompt=rng.integers(0, vocab, int(lens[i])).astype(np.int32),
+                 max_new=int(rng.integers(16, 33))) for i in range(n)]
+
+
+def hybrid_engine(card, dev):
+    """Phase 8, last run: full-width recurrentgemma-2b with ReLU MLPs on
+    the kernel through the ServeEngine, phase 6's gates.  Returns (kernel
+    launches of the run, max abs error, the two kernel shapes' times)."""
+    from repro_torch.configs.base import DslotConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import dslot_matmul as dm
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine, SloConfig
+
+    base = dataclasses.replace(get_arch(HYBRID_ARCH), act="relu", glu=False)
+    dense = build_model(base)
+    t0 = time.perf_counter()
+    params = dense.init(torch.Generator(dev).manual_seed(0), device=dev)
+    sync(dev)
+    scale = calibrated_act_scale(dense, params, base.vocab_size, dev)
+    cfg = dataclasses.replace(base, dslot=DslotConfig(
+        enabled=True, block_m=HYBRID_SLOTS, block_n=128, block_k=None,
+        act_scale=scale))
+    model = build_model(cfg)
+    scfg = ServeConfig(n_slots=HYBRID_SLOTS, max_len=HYBRID_MAX_LEN,
+                       prefill_chunk=HYBRID_CHUNK,
+                       chunks_per_step=HYBRID_LANES,
+                       slo=SloConfig(**ENGINE_SLO))
+    specs = hybrid_traffic(HYBRID_REQUESTS, cfg.vocab_size, cfg.window)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    eng = ServeEngine(model, params, scfg)
+    sync(dev)
+    lens = sorted(len(s["prompt"]) for s in specs)
+    log(f"  {cfg.name} with a ReLU MLP (act relu, no GLU): "
+        f"{model.param_count(params) / 1e9:.4f} B parameters ({cfg.dtype}), "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"window {cfg.window}; init + calibration {t1 - t0:.2f} s, engine "
+        f"(prepare_dslot) {time.perf_counter() - t1:.2f} s; calibrated "
+        f"act_scale {scale!r}; {cfg.dslot}; {scfg}; prompts {lens}")
+    # the third forward of each kind is traced (and left out of the walls)
+    eng._decode = Timed(eng._decode, dev, trace_at=3)
+    eng.pipeline._extend_lanes = Timed(eng.pipeline._extend_lanes, dev,
+                                       trace_at=3)
+    captured = {}
+    orig_run = dm.run
+
+    def capture(*args):
+        rows = args[0].shape[0]
+        if rows in HYBRID_KERNEL_ROWS.values() and rows not in captured:
+            captured[rows] = args
+        return orig_run(*args)
+
+    dm.dslot_matmul_cuda.launches = 0
+    dm.run = capture
+    try:
+        run = drive_engine(eng, specs, dev, n_first=HYBRID_REQUESTS // 2)
+    finally:
+        dm.run = orig_run
+    launches = dm.dslot_matmul_cuda.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decodes, lanes = eng._decode.calls, eng.pipeline._extend_lanes.calls
+    expected = cfg.n_layers * (decodes + eng.pipeline.forwards)
+    log(f"  {HYBRID_REQUESTS} requests ({HYBRID_REQUESTS // 2} at step 0, a "
+        f"burst of {HYBRID_REQUESTS - HYBRID_REQUESTS // 2} at step "
+        f"{run['burst_step']}): {run['run_steps']} steps to drain, "
+        f"{run['idle_steps']} idle steps to restore; {decodes} decode "
+        f"forwards, {lanes} admission lane forwards; {launches} kernel "
+        f"launches (expected {expected})")
+    if launches != expected or lanes != eng.pipeline.forwards:
+        raise AssertionError(f"{launches} kernel launches, expected "
+                             f"{expected}")
+    # the first wave's 3000-token prompts hold the tiers at their floors
+    # until the burst arrives, so the shed is asked of the whole run
+    engine_gates(eng, run, shed_after_burst=False)
+
+    max_err, times = hold_engine_shapes(captured, HYBRID_KERNEL_ROWS, cfg,
+                                        dev, card)
+    del captured
+
+    held = hold_reserved(model, eng.params, run["reqs"], dev,
+                         cfg.dslot.n_bits)
+    log(f"  reserved streams vs solo generate: token agreement "
+        f"{held['agreement']:.4f} (parted at (uid, token) {held['parted']}); "
+        f"emitted tokens below the best logit of a forward of the stream by "
+        f"at most {held['worst'][0]:.4g} of the largest (uid, token "
+        f"{held['worst'][1]}; limit {LM_LOGIT_RTOL})")
+    log(f"  times [{card}]")
+    log(f"  engine: {run['tokens']} tokens in {run['seconds']:.2f} s, "
+        f"{run['tokens'] / run['seconds']:.1f} tokens/s")
+    for label, timed in (("decode forward", eng._decode),
+                         ("admission forward", eng.pipeline._extend_lanes)):
+        log_forward(label, timed.walls, timed.trace, "the third call")
+    for tier in ("reserved", "standard", "degradable"):
+        rs = [r for r in run["reqs"] if r.tier == tier]
+        steps = sorted(r.ttft_steps for r in rs)
+        log(f"  {tier} ({len(rs)} requests): TTFT p50 {pct(steps, 0.5)} / "
+            f"p95 {pct(steps, 0.95)} steps; planes_used_mean "
+            f"{tier_means(rs, 'planes_used_mean')[tier]:.4f}")
+    log(f"  SLO: {eng.slo.shed_events} shed events ({run['burst_sheds']} "
+        f"after the burst), {eng.slo.restore_events} restore events, min "
+        f"levels {eng.slo.min_levels}")
+    log(f"  peak memory: {peak_gb:.2f} GB [{card}]")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, max_err, times
+
+
+def phase8(card, dev):
+    """The rest of the model zoo at full width: four ``generate`` runs, then
+    the hybrid engine.  Returns what ``hybrid_engine`` returns."""
+    for arch, B, S in ZOO_RUNS:
+        zoo_run(card, dev, arch, B, S)
+    return hybrid_engine(card, dev)
+
+
 # ------------------------------------------------------------ phase 3
 
 def cpu_copy(prep):
@@ -1614,12 +2095,19 @@ def main() -> int:
     max_err = max(max_err, mn_err)
     main_times += mn_times
 
+    # -------------------------------------------------- 8. the model zoo
+    log(f"phase 8: the rest of the model zoo at full width [{card}]")
+    hy_launches, hy_err, hy_times = phase8(card, dev)
+    max_err = max(max_err, hy_err)
+    main_times += hy_times
+
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)
     record = {"kernels": [{
         "name": "dslot_matmul", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": main_launches + lm_launches + eng_launches + mn_launches,
+        "launches": main_launches + lm_launches + eng_launches + mn_launches
+        + hy_launches,
         "max_abs_err": max_err,
         "ms": sum(t["ms"] for t in main_times),
         "plain_ms": sum(t["plain_ms"] for t in main_times),

@@ -1,20 +1,20 @@
-"""Attention: GQA/MQA, full-causal and cross, flash-style (port of
-``repro.models.attention``).
+"""Attention: GQA/MQA, full-causal, sliding-window/local and cross,
+flash-style (port of ``repro.models.attention``).
 
 Plain PyTorch that follows the reference's arithmetic: f32 scores, bf16
 (the value dtype) probabilities into the PV product with f32 accumulation,
 and a running-max online softmax over KV chunks, so scores are never
-materialized for the whole sequence.  No library attention kernel is used,
-so CPU results keep the reference's rounding.
+materialized for the whole sequence.  The sliding-window path also chunks
+the query axis and slices only the in-window KV span of each chunk.  No
+library attention kernel is used, so CPU results keep the reference's
+rounding.
 
 Decode uses a ring-buffer KV cache: slot = position % capacity, with an
 explicit per-row position array (-1 = empty) for exact masking.  Full
-attention uses capacity = seq_len (no wraparound).  Decode writes the ring
-in place, where the reference returns a new cache value.
-
-Sliding-window attention (``swa_attention`` and the SWA branches of
-``attention_forward``) belongs to a later slice of the port: a config with
-``attn_type="swa"`` raises ``NotImplementedError``.
+attention uses capacity = seq_len (no wraparound); SWA uses capacity =
+window.  Decode writes the ring in place, where the reference returns a new
+cache value.  A multi-token chunk into a sliding-window ring is the
+exception: it writes a copy (see ``attention_forward``).
 """
 
 from __future__ import annotations
@@ -33,15 +33,6 @@ class KVCache(NamedTuple):
     k: torch.Tensor          # (B, C, Hkv, D)
     v: torch.Tensor          # (B, C, Hkv, D)
     positions: torch.Tensor  # (B, C) int32 per-row ring positions, -1 = empty
-
-
-def check_supported(cfg) -> None:
-    """Raise for attention the port does not have yet."""
-    if cfg.attn_type == "swa" and cfg.window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported yet (a "
-            "later slice of the port: swa_attention and the SWA carry-window "
-            "extension)")
 
 
 def init_attention(cfg, gen, device, cross: bool = False) -> Params:
@@ -181,12 +172,42 @@ def chunked_causal_attention(q, k, v, q_pos, k_pos, *, chunk: int
     return torch.cat(outs, dim=1)[:, :Sq]
 
 
+def swa_attention(q, k, v, q_pos, k_pos, *, window: int, q_chunk: int
+                  ) -> torch.Tensor:
+    """Sub-quadratic sliding-window attention: a loop over query chunks,
+    each attending to the in-window KV span ``min(Sk, window + cq)`` that
+    ends at the chunk's end.  Compute O(S * (W + cq)), not O(S^2)."""
+    B, Sq, Hq, D = q.shape
+    Sk = k.shape[1]
+    cq = min(q_chunk, Sq)
+    n_q = -(-Sq // cq)
+    pad_q = n_q * cq - Sq
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = F.pad(q_pos, (0, pad_q), value=-1)
+    span = min(Sk, window + cq)
+    outs = []
+    for i in range(n_q):
+        # the KV span covering (chunk_start - window, chunk_end]
+        start = min(max(i * cq + cq - span, 0), Sk - span)
+        kv = slice(start, start + span)
+        outs.append(flash_attention(
+            q[:, i * cq:(i + 1) * cq], k[:, kv], v[:, kv],
+            q_pos[i * cq:(i + 1) * cq], k_pos[kv], causal=True,
+            window=window, chunk=span))
+    return torch.cat(outs, dim=1)[:, :Sq]
+
+
 # ------------------------------------------------------------------ module API
 
-def _ring_write(cache: KVCache, k, v, pos_b, q_valid) -> KVCache:
+def _ring_write(cache: KVCache, k, v, pos_b, q_valid, copy: bool = False
+                ) -> KVCache:
     """Write a chunk's KV into each row's slots ``pos % C``, in place; rows
     where ``q_valid`` is False write back what the ring already holds.
-    Returns ``cache``."""
+    Returns ``cache``, or with ``copy`` a written copy (``cache`` stays as
+    it was)."""
+    if copy:
+        cache = KVCache(*(a.clone() for a in cache))
     B = k.shape[0]
     C = cache.k.shape[1]
     slots = pos_b % C                                       # (B, S)
@@ -252,15 +273,17 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
     absolute positions.
     cache: with a self-attention cache (decode, or a multi-token extension)
     the new KV are written into each row's ring at its own offsets, in
-    place, and attention runs against the whole ring; ``return_cache`` on a
-    pass without one (prefill) builds the ring, sized for ``cache_len``.
+    place, and attention runs against the whole ring; a multi-token chunk
+    into a sliding-window ring writes a copy and attends against the
+    pre-write ring beside its own keys.  ``return_cache`` on a pass without
+    a cache (prefill) builds the ring, sized for ``cache_len`` (at most the
+    window).
     kv_x: encoder output for cross-attention (keys/values from there, no
     causal mask, rope at the encoder positions).  A cross-attention call
     with a cache and no ``kv_x`` attends to that static cache.
     q_valid: optional (B, S) bool for ragged batches: rows where it is False
     are right-padding and write nothing new into the ring.
     """
-    check_supported(cfg)
     B, S, _ = x.shape
     hd = cfg.head_dim_
     cross = is_cross or kv_x is not None
@@ -294,14 +317,37 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
             raise ValueError(
                 f"cache extension chunk ({S} tokens) exceeds the KV ring "
                 f"capacity ({C}): in-chunk positions would alias ring slots")
+        window = cfg.window if cfg.attn_type == "swa" else 0
         pos_b = positions if positions.ndim == 2 \
             else positions[None].expand(B, S)
-        new_cache = _ring_write(cache, k, v, pos_b, q_valid)
-        out = flash_attention(q, new_cache.k, new_cache.v, pos_b,
-                              new_cache.positions, causal=causal, window=0,
-                              chunk=cfg.attn_chunk)
+        carry = S > 1 and window > 0
+        # A multi-token chunk into a sliding-window ring writes a copy: its
+        # attention reads the pre-write ring, and a forward that raises
+        # after this layer must leave that ring as it was for the retry.
+        new_cache = _ring_write(cache, k, v, pos_b, q_valid, copy=carry)
+        if carry:
+            # SWA carry-window extension: the chunk recycles ring slots
+            # (capacity = window) that still hold in-window keys its own
+            # earliest queries need.  Attend against the pre-write ring
+            # (positions o-C..o-1) beside the chunk's own keys (o..o+S-1):
+            # the two position sets are disjoint, so the window mask picks
+            # exactly the right keys.  Pad rows' chunk keys are masked (-1).
+            kp_chunk = pos_b if q_valid is None \
+                else torch.where(q_valid, pos_b, -1)
+            ka = torch.cat([cache.k, k.to(cache.k.dtype)], dim=1)
+            va = torch.cat([cache.v, v.to(cache.v.dtype)], dim=1)
+            pa = torch.cat([cache.positions, kp_chunk.to(torch.int32)],
+                           dim=1)
+        else:
+            ka, va, pa = new_cache
+        out = flash_attention(q, ka, va, pos_b, pa, causal=causal,
+                              window=window, chunk=cfg.attn_chunk)
     else:
-        if causal and not cross and S > 2 * cfg.attn_chunk:
+        window = cfg.window if (cfg.attn_type == "swa" and not cross) else 0
+        if window and S > 1:
+            out = swa_attention(q, k, v, positions, kv_pos, window=window,
+                                q_chunk=cfg.attn_chunk)
+        elif causal and not cross and S > 2 * cfg.attn_chunk:
             out = chunked_causal_attention(q, k, v, positions, kv_pos,
                                            chunk=cfg.attn_chunk)
         else:

@@ -1,10 +1,10 @@
 """Model builder: ModelConfig -> runnable model (forward / prefill / decode)
 (port of ``repro.models.model_zoo``).
 
-One ``Model`` class covers the architectures whose layers this slice of the
-port has (``attn`` and ``attn_cross``):
+One ``Model`` class covers every architecture in ``configs/``:
 
-* decoder-only LMs — ``block_pattern`` drives the layer mix;
+* decoder-only LMs — ``block_pattern`` drives the layer mix (attention,
+  MoE, mamba2 SSM and RG-LRU hybrid stacks);
 * enc-dec (seamless-m4t): an encoder ``Stack`` (non-causal) + a decoder
   stack with cross-attention;
 * [audio]/[vlm] frontends are stubs: precomputed frame/patch embeddings,
@@ -15,9 +15,11 @@ Batch dicts (tensors on the model's device):
     +frontend: {"frontend": (B, F, d_model)}
     enc-dec  : {"src_embeds": (B, F, d_model), "tokens": (B, S)}
 Decode state: {"caches": [one per decoder layer], "pos": (B,) int32}; decode
-writes the caches in place.
+writes the attention rings in place and returns the recurrent states as new
+tensors (see ``transformer``).
 
-The training loss (``loss_fn``) belongs to the training slice of the port.
+``loss_fn`` is the reference's training loss, forward only: its backward
+belongs to the training slice of the port.
 """
 
 from __future__ import annotations
@@ -115,8 +117,8 @@ class Model:
         src = batch["src_embeds"].to(getattr(torch, cfg.dtype))
         pos = torch.arange(src.shape[1], dtype=torch.int32,
                            device=src.device)
-        enc, _ = self.encoder.apply(params["encoder"], src, positions=pos,
-                                    mode="train")
+        enc, _, _ = self.encoder.apply(params["encoder"], src,
+                                       positions=pos, mode="train")
         return apply_norm(params["enc_norm"], enc, cfg)
 
     def _full_len(self, batch) -> int:
@@ -131,14 +133,17 @@ class Model:
     def forward(self, params, batch, mode: str = "train",
                 cache_len: int | None = None,
                 lengths: torch.Tensor | None = None):
-        """Full-sequence pass.  Returns (logits, caches or None).
+        """Full-sequence pass.  Returns (logits, aux_loss, caches or None),
+        ``aux_loss`` the MoE load-balancing loss summed over the layers (0
+        without MoE layers).
 
         ``mode="train"`` is a plain forward with logits at every position;
         ``mode="prefill"`` builds the decode caches (rings sized for
         ``cache_len``) and returns the logits of the last position only.
         ``lengths`` (prefill only): per-row (B,) valid token counts of a
         ragged right-padded batch — pad positions write nothing into the
-        KV rings and each row's logits come from its last valid position.
+        KV rings, are identity steps of the recurrent scans, and each row's
+        logits come from its last valid position.
         With a frontend, ``lengths`` counts tokens; the frames are valid.
         """
         cfg = self.cfg
@@ -153,7 +158,7 @@ class Model:
                                       device=x.device)
             F = S - batch["tokens"].shape[1]    # frontend frames, if any
             q_valid = pos[None] < (lengths + F)[:, None]
-        x, caches = self.decoder.apply(
+        x, caches, aux = self.decoder.apply(
             params["decoder"], x, positions=pos, enc_out=enc_out, mode=mode,
             cache_len=cache_len, q_valid=q_valid)
         x = apply_norm(params["final_norm"], x, cfg)
@@ -163,7 +168,7 @@ class Model:
             # serving needs only the next-token distribution
             x = x[:, -1:] if lengths is None else _last(x, lengths)
         logits = lm_logits(params["head"], params["embed"], x, cfg)
-        return logits, caches if mode == "prefill" else None
+        return logits, aux, caches if mode == "prefill" else None
 
     # ------------------------------------------------------------- serving
 
@@ -173,8 +178,8 @@ class Model:
         """One-shot prompt ingestion: (last-position logits (B, V), decode
         state).  ``lengths``: optional per-row (B,) valid token counts of
         ragged right-padded prompts (see ``forward``)."""
-        logits, caches = self.forward(params, batch, mode="prefill",
-                                      cache_len=max_len, lengths=lengths)
+        logits, _, caches = self.forward(params, batch, mode="prefill",
+                                         cache_len=max_len, lengths=lengths)
         tokens = batch["tokens"]
         B = tokens.shape[0]
         if lengths is not None:
@@ -192,15 +197,15 @@ class Model:
         """One token for every row.  tokens: (B, 1) int.
 
         ``state["pos"]`` is a per-row (B,) vector (rows may sit at different
-        depths); a scalar means every row is at that depth.  The caches are
-        written in place: the returned state holds ``state``'s cache
-        tensors.
+        depths); a scalar means every row is at that depth.  The attention
+        rings are written in place (the returned state holds ``state``'s
+        ring tensors); recurrent states come back as new tensors.
         """
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg)
         pos = state["pos"].to(torch.int32)
         pos2d = pos[:, None] if pos.ndim == 1 else pos[None]
-        x, caches = self.decoder.apply(
+        x, caches, _ = self.decoder.apply(
             params["decoder"], x, positions=pos2d, caches=state["caches"],
             mode="decode")
         x = apply_norm(params["final_norm"], x, cfg)
@@ -218,8 +223,11 @@ class Model:
         row's ring at its own offsets.  Returns each row's last position's
         logits and the extended state.  ``lengths``: optional per-row (B,)
         valid token counts of ragged chunks right-padded to S; pad rows
-        write nothing and do not advance ``pos``.  The caches are written in
-        place, as in ``decode_step``.
+        write nothing, pass through the recurrent scans as identity steps
+        and do not advance ``pos``.  Full-attention rings are written in
+        place, as in ``decode_step``; sliding-window rings of a multi-token
+        chunk and recurrent states come back as new tensors, so a forward
+        that raises leaves them as they were.
         """
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg)
@@ -233,7 +241,7 @@ class Model:
                                       device=x.device)
             q_valid = torch.arange(S, device=x.device)[None] \
                 < lengths[:, None]
-        x, caches = self.decoder.apply(
+        x, caches, _ = self.decoder.apply(
             params["decoder"], x, positions=pos, caches=state["caches"],
             mode="decode", q_valid=q_valid)
         x = apply_norm(params["final_norm"], x, cfg)
@@ -259,4 +267,27 @@ class Model:
 
 def build_model(cfg) -> Model:
     return Model(cfg)
+
+
+def loss_fn(model: Model, params, batch, aux_weight: float = 0.01):
+    """Next-token cross-entropy plus ``aux_weight`` times the MoE
+    load-balance aux: ``(loss + aux_weight * aux, (loss, aux))``.
+
+    ``batch["labels"]`` (B, S) int, entries < 0 masked out.  As in the
+    reference, no f32 (B, S, V) tensor is made: probabilities stay in the
+    logits' dtype (max-subtracted) and only the reductions are f32.
+    """
+    logits, aux, _ = model.forward(params, batch, mode="train")
+    labels = batch["labels"].to(torch.int64)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    sumexp = torch.exp(logits - m).to(torch.float32).sum(dim=-1)
+    lse = torch.log(sumexp) + m[..., 0].to(torch.float32)
+    # a masked label indexes like the reference's (negative from the end);
+    # its term is multiplied by 0
+    idx = torch.where(labels < 0, labels + logits.shape[-1], labels)
+    tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
+    ll = tgt.to(torch.float32) - lse
+    mask = (labels >= 0).to(torch.float32)
+    loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return loss + aux_weight * aux, (loss, aux)
 

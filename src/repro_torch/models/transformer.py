@@ -1,22 +1,24 @@
 """Block assembly: pattern-driven layer stacks (port of
-``repro.models.transformer``, for the layer kinds ``attn`` and
-``attn_cross``).
+``repro.models.transformer``).
 
 A model is a sequence of blocks drawn from the config's ``block_pattern``
-(tiled to ``n_layers``): "attn" (self-attention + MLP) and "attn_cross"
-(adds cross-attention, the enc-dec decoder).  The kinds "moe", "ssm" and
-"rglru" belong to later slices of the port and raise
-``NotImplementedError``.
+(tiled to ``n_layers``): "attn" (self-attention + MLP), "attn_cross" (adds
+cross-attention, the enc-dec decoder), "moe" (attention + MoE FFN), "ssm"
+(mamba2 mixer) and "rglru" (RG-LRU mixing + MLP).
 
 ``Stack`` keeps the reference's parameter layout: ``{"groups": [...],
 "rest": [...]}``, where ``groups[pos]`` holds the layers at pattern
 position ``pos`` of every group stacked on a leading axis, and layer
 ``g * period + pos`` is group ``g``'s entry.  The reference scans over the
 groups; here a Python loop walks them.  Caches are a plain list, one per
-layer in layer order (the reference stacks them like the parameters), and
-decode writes them in place.  Statistics recorded inside a group come out
-stacked over the groups, as the reference's scan emits them, so consumers
-that average records weigh groups and rest layers as the reference does.
+layer in layer order (the reference stacks them like the parameters).
+Decode writes attention rings in place (a multi-token chunk into a
+sliding-window ring writes a copy, see ``attention_forward``); recurrent
+states (``SSMState``, ``RGLRUState``) come back as new tensors, so a
+caller's state changes only where it takes the returned one.  Statistics
+recorded inside a group come out stacked over the groups, as the
+reference's scan emits them, so consumers that average records weigh
+groups and rest layers as the reference does.
 """
 
 from __future__ import annotations
@@ -26,27 +28,31 @@ from typing import Any
 import torch
 
 from . import stats as model_stats
-from .attention import (KVCache, attention_forward, check_supported,
-                        init_attention, init_kv_cache)
+from .attention import (KVCache, attention_forward, init_attention,
+                        init_kv_cache)
 from .layers import Params, apply_norm, init_norm
 from .mlp import apply_mlp, init_mlp
-
-KINDS = ("attn", "attn_cross")
-
-
-def _check_kind(cfg, kind: str) -> None:
-    if kind not in KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind {kind!r} is not ported yet (this slice "
-            f"of the port has {', '.join(KINDS)}; moe, ssm and rglru come "
-            "in later slices)")
-    check_supported(cfg)
+from .moe import apply_moe, init_moe
+from .rglru import RGLRUState, apply_rglru, init_rglru
+from .ssm import SSMState, _dims, apply_ssm, init_ssm
 
 
 # ------------------------------------------------------------- single layer
 
 def init_layer(cfg, gen, device, kind: str) -> Params:
-    _check_kind(cfg, kind)
+    if kind == "ssm":
+        return {"norm": init_norm(cfg, device),
+                "mixer": init_ssm(cfg, gen, device)}
+    if kind == "rglru":
+        return {"norm1": init_norm(cfg, device),
+                "mixer": init_rglru(cfg, gen, device),
+                "norm2": init_norm(cfg, device),
+                "mlp": init_mlp(cfg, gen, device)}
+    if kind == "moe":
+        return {"norm1": init_norm(cfg, device),
+                "attn": init_attention(cfg, gen, device),
+                "norm2": init_norm(cfg, device),
+                "moe": init_moe(cfg, gen, device)}
     if kind == "attn_cross":
         return {"norm1": init_norm(cfg, device),
                 "attn": init_attention(cfg, gen, device),
@@ -62,7 +68,19 @@ def init_layer(cfg, gen, device, kind: str) -> Params:
 
 def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, enc_len: int,
                      dtype, device) -> Any:
-    _check_kind(cfg, kind)
+    if kind == "ssm":
+        d_inner, H, P, N, G = _dims(cfg)
+        conv_ch = d_inner + 2 * G * N
+        return SSMState(
+            conv=torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
+                             device=device),
+            ssm=torch.zeros((batch, H, P, N), dtype=torch.float32,
+                            device=device))
+    if kind == "rglru":
+        w = cfg.rnn_width or cfg.d_model
+        return RGLRUState(
+            conv=torch.zeros((batch, 3, w), dtype=dtype, device=device),
+            h=torch.zeros((batch, w), dtype=torch.float32, device=device))
     self_cache = init_kv_cache(cfg, batch, seq_len, dtype, device)
     if kind == "attn_cross":
         shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim_)
@@ -80,14 +98,33 @@ def apply_layer(p: Params, x: torch.Tensor, cfg, kind: str, *,
                 enc_out: torch.Tensor | None = None, mode: str = "train",
                 causal: bool = True, cache_len: int | None = None,
                 q_valid: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, Any]:
-    """Returns (x, new_cache).  ``mode`` is "train" (a plain forward),
-    "prefill" (build the caches) or "decode" (run against ``cache``).
-    ``q_valid``: (B, S) bool for ragged batches — pad rows skip the KV-ring
-    write (see ``attention_forward``)."""
-    _check_kind(cfg, kind)
+                ) -> tuple[torch.Tensor, Any, torch.Tensor]:
+    """Returns (x, new_cache, aux_loss).  ``mode`` is "train" (a plain
+    forward), "prefill" (build the caches) or "decode" (run against
+    ``cache``).  ``aux_loss`` is the MoE load-balancing loss, 0 for the
+    other kinds.  ``q_valid``: (B, S) bool for ragged batches — pad rows
+    skip the KV-ring write (see ``attention_forward``) and are exact
+    identity steps of the recurrent mixers (``apply_ssm``,
+    ``apply_rglru``), so carried state only advances past real tokens."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return_cache = mode == "prefill"
     use_cache = mode == "decode"
+
+    if kind == "ssm":
+        h, new_state = apply_ssm(p["mixer"], apply_norm(p["norm"], x, cfg),
+                                 cfg, state=cache if use_cache else None,
+                                 return_state=return_cache or use_cache,
+                                 q_valid=q_valid)
+        return x + h, new_state, aux
+
+    if kind == "rglru":
+        h, new_state = apply_rglru(p["mixer"], apply_norm(p["norm1"], x, cfg),
+                                   cfg, state=cache if use_cache else None,
+                                   return_state=return_cache or use_cache,
+                                   q_valid=q_valid)
+        x = x + h
+        x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
+        return x, new_state, aux
 
     if kind == "attn_cross":
         self_cache, cross_cache = cache if cache is not None else (None, None)
@@ -109,15 +146,19 @@ def apply_layer(p: Params, x: torch.Tensor, cfg, kind: str, *,
                 return_cache=return_cache)
         x = x + h
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
-        return x, (new_self, cross_cache)
+        return x, (new_self, cross_cache), aux
 
+    # attn / moe
     h, new_cache = attention_forward(
         p["attn"], apply_norm(p["norm1"], x, cfg), cfg, positions=positions,
         cache=cache if use_cache else None, causal=causal,
         return_cache=return_cache, cache_len=cache_len, q_valid=q_valid)
     x = x + h
-    return x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg), \
-        new_cache
+    if kind == "moe":
+        h, aux = apply_moe(p["moe"], apply_norm(p["norm2"], x, cfg), cfg)
+    else:
+        h = apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
+    return x + h, new_cache, aux
 
 
 # ------------------------------------------------------------- layer stacks
@@ -191,9 +232,11 @@ class Stack:
     def apply(self, p: Params, x: torch.Tensor, *, positions, caches=None,
               enc_out=None, mode: str = "train", cache_len: int | None = None,
               q_valid: torch.Tensor | None = None):
-        """Returns (x, new_caches): for "prefill" and "decode" one cache per
-        layer in layer order (decode's are ``caches``, written in place),
-        for "train" an empty list."""
+        """Returns (x, new_caches, aux): for "prefill" and "decode" one cache
+        per layer in layer order (decode's attention rings are ``caches``'
+        own, written in place), for "train" an empty list; ``aux`` is the
+        layers' summed MoE loss, group by group as the reference sums its
+        scan."""
         cfg = self.cfg
         new_caches = []
         kw = dict(enc_out=enc_out, mode=mode, causal=self.causal,
@@ -201,19 +244,25 @@ class Stack:
 
         def layer(lp, x, kind, i):
             c = None if caches is None else caches[i]
-            x, nc = apply_layer(lp, x, cfg, kind, positions=positions,
-                                cache=c, **kw)
+            x, nc, aux = apply_layer(lp, x, cfg, kind, positions=positions,
+                                     cache=c, **kw)
             if mode != "train":
                 new_caches.append(nc)
-            return x
+            return x, aux
 
-        sinks = []
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        sinks, group_aux = [], []
         for g in range(self.n_groups):
+            aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
             with model_stats.collect() as sink:
                 for pos, kind in enumerate(self.pattern):
-                    x = layer(_index(p["groups"][pos], g), x, kind,
-                              g * self.period + pos)
+                    x, aux = layer(_index(p["groups"][pos], g), x, kind,
+                                   g * self.period + pos)
+                    aux_g = aux_g + aux
             sinks.append(sink)
+            group_aux.append(aux_g)
+        if group_aux:
+            aux_total = aux_total + torch.stack(group_aux).sum()
         # one record per (name, call) with a leading group axis — the shape
         # the reference's scan gives its stacked outputs
         for name, vals in (sinks[0].items() if sinks else ()):
@@ -222,5 +271,7 @@ class Stack:
                     [s[name][i] for s in sinks]))
 
         for i, kind in enumerate(self.rest_kinds):
-            x = layer(p["rest"][i], x, kind, self.n_groups * self.period + i)
-        return x, new_caches
+            x, aux = layer(p["rest"][i], x, kind,
+                           self.n_groups * self.period + i)
+            aux_total = aux_total + aux
+        return x, new_caches, aux_total

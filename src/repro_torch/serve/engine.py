@@ -34,10 +34,11 @@ admissions on an uncalibrated model).
 
 Hardening: ``step()`` never raises.  Exceptions from admission or decode
 forwards are retried up to ``ServeConfig.max_step_retries`` times and logged
-to ``ServeEngine.errors``.  The model writes its KV rings in place, and the
-step stays transactional all the same: ``pos`` and the host bookkeeping move
-only after a forward succeeds, and a retry writes the same ring rows with
-the same values.  Non-finite logit rows quarantine exactly the poisoned
+to ``ServeEngine.errors``.  The model writes its full-attention KV rings in
+place, and the step stays transactional all the same: ``pos``, the
+recurrent states, a chunk's sliding-window rings and the host bookkeeping
+move only after a forward succeeds, and a retry writes the same ring rows
+with the same values.  Non-finite logit rows quarantine exactly the poisoned
 slot; per-request deadlines evict overdue requests wherever they are;
 ``drain()``/``close()`` shut down; the fault plane in
 ``repro_torch.serve.faults`` (``ServeConfig.faults``) exercises it all, and
@@ -128,8 +129,8 @@ def _collapse_bounded(sink: dict) -> torch.Tensor | None:
 
 def generate(model: Model, params, batch: dict, max_new_tokens: int,
              *, max_len: int | None = None, sample=greedy_sample,
-             generator: torch.Generator | None = None, n_planes=None
-             ) -> GenerateResult:
+             generator: torch.Generator | None = None, n_planes=None,
+             return_stats: bool | None = None) -> GenerateResult:
     """Prefill + greedy/temperature decode.  Returns a ``GenerateResult``
     (``.tokens`` is (B, max_new_tokens); the DSLOT planes-executed account
     rides along when the digit-serial path is on).
@@ -139,7 +140,17 @@ def generate(model: Model, params, batch: dict, max_new_tokens: int,
     ``generator``: passed to ``sample`` (``temperature_sample`` needs one).
     The decode runs ``max_new_tokens`` steps, like the reference's scan:
     the last step's token is not returned.
+
+    ``return_stats`` is deprecated: ``True`` returns the legacy ``(tokens,
+    stats_dict)`` tuple, ``False`` the bare tokens tensor (both warn once).
+    Leave it unset for the ``GenerateResult``.
     """
+    if return_stats is not None:
+        _warn_once(
+            "generate.return_stats",
+            "generate(return_stats=...) is deprecated; generate() now "
+            "returns a GenerateResult — use .tokens / .planes_used_mean / "
+            ".skipped_frac")
     tokens = batch["tokens"]
     B, S = tokens.shape
     if model.cfg.frontend and "frontend" in batch:
@@ -150,7 +161,10 @@ def generate(model: Model, params, batch: dict, max_new_tokens: int,
                                    device=tokens.device)
         if n_planes.ndim == 0:
             n_planes = n_planes.expand(B).contiguous()
-    want_stats = mlp_uses_dslot(model.cfg)
+    # statistics are collected exactly when the DSLOT path can produce them,
+    # unless the deprecated flag says otherwise
+    want_stats = mlp_uses_dslot(model.cfg) if return_stats is None \
+        else bool(return_stats)
 
     def draw(logits):
         return sample(logits) if generator is None \
@@ -185,12 +199,17 @@ def generate(model: Model, params, batch: dict, max_new_tokens: int,
             granted = budget = float(model.cfg.dslot.n_planes
                                      or model.cfg.dslot.n_bits)
         skipped = 1.0 - used / budget
-    return GenerateResult(
+    result = GenerateResult(
         tokens=torch.stack(toks, dim=1) if toks else
         torch.zeros((B, 0), dtype=torch.int32, device=tokens.device),
         n_planes=granted, planes_used_mean=used, skipped_frac=skipped,
         planes_bounded_mean=torch.stack(bounded).mean() if bounded else None,
         steps=max_new_tokens, phase="done")
+    if return_stats is True:
+        return result.tokens, result.stats
+    if return_stats is False:
+        return result.tokens
+    return result
 
 
 # one DeprecationWarning per legacy surface per process — enough to nudge a

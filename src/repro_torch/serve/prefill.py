@@ -30,12 +30,15 @@ write into reserved rows meanwhile; the merge overwrites them.  Cancelling a
 mid-prefill request drops the task, and its lane is reset when the next
 request claims it.
 
-The port's model writes its KV rings in place.  Lane resets and merges are
-row copies into the persistent tensors (never a rebinding), and a completed
-task carries a copy of its lane's rows, so a lane reused by the next task
-cannot alias a slot.  A forward that raises part-way has written ring rows
-at the chunk's positions but not advanced ``pos``; the retry writes the same
-rows with the same values, so the tick stays transactional.
+The port's model writes its full-attention KV rings in place; a chunk's
+sliding-window rings and the recurrent states (``SSMState``,
+``RGLRUState``) come back as new tensors, which the pipeline takes only
+when the forward succeeds.  Lane resets and merges are row copies into the
+current tensors, and a completed task carries a copy of its lane's rows, so
+a lane reused by the next task cannot alias a slot.  A forward that raises
+part-way has written full-attention ring rows at the chunk's positions but
+not advanced ``pos``; the retry writes the same rows with the same values,
+and finds every other state as it was, so the tick stays transactional.
 
 Right-padding is harmless: pad rows write nothing new into the ring (the
 attention layer writes back what the ring holds) and do not advance the

@@ -33,6 +33,7 @@ from repro_torch.runtime import precision_scope
 from repro_torch.serve import (Request, ServeConfig, ServeEngine, SloConfig,
                                check_invariants)
 from repro_torch.serve.engine import generate
+from repro_torch.serve.prefill import tree_map
 
 
 @pytest.fixture
@@ -254,9 +255,9 @@ def test_seamless_generate_on_card_matches_cpu(cuda):
     assert torch.equal(res.skipped_frac.cpu(), ref.skipped_frac)
     assert float(ref.skipped_frac.max()) > 0, "termination must fire"
     with stats.collect() as card, precision_scope(6):
-        logits, _ = model.forward(params, batch, mode="prefill")
+        logits, _, _ = model.forward(params, batch, mode="prefill")
     with stats.collect() as host, precision_scope(6):
-        want, _ = model.forward(params_cpu, batch_cpu, mode="prefill")
+        want, _, _ = model.forward(params_cpu, batch_cpu, mode="prefill")
     for a, b in zip(card["mlp_up_dslot.row_planes_used"],
                     host["mlp_up_dslot.row_planes_used"]):
         assert torch.equal(a.cpu(), b)
@@ -267,14 +268,15 @@ def test_seamless_generate_on_card_matches_cpu(cuda):
 
 
 
-def _olmo_engine_run(device):
-    """The reduced f32 olmo-1b with a ReLU MLP on the digit-serial path
-    (calibrated act_scale, block_m = n_slots) through the slot-pool engine:
-    a burst of 6 requests on 2 slots, chunked batched admission, per-request
+def _olmo_engine_run(device, arch="olmo-1b", prompt_len=5):
+    """The reduced f32 olmo-1b (or ``arch``) with a ReLU MLP on the
+    digit-serial path (calibrated act_scale, block_m = n_slots) through the
+    slot-pool engine: a burst of 6 requests on 2 slots (prompts of
+    ``prompt_len`` + 2i tokens), chunked batched admission, per-request
     budgets and SLO plane shedding.  Returns the requests and the engine's
     decode forward count."""
     cfg = dataclasses.replace(
-        ARCHS["olmo-1b"].reduced(), act="relu", glu=False,
+        ARCHS[arch].reduced(), act="relu", glu=False,
         dslot=DslotConfig(enabled=True, block_m=2, block_n=32, block_k=16,
                           act_scale=0.05))
     model = build_model(cfg)
@@ -289,7 +291,7 @@ def _olmo_engine_run(device):
     decode = eng._decode
     eng._decode = lambda *a: decodes.append(1) or decode(*a)
     rng = np.random.default_rng(2)
-    reqs = [Request(uid=i, prompt=rng.integers(0, 256, 5 + 2 * i),
+    reqs = [Request(uid=i, prompt=rng.integers(0, 256, prompt_len + 2 * i),
                     max_new=4, n_planes=(8, 6, None, 3, 8, 5)[i],
                     tier=("reserved", "degradable", "standard")[i % 3])
             for i in range(6)]
@@ -306,12 +308,24 @@ def test_olmo_engine_on_card_matches_cpu(cuda):
     """The engine's reduced DSLOT scenario on the card gives the streams and
     per-request plane accounts of the same run on the CPU (the kernel's
     plain version), with one kernel launch per layer per forward."""
+    _engine_on_card_matches_cpu(cuda, "olmo-1b", 5)
+
+
+@pytest.mark.gpu
+def test_recurrentgemma_engine_on_card_matches_cpu(cuda):
+    """The same scenario on the hybrid RG-LRU stack with ReLU MLPs: its
+    prompts (30-40 tokens) wrap the local-attention ring (window 32
+    reduced) inside the lanes."""
+    _engine_on_card_matches_cpu(cuda, "recurrentgemma-2b", 30)
+
+
+def _engine_on_card_matches_cpu(cuda, arch, prompt_len):
     n0 = dm.dslot_matmul_cuda.launches
-    cfg, eng, reqs, decodes = _olmo_engine_run(cuda)
+    cfg, eng, reqs, decodes = _olmo_engine_run(cuda, arch, prompt_len)
     torch.cuda.synchronize()
     launched = dm.dslot_matmul_cuda.launches - n0
     assert launched == cfg.n_layers * (decodes + eng.pipeline.forwards)
-    _, ref_eng, ref, _ = _olmo_engine_run("cpu")
+    _, ref_eng, ref, _ = _olmo_engine_run("cpu", arch, prompt_len)
     assert eng.slo.shed_events == ref_eng.slo.shed_events > 0
     for a, b in zip(reqs, ref):
         assert a.phase == b.phase == "done"
@@ -319,6 +333,29 @@ def test_olmo_engine_on_card_matches_cpu(cuda):
         assert a.token_steps == b.token_steps
         assert abs(a.result.planes_used_mean - b.result.planes_used_mean) \
             <= 1e-6, a.uid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "granite-moe-1b-a400m",
+                                  "mamba2-780m", "recurrentgemma-2b"])
+def test_zoo_generate_on_card_matches_cpu(cuda, arch):
+    """One reduced f32 ``generate`` per new layer kind (sliding window, MoE,
+    mamba2 SSD, RG-LRU) on the card equals the CPU run: the same tokens,
+    and prefill logits within the CPU parity tests' 1e-4 of the largest.
+    The 40-token prompts wrap the reduced window's ring (32)."""
+    cfg = ARCHS[arch].reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (3, 40), generator=g)}
+    on_card = tree_map(lambda a: a.to(cuda), (params, batch))
+    res = generate(model, *on_card, 6)
+    ref = generate(model, params, batch, 6)
+    assert torch.equal(res.tokens.cpu(), ref.tokens)
+    logits, _ = model.prefill(*on_card)
+    want, _ = model.prefill(params, batch)
+    torch.testing.assert_close(logits.cpu(), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
 
 
 @pytest.mark.gpu
