@@ -39,7 +39,8 @@ Phases (any failure exits non-zero and prints no result line):
    the larger of bytes / 3.35 TB/s and the needed bf16 tensor-core
    products / 989 TFLOP/s, both H100 SXM data-sheet peaks at 700 W.  A
    product with f32 weights needs 3 bf16 products (hi, mid and lo parts of
-   each weight: f32 accuracy without TF32), one with bf16 weights needs 1.
+   each weight: f32 accuracy without TF32), one whose weights are all bf16
+   values (a bf16 model's, widened to f32) needs 1.
    Bytes and products count the unpadded shape (not the pad rows of a
    tile): ``planes_used`` products per tile under ReLU
    (the early exit reads every plane's partial sum), one product of the
@@ -141,7 +142,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``ServeEngine`` as phase 6 (``ServeConfig(n_slots=16, max_len=4096,
    prefill_chunk=128, chunks_per_step=2)``, 24 seeded requests with prompts
    of 16-3000 tokens, at least 4 longer than the window, 12 at step 0 and a
-   burst of 12) under phase 6's gates, the kernel held against its plain
+   burst of 12 once those are admitted and the tiers have restored, since
+   the first wave's long prompts hold them at their floors until then)
+   under phase 6's gates, the kernel held against its plain
    version at its decode (16, 2560) and admission (256, 2560) @ (2560,
    7680) shapes and timed as in phase 4.
 
@@ -451,8 +454,9 @@ class Captured:
 def bound_ms(q, w, kw, used, dims) -> tuple[float, str, float, float]:
     """Least time for the call on an H100 SXM at 700 W: bytes moved once
     over 3.35 TB/s against the bf16 tensor-core flops this run's data needs
-    over 989 TFLOP/s (3 bf16 products per product with f32 weights, 1 with
-    bf16 weights).  Returns (bound ms, what bounds it, bytes, f32 flops).
+    over 989 TFLOP/s (``bf16_parts``: 3 bf16 products per product with
+    f32 weights, 1 with weights that bf16 holds exactly).  Returns (bound
+    ms, what bounds it, bytes, f32 flops).
 
     ``dims`` is the unpadded (M, K, N), and both terms count only real
     rows, columns and K: bytes are q (M, K), W (K, N), the f32 out (M, N),
@@ -486,8 +490,14 @@ def bound_ms(q, w, kw, used, dims) -> tuple[float, str, float, float]:
 
 
 def bf16_parts(w) -> int:
-    """bf16 tensor-core products per product: 3 for f32 weights."""
-    return 3 if w.dtype == torch.float32 else 1
+    """bf16 tensor-core products this run's weights need per product: 3 for
+    f32 weights (hi, mid and lo bf16 parts), 1 where every weight is a bf16
+    value (a bf16 model's weights widened to f32), since the digit planes
+    are exact in bf16."""
+    if w.dtype == torch.float32 and not torch.equal(
+            w, w.to(torch.bfloat16).to(torch.float32)):
+        return 3
+    return 1
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -547,13 +557,14 @@ def time_call(label, q, w, kw, dims, launch, replay, card):
         lib_host = host_us(mm)
     k_host = host_us(launch)
     b_ms, b_by, nbytes, flops = bound_ms(q, w, kw, used, dims)
+    parts = bf16_parts(w)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     old_ms = max(t_bytes, flops / PEAK_F32_FLOPS * 1e3)
     log(f"  {label}: kernel {k_ms:.4f} ms (graph {k_graph:.4f}, host issue "
         f"{k_host:.1f} us), plain {p_ms:.4f} ms, torch.matmul {lib_ms:.4f} "
         f"ms (graph {lib_graph:.4f}, host issue {lib_host:.1f} us), bound "
         f"{b_ms:.4g} ms ({b_by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} "
-        f"GFLOP needed, x{bf16_parts(w)} bf16), share of bound "
+        f"GFLOP needed, x{parts} bf16), share of bound "
         f"{b_ms / k_ms:.3g} (graph {b_ms / k_graph:.3g}); f32 CUDA-core "
         f"bound {old_ms:.4g} ms, share {old_ms / k_ms:.3g}; "
         f"kernel/torch.matmul {k_ms / lib_ms:.3g} (graph "
@@ -561,7 +572,7 @@ def time_call(label, q, w, kw, dims, launch, replay, card):
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
             "graph_ms": k_graph, "library_graph_ms": lib_graph,
             "bound_ms": b_ms, "t_bytes": t_bytes,
-            "t_ops": bf16_parts(w) * flops / PEAK_BF16_FLOPS * 1e3}
+            "t_ops": parts * flops / PEAK_BF16_FLOPS * 1e3}
 
 
 def forward_profile(fn, calls: int = 5) -> tuple[float, list] | None:
@@ -895,12 +906,14 @@ class Timed:
 
 
 def drive_engine(eng, specs: list[dict], dev, n_first: int,
-                 idle_max: int = ENGINE_IDLE_MAX) -> dict:
+                 idle_max: int = ENGINE_IDLE_MAX,
+                 burst_at_ceiling: bool = False) -> dict:
     """The phase's traffic through ``eng``: ``n_first`` requests at step 0,
     the rest as one burst once those have all been admitted (the queue is
-    empty), ``drain()``, then idle steps until every tier is back at its
-    ceiling.  After every step ``audit_engine`` must be empty and every
-    reserved slot must have decoded at ``n_bits``."""
+    empty) and, with ``burst_at_ceiling``, once every tier is back at its
+    ceiling as well, ``drain()``, then idle steps until every tier is back
+    at its ceiling.  After every step ``audit_engine`` must be empty and
+    every reserved slot must have decoded at ``n_bits``."""
     from repro_torch.serve import RESERVED, Request, audit_engine
 
     reqs = [Request(uid=s["uid"], prompt=s["prompt"], max_new=s["max_new"],
@@ -934,21 +947,30 @@ def drive_engine(eng, specs: list[dict], dev, n_first: int,
             if not eng.try_add(r):
                 raise AssertionError(f"request {r.uid} refused")
 
+    ceiling = {n: t.ceiling for n, t in eng.slo.tiers.items()}
+
+    def restore():
+        for _ in range(idle_max):
+            if eng.slo.levels == ceiling:
+                return
+            eng.step()
+
     eng.step = checked_step
     t0 = time.perf_counter()
     add(reqs[:n_first])
     while eng.queue_depth:
         eng.step()
+    if burst_at_ceiling:
+        restore()
+        if eng.slo.levels != ceiling:
+            raise AssertionError(f"tiers not restored before the burst: "
+                                 f"{eng.slo.levels}")
     burst_step, shed0 = eng.steps, eng.slo.shed_events
     add(reqs[n_first:])
     eng.drain()
     t1 = time.perf_counter()
     run_steps = eng.steps
-    ceiling = {n: t.ceiling for n, t in eng.slo.tiers.items()}
-    for _ in range(idle_max):
-        if eng.slo.levels == ceiling:
-            break
-        eng.step()
+    restore()
     return dict(reqs=reqs, seconds=t1 - t0, burst_step=burst_step,
                 burst_sheds=eng.slo.shed_events - shed0, run_steps=run_steps,
                 idle_steps=eng.steps - run_steps, levels=levels,
@@ -1009,9 +1031,8 @@ def log_forward(label, walls, trace, which) -> None:
         log(f"    {ms:.4f} ms x{count} {key[:90]}")
 
 
-def engine_gates(eng, run: dict, shed_after_burst: bool = True) -> None:
-    """Phase 6's gates on one DSLOT engine run (see ``phase6``); phase 8
-    asks for a shed anywhere in the run (``shed_after_burst=False``)."""
+def engine_gates(eng, run: dict) -> None:
+    """Phase 6's gates on one DSLOT engine run (see ``phase6``)."""
     reqs = run["reqs"]
     bad = [(r.uid, r.phase) for r in reqs if r.phase != "done"]
     if bad:
@@ -1019,7 +1040,7 @@ def engine_gates(eng, run: dict, shed_after_burst: bool = True) -> None:
     if eng.errors or eng.quarantined or eng.timeouts:
         raise AssertionError(f"errors {eng.errors}, quarantined "
                              f"{eng.quarantined}, timeouts {eng.timeouts}")
-    if (run["burst_sheds"] if shed_after_burst else eng.slo.shed_events) < 1:
+    if run["burst_sheds"] < 1:
         raise AssertionError("the burst shed no plane")
     ceiling = {n: t.ceiling for n, t in eng.slo.tiers.items()}
     if eng.slo.levels != ceiling:
@@ -1493,7 +1514,8 @@ SSD_RTOL = 1e-4
 HYBRID_ARCH = "recurrentgemma-2b"
 HYBRID_SLOTS, HYBRID_MAX_LEN = 16, 4096
 HYBRID_CHUNK, HYBRID_LANES = 128, 2
-HYBRID_REQUESTS, HYBRID_LONG = 24, 4     # 12 at step 0, a burst of 12
+# 12 at step 0, a burst of 12 once the tiers are back at their ceilings
+HYBRID_REQUESTS, HYBRID_LONG = 24, 4
 HYBRID_LONGEST = 3000
 HYBRID_KERNEL_ROWS = {"hybrid decode launch": HYBRID_SLOTS,
                       "hybrid admission launch": HYBRID_LANES * HYBRID_CHUNK}
@@ -1524,19 +1546,24 @@ class MoeDrops:
         return out
 
 
-def greedy_decode(model, params, batch, n_new, max_len):
-    """Prefill and ``n_new`` greedy decode steps (what ``generate`` runs),
-    keeping every step's logits: (prefill logits, [decode logits], tokens
-    (B, n_new + 1))."""
-    logits, state = model.prefill(params, batch, max_len=max_len)
-    tok = logits.argmax(-1)
-    toks, steps = [tok], []
-    for _ in range(n_new):
-        lg, state = model.decode_step(params, state, tok[:, None])
-        steps.append(lg)
-        tok = lg.argmax(-1)
-        toks.append(tok)
-    return logits, steps, torch.stack(toks, dim=1)
+def recorded_generate(model, params, batch, n_new, forced=None):
+    """``generate`` with greedy sampling, keeping the logits it samples
+    from: (prefill logits, [the ``n_new`` decode steps' logits], tokens (B,
+    n_new)).  With ``forced`` (B, n_new) the streams are fed those tokens
+    instead of their own."""
+    from repro_torch.serve.engine import generate, greedy_sample
+
+    seen = []
+
+    def sample(logits):
+        seen.append(logits)
+        i = len(seen) - 1
+        if forced is not None and i < forced.shape[1]:
+            return forced[:, i]
+        return greedy_sample(logits)
+
+    res = generate(model, params, batch, n_new, sample=sample)
+    return seen[0], seen[1:], res.tokens
 
 
 def rel_err(a, b) -> float:
@@ -1545,19 +1572,21 @@ def rel_err(a, b) -> float:
     return float((a.float() - b).abs().max() / b.abs().max())
 
 
-def gate_decode_vs_train(model, params, batch, n_new) -> float:
-    """Gate (a): each decode step's logits against a train forward of the
-    prompt and the generated tokens.  Returns the worst relative error."""
+def gate_decode_vs_train(model, params, batch, n_new
+                         ) -> tuple[float, torch.Tensor]:
+    """Gate (a): each decode step's logits of ``generate`` against a train
+    forward of the prompt and the generated tokens.  Returns (the worst
+    relative error, the generated tokens)."""
     S = batch["tokens"].shape[1]
-    pre, steps, toks = greedy_decode(model, params, batch, n_new,
-                                     S + n_new)
-    full = {"tokens": torch.cat([batch["tokens"], toks[:, :n_new]], dim=1)}
+    pre, steps, toks = recorded_generate(model, params, batch, n_new)
+    full = {"tokens": torch.cat([batch["tokens"], toks.to(
+        batch["tokens"].dtype)], dim=1)}
     logits, _, _ = model.forward(params, full)
     worst = rel_err(pre, logits[:, S - 1])
     for i, lg in enumerate(steps):
         worst = max(worst, rel_err(lg, logits[:, S + i]))
     del logits
-    return worst
+    return worst, toks
 
 
 def widened(cfg, params):
@@ -1586,24 +1615,23 @@ def gate_card_vs_cpu(cfg, params, dev) -> tuple[float, str]:
     g = torch.Generator(dev).manual_seed(3)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                                      device=dev)}
-    card = greedy_decode(model, two, batch, n_new, S + n_new)
+    card = recorded_generate(model, two, batch, n_new)
     cpu_p, cpu_b = tree_map(lambda a: a.cpu(), (two, batch))
-    host = greedy_decode(model, cpu_p, cpu_b, n_new, S + n_new)
+    host = recorded_generate(model, cpu_p, cpu_b, n_new)
     err = rel_err(card[0].cpu(), host[0])
     if err > CARD_RTOL:
         raise AssertionError(f"{cfg.name} 2 layers: prefill logits card vs "
                              f"CPU {err:.4g} of the largest")
-    if torch.equal(card[2].cpu(), host[2]):
-        return err, "same tokens"
-    logits, state = model.prefill(cpu_p, cpu_b, max_len=S + n_new)
     toks = card[2].cpu()
+    if torch.equal(toks, host[2]):
+        return err, "same tokens"
+    pre, steps, _ = recorded_generate(model, cpu_p, cpu_b, n_new,
+                                      forced=toks)
     worst = 0.0
-    for i in range(n_new + 1):
-        gap = (logits.max(-1).values - logits.gather(1, toks[:, i:i + 1])
-               [:, 0]) / logits.abs().max(-1).values
+    for i, logits in enumerate([pre] + steps[:n_new - 1]):
+        gap = (logits.max(-1).values - logits.gather(
+            1, toks[:, i:i + 1].long())[:, 0]) / logits.abs().max(-1).values
         worst = max(worst, float(gap.max()))
-        if i < n_new:
-            logits, state = model.decode_step(cpu_p, state, toks[:, i:i + 1])
     if worst > CARD_RTOL:
         raise AssertionError(f"{cfg.name} 2 layers: card token {worst:.4g} "
                              f"of the largest logit below the CPU's best")
@@ -1715,10 +1743,15 @@ def zoo_run(card, dev, arch, B, S):
         note = f" (capacity_factor {gate_cfg.capacity_factor:g}, dropless)"
     errs = {}
     with MoeDrops(moe) as gate_drops:
-        errs["bf16"] = gate_decode_vs_train(build_model(gate_cfg), params,
-                                            batch, ZOO_NEW)
-        errs["f32"] = gate_decode_vs_train(*widened(gate_cfg, params), batch,
-                                           ZOO_NEW)
+        errs["bf16"], gate_toks = gate_decode_vs_train(
+            build_model(gate_cfg), params, batch, ZOO_NEW)
+        errs["f32"], _ = gate_decode_vs_train(*widened(gate_cfg, params),
+                                              batch, ZOO_NEW)
+    # the run timed below is the one gate (a) held, token for token (MoE's
+    # gate runs dropless, a different function from the published run)
+    if not cfg.n_experts and not torch.equal(gate_toks, toks):
+        raise AssertionError(f"{arch}: generate's tokens differ from gate "
+                             f"(a)'s run of generate on the same batch")
     if cfg.n_experts and (gate_drops.prefill[1] or gate_drops.decode[1]):
         raise AssertionError(f"{arch}: the dropless gate dropped "
                              f"{gate_drops.prefill} {gate_drops.decode}")
@@ -1831,7 +1864,8 @@ def hybrid_engine(card, dev):
     dm.dslot_matmul_cuda.launches = 0
     dm.run = capture
     try:
-        run = drive_engine(eng, specs, dev, n_first=HYBRID_REQUESTS // 2)
+        run = drive_engine(eng, specs, dev, n_first=HYBRID_REQUESTS // 2,
+                           burst_at_ceiling=True)
     finally:
         dm.run = orig_run
     launches = dm.dslot_matmul_cuda.launches
@@ -1847,9 +1881,7 @@ def hybrid_engine(card, dev):
     if launches != expected or lanes != eng.pipeline.forwards:
         raise AssertionError(f"{launches} kernel launches, expected "
                              f"{expected}")
-    # the first wave's 3000-token prompts hold the tiers at their floors
-    # until the burst arrives, so the shed is asked of the whole run
-    engine_gates(eng, run, shed_after_burst=False)
+    engine_gates(eng, run)
 
     max_err, times = hold_engine_shapes(captured, HYBRID_KERNEL_ROWS, cfg,
                                         dev, card)
