@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU and hold its CUDA kernel
-against the kernel's plain PyTorch version.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU, hold its CUDA kernel
+against the kernel's plain PyTorch version, and train a model at full
+width.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
@@ -147,6 +148,35 @@ Phases (any failure exits non-zero and prints no result line):
    under phase 6's gates, the kernel held against its plain
    version at its decode (16, 2560) and admission (256, 2560) @ (2560,
    7680) shapes and timed as in phase 4.
+
+9. Training (``repro_torch.train``, ``optim``, ``checkpoint``,
+   ``data.pipeline``): olmo-1b at full published width and depth (16
+   layers, d_model 2048, d_ff 8192, vocab 50304, bf16, remat per group of 2
+   layers, ``attn_chunk`` 1024) on ``TokenPipeline`` batches at seq 2048,
+   global batch 8, M = 2 (16384 tokens a step), with ``launch/train.py``'s
+   AdamW wiring at peak lr 3e-4 for 8 steps: 1 untimed, 6 timed, 1 traced.
+   Gates (a)-(c) first, on the model's first 2 layers at full width in f32
+   (one remat group a layer), from one seeded state copied to both devices
+   by ``convert.train_state``: (a) one step on the card and on the CPU, loss
+   and grad_norm within ``TRAIN_LOSS_RTOL``, gradients within
+   ``TRAIN_GRAD_REL`` of each leaf's largest, parameters within 1e-3 * lr
+   where the CPU's |g| exceeds ``TRAIN_FIRM`` of its leaf's largest and 2 *
+   lr everywhere; (b) remat on vs off, gradients within
+   ``TRAIN_REMAT_REL``; (c) M = 1 vs M = 4, loss within 1e-4 and parameters
+   within 5e-3 (the reference's ``test_train.py`` bounds).  Gate (d): every
+   loss and grad_norm finite, every lr equal to ``schedule`` of its count,
+   the last timed loss below the first.  Gate (e): ``save_async`` after
+   step 3 writes while step 4 runs; after the run, ``restore`` into a fresh
+   state (crc checked) gives every leaf bit-equal to the state saved, and
+   one step from it gives step 4's loss within ``TRAIN_CKPT_RTOL``; the
+   checkpoint directory is deleted.  Printed: loss, grad_norm and lr per
+   step, step wall (median, min, max over the 6 timed steps, CUDA events
+   beside), tokens/s, the model-FLOPs share (6 N T over the wall x 989
+   TFLOP/s, the H100 SXM bf16 dense spec figure), peak memory, the traced
+   step's device time, idle share, top kernels and time by kind of kernel,
+   and the checkpoint's snapshot ms, write and restore seconds and GB.  The
+   training path runs no DSLOT layer, so the kernel record below does not
+   change.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
@@ -1592,7 +1622,7 @@ def gate_decode_vs_train(model, params, batch, n_new
 def widened(cfg, params):
     """The f32 model and the same weights widened to f32 (exact)."""
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.serve.prefill import tree_map
+    from repro_torch.tree import tree_map
 
     return (build_model(dataclasses.replace(cfg, dtype="float32")),
             tree_map(lambda a: a.float() if a.is_floating_point() else a,
@@ -1606,7 +1636,7 @@ def gate_card_vs_cpu(cfg, params, dev) -> tuple[float, str]:
     CPU's best logit at that step, with the CPU fed the card's tokens (an
     f32 near-tie)."""
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.serve.prefill import tree_map
+    from repro_torch.tree import tree_map
 
     two = {**params, "decoder": {"groups": [], "rest": two_layers(
         params["decoder"], build_model(cfg).decoder)}}
@@ -1924,6 +1954,317 @@ def phase8(card, dev):
     return hybrid_engine(card, dev)
 
 
+# ------------------------------------------------------------ phase 9
+
+TRAIN_ARCH = "olmo-1b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 2048, 8, 2    # 16384 tokens a step
+TRAIN_LR = 3e-4
+TRAIN_TIMED = 6                 # after one untimed step; then one traced
+TRAIN_CKPT_AFTER = 3            # save_async after this step, overlapping the next
+TRAIN_SMALL = (4, 256)          # gates (a)-(c): global batch and sequence
+# Gate (a), card vs CPU on the 2-layer f32 copy: both sum the same f32
+# products in other orders (cuBLAS vs the CPU's BLAS, atomics in the
+# card's embedding backward), so the loss agrees to f32 rounding and each
+# gradient to a few ulps of its leaf's largest entry.  Adam's first step is
+# about lr * sign(g): where |g| is near zero the sign may differ, so
+# parameters are held tightly only where the CPU's |g| is firm.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_FIRM = 1e-3               # |g| above this share of its leaf's largest
+TRAIN_REMAT_REL = 1e-6          # gate (b): remat recomputes the same ops
+TRAIN_CKPT_RTOL = 1e-5          # gate (e): one step from the restored state
+
+
+def kernel_kinds(rows) -> list[tuple[str, float]]:
+    """Device ms per kind of kernel in a trace, largest first: f32 and
+    bf16 products (cuBLAS/CUTLASS names), elementwise and copies,
+    reductions, the rest."""
+    kinds: dict[str, float] = {}
+    for ms, _, key in rows:
+        k = key.lower()
+        if "sgemm" in k or "f32f32" in k:
+            kind = "f32 products"
+        elif any(t in k for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            kind = "bf16 products"
+        elif "reduce" in k or "softmax" in k:
+            kind = "reductions"
+        elif "elementwise" in k or "copy" in k:
+            kind = "elementwise and copies"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    return sorted(kinds.items(), key=lambda kv: -kv[1])
+
+
+def train_opt(total_steps: int):
+    """``launch/train.py``'s AdamW wiring for a run of ``total_steps``."""
+    from repro_torch.optim.adamw import AdamWConfig
+
+    return AdamWConfig(peak_lr=TRAIN_LR,
+                       warmup_steps=min(100, total_steps // 10),
+                       decay_steps=total_steps)
+
+
+def to_device(host: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def train_small_gates(dev) -> None:
+    """Gates (a)-(c) on the model's first 2 layers at full width in f32
+    (one remat group per layer, so remat applies)."""
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        microbatch_grads)
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=2,
+                              scan_unroll=1, dtype="float32")
+    model = build_model(cfg)
+    opt = train_opt(TRAIN_TIMED + 2)
+    B, S = TRAIN_SMALL
+    host_state = tree_map(lambda a: a.numpy(), init_train_state(
+        model, torch.Generator().manual_seed(1), device="cpu"))
+
+    def fresh(device):
+        return convert.train_state(host_state, device=device)
+
+    host = TokenPipeline(vocab=cfg.vocab_size, seq_len=S, global_batch=B,
+                         microbatches=2, seed=3).next_host_batch()
+    step = make_train_step(model, opt)
+
+    # (a) card = CPU
+    t0 = time.perf_counter()
+    card_g, card_loss, _ = microbatch_grads(model, fresh(dev).params,
+                                            to_device(host, dev))
+    cpu_g, cpu_loss, _ = microbatch_grads(model, fresh("cpu").params,
+                                          to_device(host, "cpu"))
+    worst_g = max(rel_err(a.cpu(), b) for a, b in
+                  zip(leaves(card_g), leaves(cpu_g)))
+    card_s, mc = step(fresh(dev), to_device(host, dev))
+    cpu_s, mh = step(fresh("cpu"), to_device(host, "cpu"))
+    lr = float(mh["lr"])
+    errs = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+            for k in ("loss", "grad_norm")}
+    errs["loss (grads pass)"] = abs(float(card_loss) - float(cpu_loss)) \
+        / abs(float(cpu_loss))
+    firm_d = all_d = 0.0
+    for a, b, g in zip(leaves(card_s.params), leaves(cpu_s.params),
+                       leaves(cpu_g)):
+        d = (a.cpu() - b).abs()
+        firm = g.abs() > TRAIN_FIRM * g.abs().max()
+        all_d = max(all_d, float(d.max()))
+        if bool(firm.any()):
+            firm_d = max(firm_d, float(d[firm].max()))
+    log(f"  gate (a) card vs CPU, 2 layers f32 at full width, {B} x {S} "
+        f"tokens in 2 microbatches ({time.perf_counter() - t0:.1f} s): "
+        f"loss rel {errs['loss']:.3g}, grad_norm rel "
+        f"{errs['grad_norm']:.3g} (limit {TRAIN_LOSS_RTOL}); gradients "
+        f"{worst_g:.3g} of the leaf's largest (limit {TRAIN_GRAD_REL}); "
+        f"params {firm_d / lr:.3g} lr where |g| is firm (limit 1e-3), "
+        f"{all_d / lr:.3g} lr anywhere (limit 2)")
+    if max(errs.values()) > TRAIN_LOSS_RTOL or worst_g > TRAIN_GRAD_REL \
+            or firm_d > 1e-3 * lr or all_d > 2 * lr:
+        raise AssertionError(f"gate (a) card vs CPU: {errs}, grads "
+                             f"{worst_g}, params {firm_d}, {all_d}")
+    del card_s, cpu_s, cpu_g
+
+    # (b) remat on = off
+    off = build_model(dataclasses.replace(cfg, remat=False))
+    off_g, _, _ = microbatch_grads(off, fresh(dev).params,
+                                   to_device(host, dev))
+    worst_r = max(rel_err(a, b) for a, b in
+                  zip(leaves(off_g), leaves(card_g)))
+    log(f"  gate (b) remat on vs off on the card: gradients {worst_r:.3g} of "
+        f"the leaf's largest (limit {TRAIN_REMAT_REL})")
+    if worst_r > TRAIN_REMAT_REL:
+        raise AssertionError(f"gate (b) remat on vs off: {worst_r}")
+    del off_g, card_g
+
+    # (c) M = 1 vs M = 4
+    one = {k: v.reshape(1, B, S) for k, v in host.items()}
+    four = {k: v.reshape(4, B // 4, S) for k, v in host.items()}
+    s1, m1 = step(fresh(dev), to_device(one, dev))
+    s4, m4 = step(fresh(dev), to_device(four, dev))
+    dl = abs(float(m1["loss"]) - float(m4["loss"]))
+    dp = max(float((a - b).abs().max()) for a, b in
+             zip(leaves(s1.params), leaves(s4.params)))
+    log(f"  gate (c) M = 1 vs M = 4 on the card: loss {dl:.3g} (limit "
+        f"1e-4), params {dp:.3g} (limit 5e-3)")
+    if dl >= 1e-4 or dp >= 5e-3:
+        raise AssertionError(f"gate (c) microbatching: loss {dl}, params {dp}")
+
+
+def phase9(card, dev) -> None:
+    """Training at full published width and depth (see the module
+    docstring): gates (a)-(e) and the step's figures."""
+    import math
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import schedule
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    train_small_gates(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg)
+    total = TRAIN_TIMED + 2                 # untimed, timed, traced
+    opt = train_opt(total)
+    step = make_train_step(model, opt)
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, microbatches=TRAIN_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    n_params = model.param_count(state.params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"  {TRAIN_ARCH}: {n_params / 1e9:.4f} B parameters ({cfg.dtype}), "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, remat {cfg.remat}, scan_unroll "
+        f"{cfg.scan_unroll}, attn_chunk {cfg.attn_chunk}; seq {TRAIN_SEQ}, "
+        f"global batch {TRAIN_BATCH}, M = {TRAIN_MICRO} ({tokens} tokens a "
+        f"step); AdamW peak lr {opt.peak_lr}, warmup {opt.warmup_steps}, "
+        f"decay {opt.decay_steps}")
+
+    ck_dir = ROOT / "build" / "phase9_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck = Checkpointer(str(ck_dir), keep=1)
+    write_s = []
+    write = ck._write
+
+    def timed_write(*args):
+        t = time.perf_counter()
+        out = write(*args)
+        write_s.append(time.perf_counter() - t)
+        return out
+
+    ck._write = timed_write
+    rows, walls, events = [], [], []
+    try:
+        for k in range(1, total + 1):
+            if k == TRAIN_CKPT_AFTER + 1:
+                saved_pipe = pipe.state()
+            batch = to_device(pipe.next_host_batch(), dev)
+            sync(dev)
+            if k == total:                  # the traced step
+                (state, m), trace = traced(lambda: step(state, batch))
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                state, m = step(state, batch)
+                end.record()
+                sync(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+                if k > 1:
+                    walls.append(wall)
+                    events.append(start.elapsed_time(end))
+            row = {n: float(m[n]) for n in ("loss", "grad_norm", "lr")}
+            want_lr = float(schedule(opt, torch.tensor(k, device=dev)))
+            rows.append(row)
+            log(f"  step {k}: loss {row['loss']:.6f}, grad_norm "
+                f"{row['grad_norm']:.6f}, lr {row['lr']:.6e}"
+                + (f", wall {wall:.1f} ms" if k != total else ", traced"))
+            if not (math.isfinite(row["loss"])
+                    and math.isfinite(row["grad_norm"])):
+                raise AssertionError(f"gate (d): step {k} is not finite")
+            if row["lr"] != want_lr:
+                raise AssertionError(f"gate (d): step {k} lr {row['lr']} != "
+                                     f"schedule {want_lr}")
+            if k == TRAIN_CKPT_AFTER + 1:
+                loss4 = row["loss"]
+                alive = ck._thread is not None and ck._thread.is_alive()
+                log(f"    the checkpoint write was "
+                    f"{'still running' if alive else 'done'} when step {k} "
+                    f"ended")
+            if k == TRAIN_CKPT_AFTER:
+                sync(dev)
+                free = shutil.disk_usage(ck_dir).free
+                expect = tree_map(lambda a: a.detach().cpu().clone(), state)
+                t0 = time.perf_counter()
+                ck.save_async(k, state)
+                snap_ms = (time.perf_counter() - t0) * 1e3
+                log(f"    save_async after step {k}: snapshot {snap_ms:.0f} "
+                    f"ms; free disk before {free / 1e9:.1f} GB")
+        timed = [r["loss"] for r in rows[1:1 + TRAIN_TIMED]]
+        if not timed[-1] < timed[0]:
+            raise AssertionError(f"gate (d): the last timed loss {timed[-1]} "
+                                 f"is not below the first {timed[0]}")
+        peak = torch.cuda.max_memory_allocated()
+
+        walls_s = sorted(walls)
+        med = walls_s[len(walls_s) // 2]
+        ev = sorted(events)[len(events) // 2]
+        mfu = 6 * n_params * tokens / (med / 1e3 * PEAK_BF16_FLOPS)
+        log(f"  train step wall (CUDA events around a synchronised step) "
+            f"median {med:.1f} ms, min {walls_s[0]:.1f}, max "
+            f"{walls_s[-1]:.1f} over {len(walls)} steps (events median "
+            f"{ev:.1f} ms); {tokens / (med / 1e3):.0f} tokens/s; model-FLOPs "
+            f"share {mfu:.4f} (6 N T = {6 * n_params * tokens:.4g} over the "
+            f"wall x 989 TFLOP/s, the H100 SXM bf16 dense spec figure) "
+            f"[{card}]")
+        log(f"  peak memory (torch.cuda.max_memory_allocated) "
+            f"{peak / 1e9:.2f} GB")
+        if trace is None:
+            log("  traced step: device time not measured (the profiler trace "
+                "holds no device time)")
+        else:
+            dev_ms, krows = trace
+            log(f"  traced step {total}: device time (torch.profiler) "
+                f"{dev_ms:.1f} ms, idle share {1 - dev_ms / med:.3f} of the "
+                f"median wall; top kernels:")
+            for ms, count, key in krows[:10]:
+                log(f"    {ms:.3f} ms x{count} {key[:90]}")
+            log("  by kind: " + ", ".join(
+                f"{kind} {ms:.1f} ms" for kind, ms in kernel_kinds(krows)))
+
+        # (e) checkpoint: restore into a fresh state
+        ck.wait()
+        nbytes = sum(f.stat().st_size for f in ck_dir.rglob("*")
+                     if f.is_file())
+        log(f"  gate (e) checkpoint of step {TRAIN_CKPT_AFTER}: write "
+            f"{write_s[0]:.1f} s on its thread, {nbytes / 1e9:.2f} GB "
+            f"written")
+        del state, m, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh = init_train_state(model, torch.Generator(dev).manual_seed(9),
+                                 device=dev)
+        t0 = time.perf_counter()
+        restored = ck.restore(TRAIN_CKPT_AFTER, fresh)
+        sync(dev)
+        log(f"    restore (crc checked) {time.perf_counter() - t0:.1f} s")
+        del fresh
+        for a, b in zip(leaves(restored), leaves(expect)):
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                raise AssertionError("gate (e): a restored leaf differs from "
+                                     "the state saved")
+        del expect
+        pipe.restore(saved_pipe)
+        _, m = step(restored, to_device(pipe.next_host_batch(), dev))
+        again = float(m["loss"])
+        err = abs(again - loss4) / abs(loss4)
+        log(f"    every leaf bit-equal; one step from the restored state: "
+            f"loss {again:.6f} vs step {TRAIN_CKPT_AFTER + 1}'s {loss4:.6f} "
+            f"(rel {err:.3g}, limit {TRAIN_CKPT_RTOL})")
+        if err > TRAIN_CKPT_RTOL:
+            raise AssertionError(f"gate (e): loss after restore {again} vs "
+                                 f"{loss4}")
+    finally:
+        ck.wait()
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+
 # ------------------------------------------------------------ phase 3
 
 def cpu_copy(prep):
@@ -2132,6 +2473,14 @@ def main() -> int:
     hy_launches, hy_err, hy_times = phase8(card, dev)
     max_err = max(max_err, hy_err)
     main_times += hy_times
+
+    # -------------------------------------------------- 9. training
+    log(f"phase 9: training {TRAIN_ARCH} at full width [{card}]")
+    n0 = dm.dslot_matmul_cuda.launches
+    phase9(card, dev)
+    log(f"  dslot kernel launches in phase 9: "
+        f"{dm.dslot_matmul_cuda.launches - n0} (the model has no DSLOT "
+        f"layer; training launches no hand-written kernel)")
 
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)

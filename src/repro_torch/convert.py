@@ -9,7 +9,9 @@ packages, so conversion is a copy onto the device plus shape checks:
   a conv ``(k, k, C, M)`` weight;
 * ``model_params``: a ``Model.init`` tree — nested dicts and lists, stacked
   groups kept stacked (layer ``g * period + pos`` is entry ``g`` of
-  ``groups[pos]`` in both packages).
+  ``groups[pos]`` in both packages);
+* ``train_state``: a ``TrainState`` (params, AdamW moments and counts), so
+  both packages can train on from the same state.
 
 The reference's prepared state (``"dslot"``) is dropped: the port prepares
 its own.
@@ -22,8 +24,11 @@ import torch
 
 from repro_torch.core.mnist_cnn import CNNParams
 from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import OptState
+from repro_torch.train.step import TrainState
 
-__all__ = ["cnn_params", "layer_params", "model_params", "to_tensor"]
+__all__ = ["cnn_params", "layer_params", "model_params", "to_tensor",
+           "train_state"]
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -71,3 +76,16 @@ def model_params(tree, device=None):
         return to_tensor(node, dev)
 
     return walk(tree)
+
+
+def train_state(ref_state, device=None) -> TrainState:
+    """The port's ``TrainState`` from the reference's (``params``, ``opt``
+    with ``m``, ``v``, ``count``, and ``step``; leaves as numpy arrays):
+    every leaf onto ``device`` (default ``cuda``) in its own dtype."""
+    dev = resolve_device(device)
+    opt = ref_state.opt
+    return TrainState(
+        params=model_params(ref_state.params, dev),
+        opt=OptState(m=model_params(opt.m, dev), v=model_params(opt.v, dev),
+                     count=to_tensor(opt.count, dev)),
+        step=to_tensor(ref_state.step, dev))

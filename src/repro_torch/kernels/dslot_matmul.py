@@ -293,7 +293,17 @@ def run(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
         row_budget: torch.Tensor | None, tile_bound: torch.Tensor
         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The backend rule on pre-padded inputs: a CUDA tensor launches the
-    kernel, a CPU tensor runs the plain version.  Nothing falls back."""
+    kernel, a CPU tensor runs the plain version.  Nothing falls back.
+
+    The kernel has no backward pass: on the card, an input that autograd
+    tracks raises rather than losing its gradient, as the reference's Pallas
+    path fails under ``jax.grad``.  The plain version is differentiable."""
+    if q.is_cuda and torch.is_grad_enabled() and (q.requires_grad
+                                                  or w.requires_grad):
+        raise RuntimeError(
+            "the DSLOT CUDA kernel has no backward pass; differentiate the "
+            "digit-serial MLP on CPU tensors (the plain version) or under "
+            "torch.no_grad()")
     fn = _launch if q.is_cuda else _replay
     return fn(q, w, n_bits, n_planes, relu, block_m, block_n, bk, suffix,
               total, npl, row_budget, tile_bound)

@@ -18,8 +18,8 @@ Decode state: {"caches": [one per decoder layer], "pos": (B,) int32}; decode
 writes the attention rings in place and returns the recurrent states as new
 tensors (see ``transformer``).
 
-``loss_fn`` is the reference's training loss, forward only: its backward
-belongs to the training slice of the port.
+``loss_fn`` is the reference's training loss; ``repro_torch.train.step``
+differentiates it with ``torch.autograd.grad``.
 """
 
 from __future__ import annotations
@@ -270,8 +270,9 @@ def build_model(cfg) -> Model:
 
 
 def loss_fn(model: Model, params, batch, aux_weight: float = 0.01):
-    """Next-token cross-entropy plus ``aux_weight`` times the MoE
-    load-balance aux: ``(loss + aux_weight * aux, (loss, aux))``.
+    """The training loss, differentiable under autograd: next-token
+    cross-entropy plus ``aux_weight`` times the MoE load-balance aux,
+    ``(loss + aux_weight * aux, (loss, aux))``.
 
     ``batch["labels"]`` (B, S) int, entries < 0 masked out.  As in the
     reference, no f32 (B, S, V) tensor is made: probabilities stay in the

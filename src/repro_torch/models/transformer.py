@@ -18,7 +18,10 @@ states (``SSMState``, ``RGLRUState``) come back as new tensors, so a
 caller's state changes only where it takes the returned one.  Statistics
 recorded inside a group come out stacked over the groups, as the
 reference's scan emits them, so consumers that average records weigh
-groups and rest layers as the reference does.
+groups and rest layers as the reference does.  Under ``cfg.remat`` a train
+forward with grad enabled keeps only each group's input and recomputes the
+group in the backward pass (the reference's ``jax.checkpoint`` with
+``nothing_saveable``); the rest layers are not recomputed, as there.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from . import stats as model_stats
 from .attention import (KVCache, attention_forward, init_attention,
@@ -250,15 +254,31 @@ class Stack:
                 new_caches.append(nc)
             return x, aux
 
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        sinks, group_aux = [], []
-        for g in range(self.n_groups):
+        def group_body(x, g):
             aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
             with model_stats.collect() as sink:
                 for pos, kind in enumerate(self.pattern):
                     x, aux = layer(_index(p["groups"][pos], g), x, kind,
                                    g * self.period + pos)
                     aux_g = aux_g + aux
+            return x, aux_g, sink
+
+        body = group_body
+        if cfg.remat and mode == "train" and torch.is_grad_enabled():
+            # jax.checkpoint(group_body, nothing_saveable): keep only the
+            # group's input and recompute the rest in the backward pass.
+            # The recompute records its statistics into a sink of its own,
+            # which is dropped, so each group's records and aux count once.
+            # The model draws no random numbers, so no RNG state is kept.
+            def body(x, g):
+                return torch.utils.checkpoint.checkpoint(
+                    group_body, x, g, use_reentrant=False,
+                    preserve_rng_state=False)
+
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        sinks, group_aux = [], []
+        for g in range(self.n_groups):
+            x, aux_g, sink = body(x, g)
             sinks.append(sink)
             group_aux.append(aux_g)
         if group_aux:

@@ -77,10 +77,10 @@ from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.prefill import (CANCELLED, DECODING, DONE, FAILED,
                                        PREFILLING, QUARANTINED, TIMEOUT,
-                                       PrefillPipeline, _batch_axes,
-                                       tree_map)
+                                       PrefillPipeline, _batch_axes)
 from repro_torch.serve.result import GenerateResult
 from repro_torch.serve.slo import STANDARD, TIERS, SloController, SloSignals
+from repro_torch.tree import tree_map
 
 __all__ = ["Request", "ServeEngine", "generate", "greedy_sample",
            "temperature_sample"]

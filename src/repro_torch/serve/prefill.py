@@ -65,6 +65,7 @@ import torch
 
 from repro_torch.models.attention import cache_capacity
 from repro_torch.runtime import precision_scope
+from repro_torch.tree import tree_map
 
 if TYPE_CHECKING:                                    # pragma: no cover
     from repro_torch.serve.engine import Request
@@ -102,22 +103,6 @@ class PrefillTask:
     @property
     def remaining(self) -> int:
         return len(self.req.prompt) - self.offset
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the tensors of a decode-state tree (dicts, lists, tuples
-    and named tuples such as ``KVCache``), with matching leaves of ``rest``;
-    returns a tree of the same structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, v, *(r[i] for r in rest))
-               for i, v in enumerate(tree)]
-        if hasattr(tree, "_fields"):
-            return type(tree)(*out)
-        return type(tree)(out)
-    return fn(tree, *rest)
 
 
 def _batch_axes(model, max_len: int):

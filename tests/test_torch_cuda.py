@@ -33,7 +33,12 @@ from repro_torch.runtime import precision_scope
 from repro_torch.serve import (Request, ServeConfig, ServeEngine, SloConfig,
                                check_invariants)
 from repro_torch.serve.engine import generate
-from repro_torch.serve.prefill import tree_map
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.models.model_zoo import loss_fn
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.step import (init_train_state, make_train_step,
+                                    microbatch_grads)
+from repro_torch.tree import leaves, tree_map
 
 
 @pytest.fixture
@@ -400,6 +405,71 @@ def test_dslot_conv2d_stats_on_card_matches_cpu(cuda):
                           dtype=torch.int32)
     out, _ = csd_matmul(q.to(cuda), w_q.to(cuda))
     assert torch.equal(out.cpu(), q @ w_q)
+
+
+def _relu_dslot_olmo():
+    cfg = dataclasses.replace(
+        ARCHS["olmo-1b"].reduced(), act="relu", glu=False,
+        dslot=DslotConfig(enabled=True, block_m=16, block_n=32))
+    return cfg, build_model(cfg)
+
+
+@pytest.mark.gpu
+def test_dslot_kernel_raises_under_autograd(cuda):
+    """The kernel has no backward pass: a train forward whose up-projection
+    weights autograd tracks raises before launching, instead of dropping
+    their gradient; without grad the same forward launches the kernel."""
+    cfg, model = _relu_dslot_olmo()
+    params = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda)
+    batch = {"tokens": toks, "labels": toks}
+    n0 = dm.dslot_matmul_cuda.launches
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        loss_fn(model, live, batch)
+    assert dm.dslot_matmul_cuda.launches == n0
+    with torch.no_grad():
+        loss, _ = loss_fn(model, live, batch)
+    assert dm.dslot_matmul_cuda.launches == n0 + cfg.n_layers
+    assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step of a reduced olmo-1b (f32, two remat groups and a rest
+    layer, M = 2) on the card and on the CPU from the same state: loss and
+    grad_norm within 1e-5 relative, gradients within 1e-4 of each leaf's
+    largest; parameters within 1e-3 * lr where the CPU's |g| exceeds 1e-3
+    of its leaf's largest, and within 2 * lr everywhere (Adam's first step
+    is about lr * sign(g), and a near-zero gradient may change sign)."""
+    cfg = dataclasses.replace(ARCHS["olmo-1b"].reduced(), n_layers=5)
+    model = build_model(cfg)
+    lr = 1e-3
+    opt = AdamWConfig(peak_lr=lr, warmup_steps=0, decay_steps=7)
+    state = init_train_state(model, torch.Generator().manual_seed(0),
+                             device="cpu")
+    on_card = tree_map(lambda a: a.to(cuda, copy=True), state)
+    host = TokenPipeline(vocab=cfg.vocab_size, seq_len=32, global_batch=4,
+                         microbatches=2).next_host_batch()
+    cpu_batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    card_batch = {k: v.to(cuda) for k, v in cpu_batch.items()}
+    g_card, _, _ = microbatch_grads(model, on_card.params, card_batch)
+    g_cpu, _, _ = microbatch_grads(model, state.params, cpu_batch)
+    for a, b in zip(leaves(g_card), leaves(g_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    step = make_train_step(model, opt)
+    card, mc = step(on_card, card_batch)
+    cpu, mh = step(state, cpu_batch)
+    for k in ("loss", "grad_norm", "lr"):
+        assert mc[k].is_cuda
+        torch.testing.assert_close(mc[k].cpu(), mh[k], rtol=1e-5, atol=0)
+    for a, b, g in zip(leaves(card.params), leaves(cpu.params),
+                       leaves(g_cpu)):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= 2 * lr
+        firm = g.abs() > 1e-3 * g.abs().max()
+        assert float(d[firm].max()) <= 1e-3 * lr
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
