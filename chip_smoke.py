@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, hold its CUDA kernel
-against the kernel's plain PyTorch version, and train a model at full
-width.
+against the kernel's plain PyTorch version, train a model at full width,
+and serve one over two ranks sharing the card.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
@@ -178,15 +178,53 @@ Phases (any failure exits non-zero and prints no result line):
    training path runs no DSLOT layer, so the kernel record below does not
    change.
 
+10. Tensor- and expert-parallel serving (``repro_torch.launch.mesh``,
+   ``dslot_prepare(mesh=...)``, ``ServeConfig.mesh``,
+   ``repro_torch.distributed``): a world of 2 ranks sharing ``cuda:0``
+   over ``gloo`` (one card, and NCCL needs a device per rank), started by
+   ``run_world`` after the parent has built the kernel, with a collective
+   timeout of ``TP_TIMEOUT`` s; the ranks share the (1, 2) mesh of
+   ``make_test_mesh(model=2)``.  Gate (a): ``tp_cases`` (phase 2's shapes
+   with ReLU, f32 and bf16 weights, scalar and per-row budgets, sorted
+   columns on and off, seamless's MLP up at ``block_n`` 24 with Nt = 171
+   and the conv with Nt = 1, so pad tiles of bound 0 appear; then three
+   cases without ReLU) through ``dslot_execute``, sharded and unsharded on
+   the card: with ReLU the output and every ``DslotStats`` field must be
+   equal bit for bit; without ReLU (the kernel's product path picks its K
+   split from the launch's tile count, which differs at the engine's
+   decode shape) the outputs are held by phase 2's rule and the statistics
+   must be equal; each rank's own launch is held
+   against the plain version by phase 2's rule.  Gate (b): phase 6's model,
+   ``act_scale`` and ``ServeConfig`` with the mesh, on ``TP_REQUESTS``
+   seeded requests with per-request budgets ``TP_BUDGETS`` outside the
+   reserved tier: on every rank the token streams and per-request
+   ``planes_used_mean`` must equal those of the unsharded engine, which
+   the parent runs first on the same card with the same weights and
+   traffic; the auditor empty every step; no errors, quarantines or
+   timeouts; each rank's launches = 16 x forwards.  Gate (c):
+   ``apply_moe_ep`` at granite-moe-1b-a400m's full width (d_model 1024, 32
+   experts, top-8, d_ff 512, bf16) on 4 x 2048 tokens at its capacity
+   factor within ``EP_Y_ATOL`` / ``EP_AUX_ATOL`` of the dense ``apply_moe``
+   on the card, and bit-equal with full per-expert budgets.  Gate (d): the
+   collective matmul at (4096, 2048) @ (2048, 8192) within ``CM_RTOL`` of
+   the largest |y| of ``x @ w``.  Printed per rank with the card: engine
+   tokens/s, decode and admission forward walls with device time and idle
+   share (a traced warm-up call), every ``all_gather``'s time (warm-up),
+   peak memory, the EP and collective-matmul times; rank 0's kernel time
+   at the shard shapes (16, 2048) and (128, 2048) @ (2048, 4096) as in
+   phase 4.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
 printed just before that.  The record's ``launches`` counts the kernel
 launches of the driven paths (phase 3's CNN, phase 5's two ``generate``
 runs, phase 6's timed engine run, phase 7's calibrate, sweep and B = 1024
-forward, and phase 8's hybrid engine run); its times and bound are sums
-over the thirteen main-path launches timed in phases 4-8 (CNN conv and
-head; LM encoder, prefill and decode; engine decode and admission; trained
-conv and head at B = 80 and B = 1024; hybrid decode and admission).
+forward, phase 8's hybrid engine run, and both ranks' timed engine runs in
+phase 10); its times and bound are sums over the fifteen main-path
+launches timed in phases 4-8 and 10 (CNN conv and head; LM encoder,
+prefill and decode; engine decode and admission; trained conv and head at
+B = 80 and B = 1024; hybrid decode and admission; the tensor-parallel
+engine's decode and admission shard launches).
 """
 
 from __future__ import annotations
@@ -947,7 +985,8 @@ def drive_engine(eng, specs: list[dict], dev, n_first: int,
     from repro_torch.serve import RESERVED, Request, audit_engine
 
     reqs = [Request(uid=s["uid"], prompt=s["prompt"], max_new=s["max_new"],
-                    tier=s["tier"]) for s in specs]
+                    tier=s["tier"], n_planes=s.get("n_planes"))
+            for s in specs]
     enqueued, step_end, levels, walls = {}, {}, [], []
     step = eng.step
 
@@ -2265,6 +2304,518 @@ def phase9(card, dev) -> None:
         shutil.rmtree(ck_dir, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 10
+
+TP_RANKS = 2                    # ranks sharing one card
+TP_DEVICE = "cuda:0"
+TP_BACKEND = "gloo"             # NCCL refuses two ranks on one device
+TP_TIMEOUT = 300                # seconds a collective may wait for a peer
+TP_DEADLINE = 900               # seconds the whole world may take
+TP_REQUESTS = 12
+TP_BUDGETS = (8, 6, 5, 4)       # per-request planes of non-reserved requests
+TP_KERNEL_ROWS = {"tp2 decode shard launch": ENGINE_SLOTS,
+                  "tp2 admission shard launch": ENGINE_LANES * ENGINE_CHUNK}
+EP_ARCH, EP_BATCH, EP_SEQ = "granite-moe-1b-a400m", 4, 2048
+EP_Y_ATOL, EP_AUX_ATOL = 2e-3, 1e-3     # the reference test's bounds
+CM_SHAPE = (4096, 2048, 8192)   # olmo's up-projection width: (S, K) @ (K, N)
+CM_RTOL = 1e-5                  # of the largest |y|
+
+
+def tp_cases() -> list[Case]:
+    """Phase 2's shapes with ReLU for the sharded execute, among them
+    seamless's MLP up at 2048 tokens with ``block_n`` 24 (Nt = 171, odd:
+    one pad tile of bound 0) and the CNN conv (Nt = 1: rank 1 holds only a
+    pad tile); then three without ReLU, which take the kernel's product
+    path."""
+    B = 1024
+    conv = dict(M=B * 576, K=25, N=8, block_m=128, block_n=8, block_k=None,
+                relu=True, signed=False)
+    head = dict(M=B, K=1152, N=10, block_m=128, block_n=8, block_k=None,
+                relu=False, signed=False)
+    mlp = dict(M=2048, K=1024, N=4096, block_m=128, block_n=128,
+               relu=True, signed=True, sort=True)
+    bn24 = {**mlp, "block_m": 32, "block_n": 24, "block_k": None,
+            "sort": False}
+    return [
+        Case("conv f32 normal n8", weights="normal", **conv),
+        Case("conv bf16 normal n3", weights="normal", wdtype=torch.bfloat16,
+             precision=3, **conv),
+        Case("mlp bk=auto f32 normal n8", weights="normal", block_k=None,
+             **mlp),
+        Case("mlp bk=auto bf16 normal n3", weights="normal", block_k=None,
+             wdtype=torch.bfloat16, precision=3, **mlp),
+        Case("mlp bk=256 f32 normal rows unsorted", weights="normal",
+             block_k=256, precision="rows", **{**mlp, "sort": False}),
+        Case("mlp bn=24 f32 dyadic rows", weights="dyadic", precision="rows",
+             **bn24),
+        Case("mlp bn=24 bf16 normal n8 sorted", weights="normal",
+             wdtype=torch.bfloat16, **{**bn24, "sort": True}),
+        Case("mlp bm=256 bn=32 f32 dyadic rows", weights="dyadic",
+             precision="rows",
+             **{**mlp, "M": 512, "N": 128, "block_m": 256, "block_n": 32,
+                "block_k": 256, "sort": False}),
+        Case("head f32 normal n8 no-relu", weights="normal", **head),
+        Case("mlp bk=256 f32 normal n8 no-relu", weights="normal",
+             block_k=256, **{**mlp, "relu": False}),
+        # the engine's decode shape: 128 tiles of 64 columns, 64 a shard,
+        # both fewer than the SMs, so the two split K differently
+        Case("decode f32 normal n8 no-relu", weights="normal",
+             **{**mlp, "M": 16, "K": 2048, "N": 8192, "block_m": 16,
+                "block_k": None, "relu": False, "sort": False}),
+    ]
+
+
+STAT_FIELDS = ("planes_used", "planes_bounded", "row_planes_used")
+
+
+def bit_equal(a, b) -> dict:
+    """Which of ``dslot_execute``'s results are equal bit for bit."""
+    (ya, sa), (yb, sb) = a, b
+    eq = {"out": torch.equal(ya, yb),
+          "skipped_frac": torch.equal(sa.skipped_frac, sb.skipped_frac)}
+    eq.update({f: torch.equal(getattr(sa, f), getattr(sb, f))
+               for f in STAT_FIELDS})
+    return eq
+
+
+def tp_execute(rank, mesh, dev) -> float:
+    """Gate (a): every case through ``dslot_execute``, sharded over the
+    mesh and unsharded, on this card.  Activations are the case's q as
+    floats with a calibrated step of 1, so both quantize to q exactly.
+    Returns the largest error of this rank's launches against the plain
+    version."""
+    from repro_torch.kernels import dslot_matmul as dm
+    from repro_torch.kernels.ops import dslot_execute, dslot_prepare
+
+    max_err = 0.0
+    for n, case in enumerate(tp_cases()):
+        q, w = make_inputs(case, seed=300 + n)
+        x, w = q.to(dev, torch.float32), w.to(dev)
+        kw = dict(relu=case.relu, signed=case.signed,
+                  sort_columns=case.sort, block_m=case.block_m,
+                  block_n=case.block_n, block_k=case.block_k, x_scale=1.0)
+        npl = case.precision
+        if npl == "rows":
+            npl = torch.randint(1, 9, (case.M,), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(
+                                    400 + n)).to(dev)
+        whole = dslot_execute(dslot_prepare(w, **kw), x, n_planes=npl)
+        prep = dslot_prepare(w, mesh=mesh, **kw)
+        with Captured(dm) as cap:
+            mine = dslot_execute(prep, x, n_planes=npl)
+        torch.cuda.synchronize()
+        (args, res), = cap.calls
+        a = dm.DslotMatmulOut(*res)
+        b = dm.DslotMatmulOut(*dm._replay(*args))
+        torch.cuda.synchronize()
+        err = compare(f"[rank {rank}] {case.name} shard", a, b,
+                      case.weights == "dyadic", args[0], args[1],
+                      kernel_kw(args))
+        max_err = max(max_err, err)
+        eq = bit_equal(mine, whole)
+        Nt = -(-case.N // case.block_n)
+        per = args[1].shape[1] // case.block_n
+        line = (f"  [rank {rank}] {case.name}: Nt {Nt} -> {per} tiles a "
+                f"rank ({per * TP_RANKS - Nt} pad); sharded vs unsharded "
+                f"equal: "
+                f"{' '.join(k for k, v in eq.items() if v)}"
+                f"{'' if all(eq.values()) else '; differ: '}"
+                f"{' '.join(k for k, v in eq.items() if not v)}; this "
+                f"rank's launch vs plain max err {err:.3g}")
+        if all(eq.values()):
+            if rank == 0:
+                log(line)
+            continue
+        log(line)
+        if case.relu:
+            raise AssertionError(f"{case.name}: the sharded execute differs "
+                                 f"from the unsharded one under ReLU")
+        # the product path picks its K split from the launch's tile count
+        # (module docstring): outputs by phase 2's rule, planes equal
+        mine_out, whole_out = mine[0], whole[0]
+        tol = OUT_RTOL * whole_out.abs() + OUT_RTOL * float(
+            whole_out.abs().max())
+        if not (bool(((mine_out - whole_out).abs() <= tol).all())
+                and all(eq[f] for f in STAT_FIELDS)):
+            raise AssertionError(f"{case.name}: sharded product path "
+                                 f"outside phase 2's rule")
+        log(f"  [rank {rank}] {case.name}: held by phase 2's rule, max "
+            f"|sharded - unsharded| "
+            f"{float((mine_out - whole_out).abs().max()):.3g}")
+    return max_err
+
+
+class GatherTimes:
+    """Stands in for ``ops.all_gather``: each call synchronized before and
+    after and timed on the host, by the gathered tensor's rows and type,
+    with a running total.  A gather of card tensors under gloo waits for
+    the device anyway (it copies them to the host), so the synchronization
+    adds little to the forward around it."""
+
+    def __init__(self, ops):
+        self.ops, self.fn, self.ms, self.total = ops, ops.all_gather, {}, 0.0
+
+    def __enter__(self):
+        self.ops.all_gather = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.all_gather = self.fn
+
+    def __call__(self, t, mesh, axis, dim):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(t, mesh, axis, dim)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        self.ms.setdefault((t.shape[0], str(t.dtype)[6:]), []).append(ms)
+        self.total += ms
+        return out
+
+
+class GatheredIn:
+    """Wraps one engine forward: the milliseconds of ``gathers`` spent
+    inside each of its calls, in call order."""
+
+    def __init__(self, fn, gathers: GatherTimes):
+        self.fn, self.gathers, self.ms = fn, gathers, []
+
+    def __call__(self, *args):
+        t0 = self.gathers.total
+        out = self.fn(*args)
+        self.ms.append(self.gathers.total - t0)
+        return out
+
+
+def tp_traffic(vocab: int) -> list[dict]:
+    """Phase 6's traffic rule for ``TP_REQUESTS`` requests (its own seed),
+    with a plane budget from ``TP_BUDGETS`` on every request outside the
+    reserved tier."""
+    import numpy as np
+
+    specs = engine_traffic(TP_REQUESTS, vocab, seed=10)
+    rng = np.random.default_rng(11)
+    for s in specs:
+        if s["tier"] != "reserved":
+            s["n_planes"] = int(rng.choice(TP_BUDGETS))
+    return specs
+
+
+def tp_olmo(dev):
+    """Phase 6's model (olmo-1b with a ReLU, non-GLU MLP) without DSLOT:
+    its config, the dense model and its weights from seed 0."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model_zoo import build_model
+
+    base = dataclasses.replace(get_arch(ENGINE_ARCH), act="relu", glu=False)
+    dense = build_model(base)
+    return base, dense, dense.init(torch.Generator(dev).manual_seed(0),
+                                   device=dev)
+
+
+def tp_engine_model(base, scale):
+    """Phase 6's DSLOT model (the kernel at ``block_m`` 16, act_scale
+    ``scale``) and serving config."""
+    from repro_torch.configs.base import DslotConfig
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import ServeConfig, SloConfig
+
+    cfg = dataclasses.replace(base, dslot=DslotConfig(
+        enabled=True, block_m=ENGINE_SLOTS, block_n=128, block_k=None,
+        act_scale=scale))
+    scfg = ServeConfig(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                       prefill_chunk=ENGINE_CHUNK,
+                       chunks_per_step=ENGINE_LANES,
+                       slo=SloConfig(**ENGINE_SLO))
+    return cfg, build_model(cfg), scfg
+
+
+def streams(run) -> list:
+    return [(list(map(int, r.out)), r.result.planes_used_mean)
+            for r in run["reqs"]]
+
+
+def tp_engine(rank, mesh, dev, spec) -> dict:
+    """Gate (b) on this rank: the tensor-parallel ``ServeEngine``.  A
+    warm-up on 6 requests traces one forward of each kind; the timed run
+    counts this rank's launches and times every forward and every
+    ``all_gather`` inside it; rank 0 then holds and times its launches at
+    the two shard shapes while rank 1 waits."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import dslot_matmul as dm
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+
+    base, _, params = tp_olmo(dev)
+    cfg, model, scfg = tp_engine_model(base, spec["act_scale"])
+    scfg = dataclasses.replace(scfg, mesh=mesh)
+    specs = spec["traffic"]
+    warm = ServeEngine(model, params, scfg)
+    warm._decode = Timed(warm._decode, dev, trace_at=3)
+    warm.pipeline._extend_lanes = Timed(warm.pipeline._extend_lanes, dev,
+                                        trace_at=3)
+    drive_engine(warm, specs[:6], dev, n_first=6, idle_max=0)
+    traces = {"decode forward": warm._decode.trace,
+              "admission forward": warm.pipeline._extend_lanes.trace}
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(model, params, scfg)
+    gathers = GatherTimes(ops)
+    decode = GatheredIn(eng._decode, gathers)
+    admission = GatheredIn(eng.pipeline._extend_lanes, gathers)
+    eng._decode = Timed(decode, dev)
+    eng.pipeline._extend_lanes = Timed(admission, dev)
+    captured, orig_run = {}, dm.run
+
+    def capture(*args):
+        rows = args[0].shape[0]
+        if rows in TP_KERNEL_ROWS.values() and rows not in captured:
+            captured[rows] = args
+        return orig_run(*args)
+
+    dm.dslot_matmul_cuda.launches = 0
+    dm.run = capture
+    try:
+        with gathers:
+            run = drive_engine(eng, specs, dev, n_first=len(specs))
+    finally:
+        dm.run = orig_run
+    launches = dm.dslot_matmul_cuda.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    forwards = eng._decode.calls + eng.pipeline.forwards
+    out = dict(streams=streams(run), launches=launches,
+               expected=cfg.n_layers * forwards, layers=cfg.n_layers,
+               done=all(r.phase == "done" for r in run["reqs"]),
+               faults=(eng.errors, eng.quarantined, eng.timeouts),
+               tokens=run["tokens"], seconds=run["seconds"],
+               steps=run["run_steps"], peak_gb=peak_gb,
+               decode_walls=eng._decode.walls,
+               admission_walls=eng.pipeline._extend_lanes.walls,
+               decode_gathers=decode.ms, admission_gathers=admission.ms,
+               traces=traces, gathers=gathers.ms)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["max_err"], out["times"] = 0.0, []
+    if rank == 0:
+        shard = dataclasses.replace(cfg, d_ff=cfg.d_ff // TP_RANKS)
+        out["max_err"], out["times"] = hold_engine_shapes(
+            captured, TP_KERNEL_ROWS, shard, dev, spec["card"])
+    dist.barrier()
+    return out
+
+
+def tp_moe(rank, mesh, dev, card) -> dict:
+    """Gate (c): expert parallelism at granite-moe-1b-a400m's full width
+    against the dense ``apply_moe`` on this card, and the times of both.
+    ``apply_moe_ep`` sets one capacity over the rank's tokens, ``apply_moe``
+    one for each ``TOKEN_BLOCK`` of them; the two compute the same function
+    where neither drops a choice, and the drops under each rule are
+    counted."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.device import full_f32
+    from repro_torch.distributed.expert_parallel import apply_moe_ep
+    from repro_torch.models.moe import (TOKEN_BLOCK, apply_moe, init_moe,
+                                        moe_capacity, route)
+
+    cfg = get_arch(EP_ARCH)
+    p = init_moe(cfg, torch.Generator(dev).manual_seed(3), dev)
+    x = (torch.randn((EP_BATCH, EP_SEQ, cfg.d_model), device=dev,
+                     generator=torch.Generator(dev).manual_seed(4)) * 0.5
+         ).to(getattr(torch, cfg.dtype))
+    full = torch.full((cfg.n_experts,), 8, dtype=torch.int32, device=dev)
+    T = EP_BATCH * EP_SEQ
+    flat = x.reshape(1, T, cfg.d_model)
+    drops = {"one capacity": int((~route(p, flat, cfg, moe_capacity(
+        cfg, T))[3]).sum()),
+        "blocks": sum(int((~route(p, flat[:, i:i + TOKEN_BLOCK], cfg,
+                                  moe_capacity(cfg, TOKEN_BLOCK))[3]).sum())
+                      for i in range(0, T, TOKEN_BLOCK))}
+    with full_f32():
+        y, aux = apply_moe(p, x, cfg)
+        ye, auxe = apply_moe_ep(p, x, cfg, mesh)
+        yf, _ = apply_moe_ep(p, x, cfg, mesh, expert_planes=full)
+        torch.cuda.synchronize()
+        dense_ms = cuda_ms(lambda: apply_moe(p, x, cfg), reps=5, warm=1)
+        ep_ms = cuda_ms(lambda: apply_moe_ep(p, x, cfg, mesh), reps=5,
+                        warm=1)
+    err = float((ye.float() - y.float()).abs().max())
+    aux_err = abs(float(auxe) - float(aux))
+    if err > EP_Y_ATOL or aux_err > EP_AUX_ATOL:
+        raise AssertionError(f"[rank {rank}] expert parallel vs dense: y err "
+                             f"{err} (limit {EP_Y_ATOL}), aux err {aux_err} "
+                             f"(limit {EP_AUX_ATOL})")
+    if not torch.equal(yf, ye):
+        raise AssertionError(f"[rank {rank}] full per-expert budgets changed "
+                             f"the output")
+    return dict(err=err, aux_err=aux_err, y_max=float(y.float().abs().max()),
+                dense_ms=dense_ms, ep_ms=ep_ms, exact=torch.equal(ye, y),
+                drops=drops)
+
+
+def tp_matmul(rank, mesh, dev) -> dict:
+    """Gate (d): the collective matmul at olmo's up-projection width over
+    the ranks, against this rank's columns of ``x @ w``, and its times
+    beside the all-gather lowering and the local product."""
+    from repro_torch.device import full_f32
+    from repro_torch.distributed import axis_rank
+    from repro_torch.distributed.overlap import (collective_matmul_ag,
+                                                 plain_matmul_ag)
+
+    S, K, N = CM_SHAPE
+    g = torch.Generator(dev).manual_seed(9)
+    X = torch.randn((S, K), generator=g, device=dev)
+    W = torch.randn((K, N), generator=g, device=dev)
+    j, n = axis_rank(mesh, "model"), TP_RANKS
+    xl = X[j * S // n:(j + 1) * S // n]
+    wl = W[:, j * N // n:(j + 1) * N // n].contiguous()
+    with full_f32():
+        ref = X @ wl
+    y = collective_matmul_ag(xl, wl, mesh)
+    yp = plain_matmul_ag(xl, wl, mesh)
+    torch.cuda.synchronize()
+    big = float(ref.abs().max())
+    err = float((y - ref).abs().max()) / big
+    err_plain = float((yp - ref).abs().max()) / big
+    if max(err, err_plain) > CM_RTOL:
+        raise AssertionError(f"[rank {rank}] collective matmul error {err} "
+                             f"(all-gather lowering {err_plain}) of the "
+                             f"largest |y|, limit {CM_RTOL}")
+
+    def local():
+        with full_f32():
+            return X @ wl
+    return dict(err=err, err_plain=err_plain,
+                ring_ms=cuda_ms(lambda: collective_matmul_ag(xl, wl, mesh),
+                                reps=5, warm=1),
+                plain_ms=cuda_ms(lambda: plain_matmul_ag(xl, wl, mesh),
+                                 reps=5, warm=1),
+                local_ms=cuda_ms(local, reps=5, warm=1))
+
+
+def phase10_rank(rank, spec) -> dict:
+    """One rank of phase 10 (gates (a)-(d)); every rank runs the same
+    program on the shared card."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(TP_DEVICE)
+    mesh = make_test_mesh(model=TP_RANKS)
+    if rank == 0:
+        log(f"  mesh {mesh}")
+    t0 = time.perf_counter()
+    out = {"execute_err": tp_execute(rank, mesh, dev)}
+    out["execute_s"] = time.perf_counter() - t0
+    out["engine"] = tp_engine(rank, mesh, dev, spec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe"] = tp_moe(rank, mesh, dev, spec["card"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["matmul"] = tp_matmul(rank, mesh, dev)
+    return out
+
+
+def phase10(card, dev):
+    """Tensor- and expert-parallel serving over ``TP_RANKS`` ranks on this
+    one card.  Returns (the ranks' kernel launches on the engine run, max
+    abs error, rank 0's shard-shape times)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.serve import ServeEngine
+
+    _build.build("dslot_matmul")     # built once here; every rank loads it
+    log(f"  world: {TP_RANKS} ranks sharing {TP_DEVICE} over {TP_BACKEND} (one "
+        f"card, and NCCL needs a device per rank), collective timeout "
+        f"{TP_TIMEOUT} s")
+    # the unsharded engine on this card: same weights, scale and traffic
+    base, dense, params = tp_olmo(dev)
+    scale = calibrated_act_scale(dense, params, base.vocab_size, dev)
+    cfg, model, scfg = tp_engine_model(base, scale)
+    specs = tp_traffic(cfg.vocab_size)
+    eng = ServeEngine(model, params, scfg)
+    plain = drive_engine(eng, specs, dev, n_first=len(specs))
+    want = streams(plain)
+    log(f"  unsharded engine, {TP_REQUESTS} requests (budgets "
+        f"{[s.get('n_planes', 8) for s in specs]}): {plain['tokens']} tokens "
+        f"in {plain['seconds']:.2f} s, "
+        f"{plain['tokens'] / plain['seconds']:.1f} tokens/s, "
+        f"{plain['run_steps']} steps [{card}]")
+    del eng, params, model, dense, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = run_world(phase10_rank, TP_RANKS, backend=TP_BACKEND,
+                    device=TP_DEVICE, timeout=TP_TIMEOUT, deadline=TP_DEADLINE,
+                    args=(dict(card=card, act_scale=scale, traffic=specs),))
+    log(f"  the world of {TP_RANKS} ranks ran in "
+        f"{time.perf_counter() - t0:.1f} s (gate (a) "
+        f"{res[0]['execute_s']:.1f} s of it)")
+    max_err = max(r["execute_err"] for r in res)
+    launches = 0
+    for rank, r in enumerate(res):
+        e = r["engine"]
+        if not e["done"] or any(e["faults"]):
+            raise AssertionError(f"rank {rank}: requests not done or faults "
+                                 f"{e['faults']}")
+        if e["launches"] != e["expected"]:
+            raise AssertionError(f"rank {rank}: {e['launches']} kernel "
+                                 f"launches, expected {e['expected']}")
+        if [t for t, _ in e["streams"]] != [t for t, _ in want]:
+            raise AssertionError(f"rank {rank}: token streams differ from "
+                                 f"the unsharded engine's")
+        if [m for _, m in e["streams"]] != [m for _, m in want]:
+            raise AssertionError(f"rank {rank}: planes_used_mean differs "
+                                 f"from the unsharded engine's")
+        launches += e["launches"]
+        max_err = max(max_err, e["max_err"])
+        log(f"  [rank {rank}] engine: {e['tokens']} tokens in "
+            f"{e['seconds']:.2f} s, {e['tokens'] / e['seconds']:.1f} "
+            f"tokens/s, {e['steps']} steps; {e['launches']} kernel launches "
+            f"(layers x forwards = {e['expected']}); streams and "
+            f"planes_used_mean equal to the unsharded engine's; peak memory "
+            f"{e['peak_gb']:.2f} GB [{card}]")
+        for label, key in (("decode forward", "decode_walls"),
+                           ("admission forward", "admission_walls")):
+            log_forward(f"[rank {rank}] {label} [{card}]", e[key],
+                        e["traces"][label], "the warm-up's third call")
+        for (rows, dt), ms in sorted(e["gathers"].items()):
+            ms = sorted(ms)
+            log(f"  [rank {rank}] all_gather of ({rows}, ...) {dt}: median "
+                f"{ms[len(ms) // 2]:.3f} ms (min {ms[0]:.3f}, max "
+                f"{ms[-1]:.3f}, {len(ms)} calls in the timed run) [{card}]")
+        for label in ("decode", "admission"):
+            # each forward's gathers against that forward's own wall
+            walls, ms = e[f"{label}_walls"], e[f"{label}_gathers"]
+            share = sorted(g / w for g, w in zip(ms, walls))
+            ms = sorted(ms)
+            log(f"  [rank {rank}] all_gather per {label} forward "
+                f"({e['layers']} layers x 2 gathers, in the timed run): "
+                f"median {ms[len(ms) // 2]:.2f} ms, share of the same "
+                f"forward's wall median {share[len(share) // 2]:.3f} (min "
+                f"{share[0]:.3f}, max {share[-1]:.3f}, {len(share)} "
+                f"forwards) [{card}]")
+        m, c = r["moe"], r["matmul"]
+        log(f"  [rank {rank}] expert parallel {EP_ARCH} ({EP_BATCH} x "
+            f"{EP_SEQ} tokens): max |y - dense| {m['err']:.3g} (|y| up to "
+            f"{m['y_max']:.3g}; equal: {m['exact']}), aux err "
+            f"{m['aux_err']:.3g}; choices dropped: {m['drops']}; dense "
+            f"apply_moe {m['dense_ms']:.3f} ms, "
+            f"apply_moe_ep {m['ep_ms']:.3f} ms [{card}]")
+        log(f"  [rank {rank}] collective matmul {CM_SHAPE[0]} x "
+            f"{CM_SHAPE[1]} @ {CM_SHAPE[1]} x {CM_SHAPE[2]}: error "
+            f"{c['err']:.3g} of the largest |y| (all-gather lowering "
+            f"{c['err_plain']:.3g}); ring {c['ring_ms']:.3f} ms, all-gather "
+            f"lowering {c['plain_ms']:.3f} ms, the rank's product alone "
+            f"{c['local_ms']:.3f} ms [{card}]")
+    return launches, max_err, res[0]["engine"]["times"]
+
+
 # ------------------------------------------------------------ phase 3
 
 def cpu_copy(prep):
@@ -2482,13 +3033,20 @@ def main() -> int:
         f"{dm.dslot_matmul_cuda.launches - n0} (the model has no DSLOT "
         f"layer; training launches no hand-written kernel)")
 
+    # -------------------------------------------------- 10. parallel serving
+    log(f"phase 10: tensor- and expert-parallel serving over {TP_RANKS} "
+        f"ranks [{card}]")
+    tp_launches, tp_err, tp_times = phase10(card, dev)
+    max_err = max(max_err, tp_err)
+    main_times += tp_times
+
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)
     record = {"kernels": [{
         "name": "dslot_matmul", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": main_launches + lm_launches + eng_launches + mn_launches
-        + hy_launches,
+        + hy_launches + tp_launches,
         "max_abs_err": max_err,
         "ms": sum(t["ms"] for t in main_times),
         "plain_ms": sum(t["plain_ms"] for t in main_times),

@@ -27,8 +27,27 @@ falls back from one to the other.
 ``sort_columns=True`` reorders output columns by their weight column sum (a
 static, offline permutation) so ReLU-dead neurons cluster into whole tiles;
 the inverse permutation is applied to the output, so results are unchanged.
-Tensor-parallel sharding of the prepared state is not part of this module
-yet.
+
+Tensor parallelism (``dslot_prepare(mesh=..., tp_axis=...)``): the prepared
+state splits along the output (N) axis at tile granularity over the ranks
+of the mesh's ``tp_axis``.  Termination is decided per N tile from per-
+column tables and per-tile plane bounds, so each rank runs the same kernel
+on its own columns with its own tables and no coordination.  Prepare sorts
+and pads over all of N, pads the tile count to a multiple of the shard
+count with all-zero tiles of plane bound 0 (exact no-ops: they issue no
+plane and emit zeros), and each rank keeps only its own columns of ``w``
+and the colsum tables and its own bounds, about 1/shards of the bytes.
+Execute quantizes the replicated activations, runs the kernel (or its
+plain version) on the rank's slice, ``all_gather``s the output and the
+per-tile ``planes_used`` and bounds over the axis, slices the pad off, and
+only then applies the inverse column permutation and the statistics, as
+the unsharded path does.  Results and every ``DslotStats`` field equal the
+unsharded path's bit for bit where the backend computes a column the same
+way whatever the others: the plane path of the kernel (ReLU layers), and
+the plain version run on one thread (a multithreaded CPU BLAS may split K
+across threads by the product's width).  The kernel's product path
+(layers without ReLU) picks its K split from the launch's tile count, so a
+shard may sum K in another order there.
 """
 
 from __future__ import annotations
@@ -39,6 +58,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.msr import tile_plane_bound
+from repro_torch.distributed import all_gather, axis_rank, axis_size
 
 from . import dslot_matmul as dm
 from .dslot_matmul import _pad_to, colsum_tables, q_storage_dtype, select_block_k
@@ -68,7 +88,12 @@ class DslotStats(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class DslotWeights:
-    """Prepared (weight-stationary) state of one DSLOT layer."""
+    """Prepared (weight-stationary) state of one DSLOT layer.
+
+    With a mesh, ``w``, the colsum tables and ``msr_bound`` hold this rank's
+    columns and tiles only (``Np / shards`` columns of the tile-padded
+    layout); ``inv_perm``, ``d_in`` and ``d_out`` describe the whole layer.
+    """
     w: torch.Tensor                    # (Kp, Np) padded (+sorted) weights
     suffix_colsum: torch.Tensor        # (Kt, Np) f32 — unseen-chunk table
     total_colsum: torch.Tensor         # (1, Np) f32 — all-of-K table
@@ -84,6 +109,8 @@ class DslotWeights:
     block_k: int = 0                   # resolved chunk size
     d_in: int = 0                      # K before padding
     d_out: int = 0                     # N before padding
+    mesh: object | None = None         # tensor-parallel DeviceMesh, or None
+    tp_axis: str = "model"             # mesh axis the N tiles shard over
 
     def with_scale(self, x_scale) -> "DslotWeights":
         """Attach a calibrated activation scale (see ``calibrate_scale``)."""
@@ -127,7 +154,8 @@ def dslot_prepare(w: torch.Tensor, *, n_bits: int = 8, relu: bool = True,
                   signed: bool = False, sort_columns: bool = False,
                   block_m: int = 128, block_n: int = 128,
                   block_k: int | None = None, x_scale=None,
-                  msr_bound: bool = True) -> DslotWeights:
+                  msr_bound: bool = True, mesh=None,
+                  tp_axis: str = "model") -> DslotWeights:
     """One-time weight lowering: sort, pad, pick ``block_k``, build the
     termination tables and the weight-side MSR plane bound.
 
@@ -136,9 +164,17 @@ def dslot_prepare(w: torch.Tensor, *, n_bits: int = 8, relu: bool = True,
     (``core.msr.tile_plane_bound``): tiles proven output-inert from the
     weights alone get bound 0 and are never issued; results are identical
     to ``msr_bound=False``.
+
+    ``mesh``/``tp_axis`` (a ``DeviceMesh`` and one of its axis names) make
+    every ``dslot_execute`` of the result tensor-parallel over that axis;
+    each rank keeps its own columns (module docstring).  Every rank of the
+    axis calls this with the same ``w``.
     """
     global _PREPARE_CALLS
     _PREPARE_CALLS += 1
+    if mesh is not None and tp_axis not in mesh.mesh_dim_names:
+        raise ValueError(f"tp_axis {tp_axis!r} not in mesh axes "
+                         f"{mesh.mesh_dim_names}")
     K, N = w.shape
 
     inv_perm = None
@@ -159,11 +195,36 @@ def dslot_prepare(w: torch.Tensor, *, n_bits: int = 8, relu: bool = True,
     if x_scale is not None:
         x_scale = torch.as_tensor(x_scale, dtype=torch.float32,
                                   device=w.device)
+    if mesh is not None:
+        w_p, suffix_colsum, total_colsum, bound = _shard_columns(
+            mesh, tp_axis, block_n, n_bits, w_p, suffix_colsum,
+            total_colsum, bound)
     return DslotWeights(
         w=w_p, suffix_colsum=suffix_colsum, total_colsum=total_colsum,
         inv_perm=inv_perm, x_scale=x_scale, msr_bound=bound, n_bits=n_bits,
         relu=relu, signed=signed, block_m=block_m, block_n=block_n,
-        block_k=bk, d_in=K, d_out=N)
+        block_k=bk, d_in=K, d_out=N, mesh=mesh, tp_axis=tp_axis)
+
+
+def _shard_columns(mesh, axis, block_n, n_bits, w_p, suffix, total, bound):
+    """This rank's columns and tiles of the prepared arrays.  The tile
+    count is padded to a multiple of the shard count with all-zero tiles of
+    plane bound 0; without an MSR bound the real tiles get ``n_bits``, which
+    execute clamps to the call's depth, as it does for no bound at all."""
+    shards, idx = axis_size(mesh, axis), axis_rank(mesh, axis)
+    Nt = w_p.shape[1] // block_n
+    per = -(-Nt // shards)
+    if bound is None:
+        bound = torch.full((Nt,), n_bits, dtype=torch.int32,
+                           device=w_p.device)
+    lo, hi = idx * per, (idx + 1) * per
+
+    def cols(t):             # zero-padded to shards * per tiles, then sliced
+        t = _pad_to(t, shards * per * block_n, axis=1)
+        return t[:, lo * block_n:hi * block_n].contiguous()
+
+    bound = _pad_to(bound.to(torch.int32), shards * per, axis=0)
+    return cols(w_p), cols(suffix), cols(total), bound[lo:hi].contiguous()
 
 
 # ------------------------------------------------------------- execution
@@ -202,7 +263,7 @@ def _execute_core(prepared: DslotWeights, x: torch.Tensor, npl: torch.Tensor,
     bud_p = None if row_budget is None else \
         _pad_to(row_budget.to(torch.int32), cfg.block_m, axis=0)
 
-    Nt = cfg.w.shape[1] // cfg.block_n
+    Nt = cfg.w.shape[1] // cfg.block_n          # this rank's, when sharded
     bnd = torch.full((Nt,), D, dtype=torch.int32, device=x.device) \
         if cfg.msr_bound is None \
         else torch.clamp_max(cfg.msr_bound.to(torch.int32), D)
@@ -211,6 +272,8 @@ def _execute_core(prepared: DslotWeights, x: torch.Tensor, npl: torch.Tensor,
                          cfg.block_n, cfg.block_k, cfg.suffix_colsum,
                          cfg.total_colsum[0], npl_scalar, bud_p, bnd)
     used = torch.minimum(used, npl_scalar.to(torch.int32))
+    if cfg.mesh is not None:
+        out_p, used, bnd = _gather_shards(cfg, out_p, used, bnd)
 
     out = out_p[:M, :cfg.d_out] * step
     if cfg.inv_perm is not None:
@@ -232,6 +295,18 @@ def _execute_core(prepared: DslotWeights, x: torch.Tensor, npl: torch.Tensor,
     return out, DslotStats(planes_used=used, n_planes=D,
                            skipped_frac=skipped, row_planes_used=rows_used,
                            planes_bounded=bounded)
+
+
+def _gather_shards(cfg: DslotWeights, out_p: torch.Tensor,
+                   used: torch.Tensor, bnd: torch.Tensor):
+    """The whole layer's padded output, ``planes_used`` and plane bounds
+    from every rank's slice (two ``all_gather``s over the tp axis), with
+    the pad tiles of the shard layout sliced off the tile tables."""
+    Nt = -(-cfg.d_out // cfg.block_n)
+    out_p = all_gather(out_p, cfg.mesh, cfg.tp_axis, dim=1)
+    tiles = all_gather(torch.cat([used, bnd[None]]), cfg.mesh, cfg.tp_axis,
+                       dim=1)[:, :Nt]
+    return out_p, tiles[:-1], tiles[-1]
 
 
 def dslot_execute(prepared: DslotWeights, x: torch.Tensor, *,

@@ -14,7 +14,9 @@ Both layers sit on the prepare/execute split of ``kernels.ops``:
   re-prepares and never rebuilds anything.
 
 The device of the tensors picks the execution: CUDA tensors launch the CUDA
-kernel, CPU tensors run its plain version.  Per-call statistics come back
+kernel, CPU tensors run its plain version.  ``mesh``/``tp_axis`` prepare the
+layer tensor-parallel: each rank keeps its own output columns and execution
+gathers the rest (``kernels/ops.py``).  Per-call statistics come back
 as ``DslotLayerStats`` and through the ``repro_torch.models.stats`` side
 channel (``{name}.skipped_frac``, ``{name}.planes_used_mean``,
 ``{name}.row_planes_used``, ``{name}.planes_bounded_mean``).
@@ -107,6 +109,8 @@ class DslotDense:
     block_m: int = 128
     block_n: int = 128
     block_k: int | None = None       # None = the reference's auto choice
+    mesh: object | None = None       # tensor-parallel mesh (N-axis shards)
+    tp_axis: str = "model"
 
     # ------------------------------------------------------------ lifecycle
 
@@ -124,7 +128,8 @@ class DslotDense:
             params["w"].to(torch.float32), n_bits=self.n_bits,
             relu=self.relu, signed=self.signed,
             sort_columns=self.sort_columns, block_m=self.block_m,
-            block_n=self.block_n, block_k=self.block_k)
+            block_n=self.block_n, block_k=self.block_k, mesh=self.mesh,
+            tp_axis=self.tp_axis)
         return {**params, "dslot": prepared}
 
     def calibrate(self, params: dict, x_sample: torch.Tensor) -> dict:
@@ -181,6 +186,8 @@ class DslotConv2d:
     block_m: int = 128
     block_n: int = 128
     block_k: int | None = None
+    mesh: object | None = None       # tensor-parallel mesh (N-axis shards)
+    tp_axis: str = "model"
 
     # ------------------------------------------------------------ lifecycle
 
@@ -200,7 +207,8 @@ class DslotConv2d:
                                                   self.out_channels),
             n_bits=self.n_bits, relu=self.relu, signed=self.signed,
             sort_columns=self.sort_columns, block_m=self.block_m,
-            block_n=self.block_n, block_k=self.block_k)
+            block_n=self.block_n, block_k=self.block_k, mesh=self.mesh,
+            tp_axis=self.tp_axis)
         return {**params, "dslot": prepared}
 
     def calibrate(self, params: dict, x_sample: torch.Tensor) -> dict:

@@ -88,7 +88,7 @@ def _apply_mlp_dslot(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     return apply_dense(p["down"], h.to(x.dtype))
 
 
-def prepare_mlp_dslot(params, cfg):
+def prepare_mlp_dslot(params, cfg, mesh=None, tp_axis="model"):
     """Attach the one-time DSLOT lowering to every MLP up-projection in a
     model params tree.
 
@@ -99,6 +99,10 @@ def prepare_mlp_dslot(params, cfg):
     (G, K, N) group.  Weights are prepared in f32, like the reference, so
     the termination tables equal the reference's.  Returns the params
     unchanged when the digit-serial path does not apply.
+
+    ``mesh``/``tp_axis`` prepare every up-projection tensor-parallel: each
+    rank keeps its own output columns, and execution gathers the rest with
+    results equal to the unsharded path's (``kernels/ops.py``).
     """
     if not mlp_uses_dslot(cfg):
         return params
@@ -108,7 +112,8 @@ def prepare_mlp_dslot(params, cfg):
         return dslot_prepare(
             w.to(torch.float32), n_bits=d.n_bits, relu=True, signed=True,
             sort_columns=d.sort_columns, block_m=d.block_m, block_n=d.block_n,
-            block_k=d.block_k, x_scale=d.act_scale)
+            block_k=d.block_k, x_scale=d.act_scale, mesh=mesh,
+            tp_axis=tp_axis)
 
     def walk(node):
         if isinstance(node, dict):

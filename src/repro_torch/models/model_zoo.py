@@ -96,12 +96,14 @@ class Model:
             return 0
         return count(params)
 
-    def prepare_dslot(self, params) -> Params:
+    def prepare_dslot(self, params, mesh=None, tp_axis="model") -> Params:
         """One-time DSLOT weight lowering for serving (no-op unless the
         config's digit-serial MLP path applies): attaches prepared
-        ``DslotWeights`` to every MLP up-projection."""
+        ``DslotWeights`` to every MLP up-projection.  ``mesh``/``tp_axis``
+        prepare them tensor-parallel (``prepare_mlp_dslot``)."""
         from .mlp import prepare_mlp_dslot
-        return prepare_mlp_dslot(params, self.cfg)
+        return prepare_mlp_dslot(params, self.cfg, mesh=mesh,
+                                 tp_axis=tp_axis)
 
     # ------------------------------------------------------------- helpers
 

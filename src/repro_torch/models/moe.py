@@ -9,11 +9,13 @@ zero, so the residual path carries the token, and its scatter adds exact
 zeros into the expert's last slot.  The expert FFN is one batched product
 over (E, C, D), so expert flops scale with the active tokens only.
 
-The reference computes dispatch per data shard of its mesh (``G =
-fsdp_size()`` shards, ``pspec.constrain`` placing each buffer).  The port
-has no mesh yet: ``constrain`` is a no-op and ``fsdp_size()`` is 1, so
-``G = 1`` here and dispatch is global, which is the reference's semantics
-without a mesh.  Expert parallelism comes with the mesh slice.
+Dispatch is computed per data shard, as the reference does: with a mesh
+installed (``models/pspec.py``) the tokens split into ``G = fsdp_size()``
+groups when that divides the batch, each with its own capacity and arrival
+ranks, so which choices drop depends on ``G``.  Without a mesh ``G = 1``
+and dispatch is global.  Expert parallelism (``repro_torch.distributed.
+expert_parallel``) reuses ``moe_block``'s dispatch and combine with the
+expert FFN swapped for an exchange over the mesh.
 
 Ties in the router's top-k go to the lower expert index, as
 ``jax.lax.top_k`` breaks them: the choice is a stable descending sort.  The
@@ -28,6 +30,7 @@ import torch
 
 from .layers import Params, _matmul, normal
 from .mlp import _ACTS
+from .pspec import fsdp_size
 
 TOKEN_BLOCK = 4096      # tokens per dispatch block of a long prefill
 
@@ -56,20 +59,23 @@ def apply_moe(p: Params, x: torch.Tensor, cfg
     """x: (B, S, D) -> (y, aux_loss), aux the Switch load-balancing loss.
 
     Decode steps (S == 1) use capacity T*K: dropless by construction.  A
-    prefill of more than ``TOKEN_BLOCK`` tokens that divides into whole
-    blocks streams through the experts block by block (dispatch buffers
-    scale with the block, not the sequence); its aux is the mean over the
-    blocks."""
+    prefill of more than ``TOKEN_BLOCK`` tokens per data shard that divides
+    into whole blocks streams through the experts block by block (dispatch
+    buffers scale with the block, not the sequence); its aux is the mean
+    over the blocks."""
     B, S, D = x.shape
-    T = B * S
-    flat = x.reshape(1, T, D)              # G = 1: no mesh (module doc)
-    tb = min(T, TOKEN_BLOCK)
-    nb = T // tb
-    if nb > 1 and T % tb == 0 and S > 1:
-        ys, auxs = zip(*[_moe_block(p, flat[:, i * tb:(i + 1) * tb], cfg, S)
+    G = fsdp_size() if B % max(fsdp_size(), 1) == 0 else 1
+    Tl = B * S // G
+    flat = x.reshape(G, Tl, D)
+    tb = min(Tl, TOKEN_BLOCK)
+    nb = Tl // tb
+    if nb > 1 and Tl % tb == 0 and S > 1:
+        C = moe_capacity(cfg, tb)
+        ys, auxs = zip(*[moe_block(p, flat[:, i * tb:(i + 1) * tb], cfg, C)
                          for i in range(nb)])
         return torch.cat(ys, dim=1).reshape(B, S, D), torch.stack(auxs).mean()
-    y, aux = _moe_block(p, flat, cfg, S)
+    C = Tl * cfg.top_k if S == 1 else moe_capacity(cfg, Tl)
+    y, aux = moe_block(p, flat, cfg, C)
     return y.reshape(B, S, D), aux
 
 
@@ -100,19 +106,29 @@ def route(p: Params, flat: torch.Tensor, cfg, C: int):
     return probs, gate_vals, expert_idx, keep, slot
 
 
-def _moe_block(p: Params, flat: torch.Tensor, cfg, S: int
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One token block through the experts.  flat: (G, Tl, D)."""
+def expert_ffn(p: Params, xb: torch.Tensor, cfg) -> torch.Tensor:
+    """Every expert's FFN on its capacity slots: (G, E, C, D) -> same."""
+    act = _ACTS[cfg.act]
+    up = _matmul(xb, p["up"], xb.dtype)
+    h = act(_matmul(xb, p["gate"], xb.dtype)) * up if cfg.glu else act(up)
+    return _matmul(h, p["down"], h.dtype)
+
+
+def moe_block(p: Params, flat: torch.Tensor, cfg, C: int, ffn=expert_ffn,
+              mean=lambda t: t) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token block through the experts at capacity ``C``.  flat: (G,
+    Tl, D).  ``ffn(p, xb (G, E, C, D), cfg) -> (G, E, C, D)`` is the expert
+    FFN; ``mean`` turns the router's statistics averaged over these tokens
+    into their average over every token of the batch (the identity when
+    ``flat`` is the batch)."""
     G, Tl, D = flat.shape
     E, K = cfg.n_experts, cfg.top_k
-    act = _ACTS[cfg.act]
-    C = Tl * K if S == 1 else moe_capacity(cfg, Tl)
     probs, gate_vals, expert_idx, keep, slot = route(p, flat, cfg, C)
 
     # load-balancing auxiliary loss (Switch eq. 4), global means
-    me = probs.mean(dim=(0, 1))                                   # (E,)
+    me = mean(probs.mean(dim=(0, 1)))                             # (E,)
     onehot = torch.nn.functional.one_hot(expert_idx, E).to(torch.float32)
-    ce = onehot.sum(dim=2).mean(dim=(0, 1))
+    ce = mean(onehot.sum(dim=2).mean(dim=(0, 1)))
     aux = E * (me * ce).sum() / K
 
     # dispatch: scatter-add into (G, E*C, D); dropped choices add zeros
@@ -122,12 +138,9 @@ def _moe_block(p: Params, flat: torch.Tensor, cfg, S: int
     flat_slot = slot.reshape(G, Tl * K)
     for g in range(G):
         buf[g].index_add_(0, flat_slot[g], src[g])
-    xb = buf.reshape(G, E, C, D)
 
     # expert FFN, batched over shards and experts
-    up = _matmul(xb, p["up"], xb.dtype)
-    h = act(_matmul(xb, p["gate"], xb.dtype)) * up if cfg.glu else act(up)
-    yb = _matmul(h, p["down"], h.dtype).reshape(G, E * C, D)
+    yb = ffn(p, buf.reshape(G, E, C, D), cfg).reshape(G, E * C, D)
 
     # combine: gather each choice's expert output, weight by its gate
     gathered = torch.gather(

@@ -8,10 +8,9 @@ in ``repro_torch.configs.base.DslotConfig``::
 
     eng = ServeEngine(model, params, ServeConfig(n_slots=4, max_len=512))
 
-Two of the reference's fields are not here: ``mesh`` and ``tp_axis`` belong
-to tensor-parallel serving, a later slice of the port, and ``jit_prefill``
-selects between a compiled and an eager lane forward, while the port runs
-every forward eagerly.
+One of the reference's fields is not here: ``jit_prefill`` selects between
+a compiled and an eager lane forward, while the port runs every forward
+eagerly.
 """
 
 from __future__ import annotations
@@ -67,6 +66,12 @@ class ServeConfig:
         co-batched survivors keep their token streams.
     faults: a ``repro_torch.serve.faults.FaultPlan`` consulted at the
         engine's fault hook points; ``None`` injects nothing.
+    mesh: tensor-parallel mesh (a ``DeviceMesh``, e.g. from
+        ``repro_torch.launch.mesh.make_test_mesh``).  The engine installs it
+        in ``models/pspec.py`` and prepares the DSLOT weights N-sharded over
+        ``mesh[tp_axis]``.  Every rank runs the same engine on the same
+        traffic; token streams equal ``mesh=None``'s.
+    tp_axis: the mesh axis the DSLOT N tiles shard over.
     """
     n_slots: int = 4
     max_len: int = 512
@@ -80,3 +85,5 @@ class ServeConfig:
     max_step_retries: int = 2
     quarantine_nonfinite: bool = True
     faults: Any = None
+    mesh: Any = None
+    tp_axis: str = "model"

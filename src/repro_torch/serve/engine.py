@@ -32,13 +32,16 @@ solo ``generate`` of the same prompt (in DSLOT mode with a calibrated
 how a prompt is split, so ``try_add`` rejects budgeted multi-chunk
 admissions on an uncalibrated model).
 
-Hardening: ``step()`` never raises.  Exceptions from admission or decode
-forwards are retried up to ``ServeConfig.max_step_retries`` times and logged
-to ``ServeEngine.errors``.  The model writes its full-attention KV rings in
-place, and the step stays transactional all the same: ``pos``, the
-recurrent states, a chunk's sliding-window rings and the host bookkeeping
-move only after a forward succeeds, and a retry writes the same ring rows
-with the same values.  Non-finite logit rows quarantine exactly the poisoned
+Hardening: ``step()`` never raises but for a failed collective.
+Exceptions from admission or decode forwards are retried up to
+``ServeConfig.max_step_retries`` times and logged to ``ServeEngine.errors``;
+a collective that fails in a tensor-parallel engine
+(``torch.distributed.DistError``) propagates, since a retry on one rank
+would post a collective its peers never match.  The model writes its
+full-attention KV rings in place, and the step stays transactional all the
+same: ``pos``, the recurrent states, a chunk's sliding-window rings and the
+host bookkeeping move only after a forward succeeds, and a retry writes the
+same ring rows with the same values.  Non-finite logit rows quarantine exactly the poisoned
 slot; per-request deadlines evict overdue requests wherever they are;
 ``drain()``/``close()`` shut down; the fault plane in
 ``repro_torch.serve.faults`` (``ServeConfig.faults``) exercises it all, and
@@ -54,6 +57,13 @@ per-request planes-executed account is fed back to the policy on finish.
 With ``ServeConfig.slo`` set, a ``repro_torch.serve.slo.SloController``
 clamps every slot's budget to its QoS tier's current level each step —
 shedding planes under a burst, restoring them under slack.
+
+Tensor-parallel serving (``ServeConfig.mesh``): every rank of the mesh runs
+this engine on the same traffic, in lockstep (SPMD).  Activations are
+replicated; each DSLOT MLP up-projection runs the kernel on the rank's own
+output columns and gathers the rest.  Every host decision (sampling, the SLO
+loop on its step clock, fault plans keyed by step) must come out the same on
+every rank, so a ``sample`` with a generator must be seeded alike on all.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import DslotWeights
+from repro_torch.models import pspec
 from repro_torch.models import stats as stats_channel
 from repro_torch.models.attention import cache_capacity
 from repro_torch.models.mlp import mlp_uses_dslot
@@ -322,9 +333,17 @@ class ServeEngine:
         self.cfg = cfg or ServeConfig()
         self.model = model
         self.dslot = mlp_uses_dslot(model.cfg)
+        if self.cfg.mesh is not None:
+            # tensor-parallel serving: every rank runs this engine on the
+            # same traffic; the DSLOT layers shard through the mesh baked
+            # into their prepared state, and model code reads the mesh's
+            # sizes from the pspec registry
+            pspec.set_mesh(self.cfg.mesh)
         # one-time weight-stationary lowering: every decode step executes
         # against the prepared digit-plane tables (no per-call re-encode)
-        self.params = model.prepare_dslot(params) if self.dslot else params
+        self.params = model.prepare_dslot(
+            params, mesh=self.cfg.mesh,
+            tp_axis=self.cfg.tp_axis) if self.dslot else params
         self.device = _params_device(self.params)
         self.n_slots = self.cfg.n_slots
         self.max_len = self.cfg.max_len
@@ -639,14 +658,14 @@ class ServeEngine:
         control, then advance all live slots by one token.  Returns
         finished requests.
 
-        Never raises (a closed engine excepted): exceptions from admission
-        or decode work are retried up to ``ServeConfig.max_step_retries``
-        times within the step and logged to ``self.errors``.  Admission that
-        fails every retry evicts its in-flight tasks with
-        ``phase == "failed"``; a decode that fails every retry stalls the
-        pool one step, with ``pos`` and every request as they were — ring
-        rows a failed attempt wrote sit at positions the next decode writes
-        again before it reads them.
+        Never raises (a closed engine and a failed collective excepted):
+        exceptions from admission or decode work are retried up to
+        ``ServeConfig.max_step_retries`` times within the step and logged
+        to ``self.errors``.  Admission that fails every retry evicts its
+        in-flight tasks with ``phase == "failed"``; a decode that fails
+        every retry stalls the pool one step, with ``pos`` and every request
+        as they were — ring rows a failed attempt wrote sit at positions the
+        next decode writes again before it reads them.
         """
         if self._closed:
             raise RuntimeError("ServeEngine is closed")
@@ -666,6 +685,8 @@ class ServeEngine:
                     inj.raise_if("admission_tick")
                 self._admission_tick()
                 break
+            except torch.distributed.DistError:
+                raise                # ranks disagree: no retry repairs it
             except Exception as e:  # noqa: BLE001 — absorb, log, retry
                 self.errors.append((self._steps, "admission", repr(e)))
         else:
@@ -696,6 +717,8 @@ class ServeEngine:
                     inj.raise_if("decode_forward")
                 decoded = self._decode(toks, budgets)
                 break
+            except torch.distributed.DistError:
+                raise
             except Exception as e:  # noqa: BLE001
                 self.errors.append((self._steps, "decode", repr(e)))
         if decoded is None:

@@ -39,6 +39,9 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import (init_train_state, make_train_step,
                                     microbatch_grads)
 from repro_torch.tree import leaves, tree_map
+from repro_torch.launch.mesh import run_world
+
+import torch_parallel_ranks
 
 
 @pytest.fixture
@@ -482,3 +485,29 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LOADED", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("dslot_matmul")
+
+
+@pytest.mark.gpu
+def test_sharded_execute_on_card_equals_unsharded(cuda):
+    """Two ranks sharing the card over gloo: the sharded execute (ReLU,
+    f32 and bf16 weights, scalar and per-row budgets, sorted columns, a
+    tile count the shards do not divide) equals the unsharded launch bit
+    for bit, statistics included."""
+    _build.build("dslot_matmul")          # once, before the ranks load it
+    rng = np.random.default_rng(5)
+    cases = []
+    for wdtype, npl, sort in (("float32", 8, True), ("bfloat16", 3, False),
+                              ("float32", "rows", True)):
+        w = rng.normal(0, 0.05, (96, 120)).astype(np.float32)
+        w[:, ::3] -= 0.1                   # ReLU-dead columns terminate
+        x = rng.normal(0.2, 0.5, (64, 96)).astype(np.float32)
+        if npl == "rows":
+            npl = rng.integers(1, 9, 64).astype(np.int32)
+        cases.append(dict(w=w, wdtype=wdtype, x=x, npl=npl, kw=dict(
+            sort_columns=sort, block_m=16, block_n=24, signed=True)))
+    flags = run_world(torch_parallel_ranks.card_execute, 2, backend="gloo",
+                      device="cuda:0", timeout=120, deadline=300,
+                      args=(cases,))
+    for rank_flags in flags:
+        for case_flags in rank_flags:
+            assert all(case_flags.values()), case_flags

@@ -325,7 +325,7 @@ def test_public_surface_matches_reference():
     assert sorted(tserve.__all__) == sorted(jserve.__all__)
     jfields = {f.name for f in dataclasses.fields(jserve.ServeConfig)}
     tfields = {f.name for f in dataclasses.fields(tserve.ServeConfig)}
-    assert jfields - tfields == {"mesh", "tp_axis", "jit_prefill"}
+    assert jfields - tfields == {"jit_prefill"}
     assert tfields <= jfields
     for name in tfields:
         assert getattr(tserve.ServeConfig(), name) == \
