@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, hold its CUDA kernel
 against the kernel's plain PyTorch version, train a model at full width,
-and serve one over two ranks sharing the card.
+serve one over two ranks sharing the card, and train it sharded over
+them.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
@@ -19,7 +20,14 @@ Phases (any failure exits non-zero and prints no result line):
    than SMs, no split); f32 weights of magnitudes 2^-20 to 1 under ReLU
    (which two bf16 parts would not hold); block_n 5 and 24 at the MLP's
    K = 1024; block 256 x 32 at K = 1024 (q rows too long to stage once, so
-   they ride with each sub-chunk).  Every case runs the kernel twice and
+   they ride with each sub-chunk); the tiles the kernel once refused
+   (``REPAIRED_TILES``: 128 x 24 and 1024 x 24 at K = 1024, the second
+   with a 2-stage ring at the shared-memory edge, 512 x 8 at K = 25 and
+   1024, ``block_n`` 1 at N = 70000 and 64 at N = 64 * 65537, past
+   grid.y's 65535 tiles, 144 x 24 with physical rows past ``block_m``,
+   256 x 66), each with ReLU on and off and f32 dyadic, f32
+   and bf16 weights; seamless's MLP up at 171 tiles of 24 columns, timed
+   at 128 x 24 and at phase 10's 32 x 24.  Every case runs the kernel twice and
    the two results must be equal bit for bit.  Dyadic weights (multiples
    of 2^-6) make every sum exact, so there the outputs and ``planes_used``
    must be equal.  On normal weights the outputs must agree within
@@ -187,7 +195,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``make_test_mesh(model=2)``.  Gate (a): ``tp_cases`` (phase 2's shapes
    with ReLU, f32 and bf16 weights, scalar and per-row budgets, sorted
    columns on and off, seamless's MLP up at ``block_n`` 24 with Nt = 171
-   and the conv with Nt = 1, so pad tiles of bound 0 appear; then three
+   at ``block_m`` 32 and 128 and the conv with Nt = 1 at ``block_m`` 128
+   and 512, so pad tiles of bound 0 appear; then three
    cases without ReLU) through ``dslot_execute``, sharded and unsharded on
    the card: with ReLU the output and every ``DslotStats`` field must be
    equal bit for bit; without ReLU (the kernel's product path picks its K
@@ -214,6 +223,43 @@ Phases (any failure exits non-zero and prints no result line):
    at the shard shapes (16, 2048) and (128, 2048) @ (2048, 4096) as in
    phase 4.
 
+11. Sharded training (``repro_torch.train.sharding``,
+   ``make_sharded_train_step``, ``distributed.compression``,
+   ``distributed.fault_tolerance``, ``Checkpointer`` with shardings): the
+   single-device yardsticks on the card first, on phase 9's gate copy
+   (olmo-1b's first 2 layers at full width in f32, ``TRAIN_SMALL``
+   batches): one step, 8 steps, and 8 steps in M = 4 microbatches.  Gate
+   (c) here: int8 and top-k (1%) compression of that copy's gradient
+   tree, two rounds each: the int8 payload below ``SH_INT8_RATIO`` of f32,
+   and decompressed payload plus residual equal to gradient plus the
+   previous residual within ``SH_EF_REL`` of each leaf's largest.  Then a
+   world of 2 ranks sharing ``cuda:0`` over ``gloo`` (as phase 10).  Gate
+   (a): one sharded step over (2, 1) and over (1, 2), loss and grad_norm
+   within ``TRAIN_LOSS_RTOL`` of the single device's, parameters within
+   1e-3 lr where its |g| exceeds ``TRAIN_FIRM`` of its leaf's largest and
+   2 lr anywhere, metrics equal on both ranks.  Gate (b):
+   ``ResilientTrainer`` over (2, 1), ``ckpt_every`` 3, a
+   ``NodeFailure(lost_nodes=1)`` at step 4, the survivor restored onto
+   (1, 1), 8 steps: ``steps_done`` 8, ``restarts`` 1, ``reshards`` 1,
+   finite losses, the restored leaves bit-equal to the committed
+   checkpoint; the survivor's steps after the restart against one device
+   stepping from that checkpoint, losses within ``TRAIN_LOSS_RTOL`` and
+   final parameters within 1e-3 lr where its |m| is firm and 2 lr
+   anywhere; against the uninterrupted single device, the losses before
+   the failure within ``TRAIN_LOSS_RTOL`` and the final parameters within
+   2 lr anywhere (their firm difference is printed beside the drift of one
+   device taking the same batches in M = 4 one-row microbatches: reason at
+   ``SH_ELASTIC``).  The timed run: full-width olmo-1b
+   (phase 9's config and data: seq 2048, global batch 8, M = 2) over
+   (2, 1), 1 untimed and ``SH_TIMED`` timed steps, a sharded
+   ``save_async`` after the second timed step; printed per rank: every
+   step's loss, grad_norm, lr, wall and the seconds of its own collectives
+   (synchronized before and after, inside the step's wall), the median,
+   min and max wall, the world's tokens/s beside phase 9's, the collective
+   share, the stored state and the peak memory over the steps, and the
+   checkpoint's snapshot and write times.  Phase 11 launches no DSLOT
+   kernel (GLU MLPs), and says so.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
 printed just before that.  The record's ``launches`` counts the kernel
@@ -232,6 +278,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -293,6 +340,7 @@ class Case:
     precision: object = 8   # int or "rows"
     sort: bool = False
     zero_tile: int | None = None    # N tile given plane bound 0
+    timed: bool = False     # timed in phase 4 (as every "f32 normal n8" is)
 
 
 def phase2_cases() -> list[Case]:
@@ -354,7 +402,100 @@ def phase2_cases() -> list[Case]:
              precision="rows",
              **{**mlp, "M": 512, "N": 128, "block_m": 256, "block_n": 32,
                 "block_k": 256, "sort": False}),
+        *repaired_tile_cases(),
     ]
+
+
+# Tiles the kernel once refused ("invalid argument"), each with ReLU on
+# (the plane path) and off (the product path), f32 dyadic (exact), f32
+# normal and bf16 normal weights.  128 x 24 and 512 x 8 need more than 16
+# warps of (1, 1) warp tiles, and a column count that is not a multiple of
+# 16 rules out (2, 2) and (4, 4); 1024 x 24 at K = 1024 also needs a 2-stage
+# ring (3 stages would take 250 KB of shared memory, above the 227 KB a
+# block may have); block_n 1 at N = 70000 and 64 at N = 64 * 65537 have
+# more N tiles than grid.y holds (65535), the second also more product
+# column tiles; 144 x 24 takes 160 physical rows (5 warps of 32 x 8 rows a
+# column), more than block_m, and 256 x 66 pads to 256 x 72 and takes 9
+# warps of 256 x 8.  The seamless MLP up at 2048 tokens and 171 tiles of 24
+# columns is timed at 128 x 24 and at phase 10's 32 x 24.
+REPAIRED_TILES = (
+    ("bm=128 bn=24 K=1024", dict(M=512, K=1024, N=96, block_m=128,
+                                 block_n=24, block_k=None)),
+    ("bm=1024 bn=24 K=1024 2-stage ring",
+     dict(M=2048, K=1024, N=48, block_m=1024, block_n=24, block_k=None)),
+    ("bm=512 bn=8 K=25", dict(M=1024, K=25, N=16, block_m=512, block_n=8,
+                              block_k=None)),
+    ("bm=512 bn=8 K=1024", dict(M=1024, K=1024, N=16, block_m=512,
+                                block_n=8, block_k=None)),
+    ("bm=16 bn=1 N=70000", dict(M=32, K=64, N=70000, block_m=16, block_n=1,
+                                block_k=None)),
+    ("bm=16 bn=64 N=4194368", dict(M=16, K=16, N=64 * 65537, block_m=16,
+                                   block_n=64, block_k=None)),
+    ("bm=144 bn=24 K=256 rows past bm",
+     dict(M=288, K=256, N=48, block_m=144, block_n=24, block_k=None)),
+    ("bm=256 bn=66 K=64", dict(M=512, K=64, N=132, block_m=256, block_n=66,
+                               block_k=None)),
+)
+
+
+def repaired_tile_cases() -> list[Case]:
+    out = []
+    for label, shape in REPAIRED_TILES:
+        for relu in (True, False):
+            geo = dict(shape, relu=relu, signed=True)
+            tag = "" if relu else " no-relu"
+            out += [Case(f"tile {label} f32 dyadic rows{tag}",
+                         weights="dyadic", precision="rows", **geo),
+                    Case(f"tile {label} f32 normal n6{tag}",
+                         weights="normal", precision=6, **geo),
+                    Case(f"tile {label} bf16 normal n8{tag}",
+                         weights="normal", wdtype=torch.bfloat16, **geo)]
+    up = dict(M=2048, K=1024, N=171 * 24, block_n=24, block_k=None,
+              relu=True, signed=True)
+    return out + [
+        Case("mlp bm=128 bn=24 f32 normal n8 repaired", weights="normal",
+             block_m=128, timed=True, **up),
+        Case("mlp bm=32 bn=24 (phase 10) f32 normal n8", weights="normal",
+             block_m=32, timed=True, **up)]
+
+
+def phase2(card, dev) -> tuple[float, dict]:
+    """Every ``phase2_cases`` case through the kernel twice and the plain
+    version once; returns the largest error and the times of the shapes
+    timed (one case a shape)."""
+    from repro_torch.kernels import dslot_matmul as dm
+
+    max_err = 0.0
+    shape_times = {}
+    for n, case in enumerate(phase2_cases()):
+        q, prep, kw = run_case(case, seed=100 + n, dev=dev)
+        a = dm.dslot_matmul_cuda(q, prep.w, **kw)
+        a2 = dm.dslot_matmul_cuda(q, prep.w, **kw)
+        b = dm.dslot_matmul_plain(q, prep.w, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(a.out, a2.out)
+                and torch.equal(a.planes_used, a2.planes_used)):
+            raise AssertionError(f"{case.name}: two launches differ")
+        err = compare(case.name, a, b, case.weights == "dyadic", q, prep.w,
+                      kw)
+        max_err = max(max_err, err)
+        if case.weights == "inert" and not (
+                int(a.planes_used.max()) == 0 and float(a.out.abs().max())
+                == 0.0):
+            raise AssertionError(f"{case.name}: an inert weight must issue "
+                                 f"no planes and emit zeros")
+        log(f"  {case.name}: max err {err:.3g}, planes_used mean "
+            f"{float(a.planes_used.float().mean()):.3f} "
+            f"(plain {float(b.planes_used.float().mean()):.3f}), "
+            f"tiles {a.planes_used.numel()}")
+        if case.timed or case.name.endswith("f32 normal n8"):  # one a shape
+            shape_times[case.name.split(" f32")[0]] = time_call(
+                case.name, q, prep.w, kw, (case.M, case.K, case.N),
+                lambda: dm.dslot_matmul_cuda(q, prep.w, **kw),
+                lambda: dm.dslot_matmul_plain(q, prep.w, **kw), card)
+        del q, prep, kw, a, a2, b
+        torch.cuda.empty_cache()
+    return max_err, shape_times
 
 
 def make_inputs(case: Case, seed: int):
@@ -2136,9 +2277,10 @@ def train_small_gates(dev) -> None:
         raise AssertionError(f"gate (c) microbatching: loss {dl}, params {dp}")
 
 
-def phase9(card, dev) -> None:
+def phase9(card, dev) -> float:
     """Training at full published width and depth (see the module
-    docstring): gates (a)-(e) and the step's figures."""
+    docstring): gates (a)-(e) and the step's figures.  Returns the timed
+    steps' tokens/s."""
     import math
     import shutil
 
@@ -2302,6 +2444,7 @@ def phase9(card, dev) -> None:
     finally:
         ck.wait()
         shutil.rmtree(ck_dir, ignore_errors=True)
+    return tokens / (med / 1e3)
 
 
 # ------------------------------------------------------------ phase 10
@@ -2324,9 +2467,9 @@ CM_RTOL = 1e-5                  # of the largest |y|
 def tp_cases() -> list[Case]:
     """Phase 2's shapes with ReLU for the sharded execute, among them
     seamless's MLP up at 2048 tokens with ``block_n`` 24 (Nt = 171, odd:
-    one pad tile of bound 0) and the CNN conv (Nt = 1: rank 1 holds only a
-    pad tile); then three without ReLU, which take the kernel's product
-    path."""
+    one pad tile of bound 0) at ``block_m`` 32 and 128, and the CNN conv
+    (Nt = 1: rank 1 holds only a pad tile) at ``block_m`` 128 and 512;
+    then three without ReLU, which take the kernel's product path."""
     B = 1024
     conv = dict(M=B * 576, K=25, N=8, block_m=128, block_n=8, block_k=None,
                 relu=True, signed=False)
@@ -2350,6 +2493,11 @@ def tp_cases() -> list[Case]:
              **bn24),
         Case("mlp bn=24 bf16 normal n8 sorted", weights="normal",
              wdtype=torch.bfloat16, **{**bn24, "sort": True}),
+        # tiles the kernel once refused: 128 x 24, and 512 x 8 at the conv
+        Case("mlp bm=128 bn=24 f32 dyadic rows", weights="dyadic",
+             precision="rows", **{**bn24, "block_m": 128}),
+        Case("conv bm=512 f32 normal n8", weights="normal",
+             **{**conv, "block_m": 512}),
         Case("mlp bm=256 bn=32 f32 dyadic rows", weights="dyadic",
              precision="rows",
              **{**mlp, "M": 512, "N": 128, "block_m": 256, "block_n": 32,
@@ -2816,6 +2964,551 @@ def phase10(card, dev):
     return launches, max_err, res[0]["engine"]["times"]
 
 
+# ------------------------------------------------------------ phase 11
+
+SH_RANKS = 2                    # ranks sharing one card
+SH_DEVICE = "cuda:0"
+SH_BACKEND = "gloo"             # NCCL refuses two ranks on one device
+SH_TIMEOUT = 600                # seconds a collective may wait for a peer
+SH_DEADLINE = 900               # seconds the whole world may take
+SH_MESHES = ((2, 1), (1, 2))    # gate (a): (data, model)
+SH_AXES = ("data", "model")
+SH_TIMED = 4                    # timed steps after one untimed step
+SH_CKPT_AFTER = 2               # sharded save_async after this timed step
+SH_ELASTIC = dict(n_steps=8, fail_at=4, lost_nodes=1, ckpt_every=3)
+# Gate (b) holds the restart apart from the reordering.  The run's first
+# steps take each rank's rows one at a time (one row a microbatch on a
+# rank) and average the two shards' gradients: the same gradients as one
+# device's 2-row microbatches, in other products and another summing order.
+# A parameter moved by them moves every later gradient a little, and over 8
+# steps that grows past gate (a)'s 1e-3 lr where firm (0.10-0.12 lr on an
+# H100 at 700 W), as far as one device taking the same batches in M = 4
+# one-row microbatches drifts.  So the survivor's steps after the restart
+# are held at gate (a)'s bounds against one device stepping from the
+# committed checkpoint it restored; against the uninterrupted run, its
+# losses before the failure within TRAIN_LOSS_RTOL and its final parameters
+# within 2 lr anywhere, with the firm difference and the M = 4 drift
+# printed beside each other.
+SH_EF_REL = 1e-6                # gate (c): error feedback, of a leaf's largest
+SH_INT8_RATIO = 0.3             # gate (c): the reference test's bound
+
+
+def small_train_setup(dev):
+    """Phase 9's gate copy: olmo-1b's first 2 layers at full width in f32,
+    its state from a seeded generator on ``dev`` (each process draws the
+    same one) and its batches (``TRAIN_SMALL``)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.step import init_train_state
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=2,
+                              scan_unroll=1, dtype="float32")
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator(dev).manual_seed(1),
+                             device=dev)
+    B, S = TRAIN_SMALL
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=S, global_batch=B,
+                         microbatches=2, seed=3)
+    batches = [pipe.next_host_batch()
+               for _ in range(SH_ELASTIC["n_steps"])]
+    return cfg, model, state, batches
+
+
+def clone_state(state):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda a: a.clone(), state)
+
+
+def host_params(state) -> list:
+    from repro_torch.tree import leaves
+    return [a.detach().float().cpu().numpy().copy()
+            for a in leaves(state.params)]
+
+
+def sharded_setup(mesh, state, host):
+    """The state's shardings and the batch shardings of ``host``."""
+    from repro_torch.train.sharding import (make_batch_shardings,
+                                            make_state_shardings)
+
+    B = host["tokens"].shape[0] * host["tokens"].shape[1]
+    return make_state_shardings(mesh, state), make_batch_shardings(
+        mesh, host, B, batch_axis=1)
+
+
+def sh_gate_a(rank, dev, model, state0, batch) -> dict:
+    """Gate (a) in a rank: one sharded step of the 2-layer copy over each
+    mesh of ``SH_MESHES``; rank 0 returns the gathered parameters."""
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import pspec
+    from repro_torch.train.sharding import gather_tree, shard_tree
+    from repro_torch.train.step import make_sharded_train_step
+
+    out = {}
+    for shape in SH_MESHES:
+        mesh = make_mesh(shape, SH_AXES)
+        pspec.set_mesh(mesh)
+        full = clone_state(state0)
+        ssh, bsh = sharded_setup(mesh, full, batch)
+        state = shard_tree(full, ssh.specs, mesh)
+        del full
+        step = make_sharded_train_step(model, train_opt(TRAIN_TIMED + 2),
+                                       ssh)
+        state, m = step(state, to_device(
+            make_global_batch(mesh, batch, bsh), dev))
+        res = {"metrics": {k: float(v) for k, v in m.items()}}
+        params = gather_tree(state.params, ssh.specs.params, mesh)
+        if rank == 0:
+            res["params"] = host_params(state._replace(params=params))
+        out[shape] = res
+        del state, params
+        pspec.set_mesh(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sh_elastic(rank, dev, model, state0, batches, lr) -> dict:
+    """Gate (b) in a rank: ``ResilientTrainer`` over (2, 1), a failure of
+    one rank, the survivor restored resharded onto (1, 1); on the survivor,
+    one device stepping from the committed checkpoint it restored, and its
+    steps held against the survivor's (``hold_train`` in units of ``lr``)."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.distributed.fault_tolerance import (NodeFailure,
+                                                         ResilientTrainer)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.sharding import gather_tree, shard_tree
+    from repro_torch.train.step import (make_sharded_train_step,
+                                        make_train_step)
+    from repro_torch.tree import leaves
+
+    el = SH_ELASTIC
+    opt = train_opt(TRAIN_TIMED + 2)
+    template = state0
+    ck_dir = ROOT / "build" / "phase11_elastic"
+    if rank == 0:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+    class Recording(Checkpointer):
+        """Keeps each restore's leaves, gathered, on the host."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.restored = []
+
+        def restore(self, step, target, shardings=None):
+            got = super().restore(step, target, shardings)
+            full = gather_tree(got, shardings.specs, shardings.mesh)
+            self.restored.append(
+                (step, [a.detach().cpu().clone() for a in leaves(full)]))
+            return got
+
+    def make(n_lost):
+        n = SH_RANKS - n_lost
+        mesh = make_mesh((n, 1), SH_AXES)        # collective: every rank
+        if mesh.get_coordinate() is None:
+            return None
+        ssh, bsh = sharded_setup(mesh, template, batches[0])
+
+        def place(host):
+            return to_device(make_global_batch(mesh, host, bsh), dev)
+
+        return mesh, ssh, make_sharded_train_step(model, opt, ssh), place
+
+    mesh0 = make_mesh((SH_RANKS, 1), SH_AXES)
+    ssh0, _ = sharded_setup(mesh0, template, batches[0])
+    state = shard_tree(template, ssh0.specs, mesh0)
+    ck = Recording(str(ck_dir), keep=2)
+    t0 = time.perf_counter()
+    state, rep = ResilientTrainer(
+        checkpointer=ck, make_mesh_and_step=make,
+        ckpt_every=el["ckpt_every"]).run(
+            state, lambda s: batches[s], el["n_steps"],
+            inject={el["fail_at"]: NodeFailure("rank 1 died",
+                                               lost_nodes=el["lost_nodes"])})
+    out = dict(steps_done=rep.steps_done, restarts=rep.restarts,
+               reshards=rep.reshards, losses=rep.losses,
+               seconds=time.perf_counter() - t0, survivor=state is not None)
+    if state is not None:
+        (step, got), = ck.restored
+        committed = Checkpointer(str(ck_dir)).restore(step, template)
+        out["restored_step"] = step
+        out["restored_equal"] = all(
+            a.dtype == b.dtype and torch.equal(a, b.cpu())
+            for a, b in zip(got, leaves(committed)))
+        single = make_train_step(model, opt)
+        replay = []
+        for s in range(step, el["n_steps"]):
+            committed, m = single(committed, to_device(batches[s], dev))
+            replay.append(float(m["loss"]))
+        out["params"] = host_params(state)
+        out["replay_losses"] = replay
+        out["replay_params"] = hold_train(
+            out["params"], host_params(committed),
+            [a.abs().cpu().numpy() for a in leaves(committed.opt.m)], lr)
+        del committed
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    del template, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sh_timed(rank, dev, card) -> dict:
+    """The timed run in a rank: full-width olmo-1b over (2, 1), phase 9's
+    data; per step its wall and the seconds of its own collectives; one
+    sharded save_async."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline, make_global_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import pspec
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import schedule
+    from repro_torch.train.sharding import shard_tree
+    from repro_torch.train.step import (CollectiveClock, init_train_state,
+                                        make_sharded_train_step)
+    from repro_torch.tree import leaves
+
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg)
+    mesh = make_mesh((SH_RANKS, 1), SH_AXES)
+    pspec.set_mesh(mesh)
+    total = SH_TIMED + 1
+    opt = train_opt(total)
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, microbatches=TRAIN_MICRO)
+    full = init_train_state(model, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    n_params = model.param_count(full.params)
+    ssh, bsh = sharded_setup(mesh, full, pipe.next_host_batch())
+    pipe.restore({"cursor": 0, "seed": pipe.seed})
+    state = shard_tree(full, ssh.specs, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    stored = sum(a.numel() * a.element_size() for a in leaves(state))
+    clock = CollectiveClock()
+    step = make_sharded_train_step(model, opt, ssh, clock)
+    ck_dir = ROOT / "build" / "phase11_ckpt"
+    if rank == 0:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    ck = Checkpointer(str(ck_dir), keep=1)
+    write_s = []
+    write = ck._write
+
+    def timed_write(*args):
+        t = time.perf_counter()
+        res = write(*args)
+        write_s.append(time.perf_counter() - t)
+        return res
+
+    ck._write = timed_write
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    snap_ms = None
+    try:
+        for k in range(1, total + 1):
+            batch = to_device(make_global_batch(mesh, pipe.next_host_batch(),
+                                                bsh), dev)
+            before = sum(clock.seconds.values())
+            gather0 = clock.seconds["gather"]
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            coll = sum(clock.seconds.values()) - before
+            row = {n: float(m[n]) for n in ("loss", "grad_norm", "lr")}
+            row.update(wall_ms=wall * 1e3, coll_ms=coll * 1e3,
+                       gather_ms=(clock.seconds["gather"] - gather0) * 1e3)
+            if not (math.isfinite(row["loss"])
+                    and math.isfinite(row["grad_norm"])):
+                raise AssertionError(f"phase 11: step {k} is not finite")
+            if row["lr"] != float(schedule(opt, torch.tensor(k,
+                                                             device=dev))):
+                raise AssertionError(f"phase 11: step {k} lr {row['lr']}")
+            rows.append(row)
+            if k == 1 + SH_CKPT_AFTER:
+                sync(dev)
+                t0 = time.perf_counter()
+                ck.save_async(k, state, ssh)
+                snap_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        t0 = time.perf_counter()
+        ck.wait()
+        wait_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in ck_dir.rglob("*")
+                     if f.is_file()) if rank == 0 else 0
+    finally:
+        ck.wait()
+        pspec.set_mesh(None)
+        if rank == 0:
+            shutil.rmtree(ck_dir, ignore_errors=True)
+    return dict(rows=rows, peak_gb=peak / 1e9, stored_gb=stored / 1e9,
+                n_params=n_params, snap_ms=snap_ms, write_s=write_s,
+                wait_s=wait_s, ckpt_gb=nbytes / 1e9)
+
+
+def phase11_rank(rank, spec) -> dict:
+    """One rank of phase 11: gates (a) and (b), then the timed run."""
+    from repro_torch.kernels import dslot_matmul as dm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(SH_DEVICE)
+    dm.dslot_matmul_cuda.launches = 0
+    t0 = time.perf_counter()
+    _, model, state0, batches = small_train_setup(dev)
+    out = {"gate_a": sh_gate_a(rank, dev, model, state0, batches[0])}
+    out["gate_a_s"] = time.perf_counter() - t0
+    out["gate_b"] = sh_elastic(rank, dev, model, state0, batches,
+                               spec["lr"])
+    del state0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["timed"] = sh_timed(rank, dev, spec["card"])
+    out["timed_s"] = time.perf_counter() - t0
+    out["dslot_launches"] = dm.dslot_matmul_cuda.launches
+    return out
+
+
+def hold_train(params, want, grads, lr, steps=1) -> tuple[float, float]:
+    """(max |diff| where |g| is firm, max |diff| anywhere), each in lr."""
+    firm_d = all_d = 0.0
+    for a, b, g in zip(params, want, grads):
+        d = abs(a - b)
+        firm = abs(g) > TRAIN_FIRM * abs(g).max()
+        all_d = max(all_d, float(d.max()))
+        if firm.any():
+            firm_d = max(firm_d, float(d[firm].max()))
+    return firm_d / lr, all_d / lr
+
+
+def sh_gate_c(model, state, batch, dev, card) -> None:
+    """Gate (c): int8 and top-k compression of one step's full-width
+    gradient tree, two rounds each (the second with a residual)."""
+    from repro_torch.distributed import compression as comp
+    from repro_torch.train.step import microbatch_grads
+    from repro_torch.tree import leaves
+
+    grads, _, _ = microbatch_grads(model, state.params, batch)
+    n = sum(g.numel() for g in leaves(grads))
+    for kind in ("int8", "top-k 1%"):
+        ef = comp.init_ef_state(grads)
+        worst = 0.0
+        for rnd in range(2):
+            g = grads if rnd == 0 else tree_scale(grads, 0.5)
+            sync(dev)
+            t0 = time.perf_counter()
+            if kind == "int8":
+                payload, new = comp.int8_compress(g, ef)
+                dec = comp.int8_decompress(payload)
+                ratio = comp.compressed_ratio(g, payload[0])
+            else:
+                payload, new = comp.topk_compress(g, ef, frac=0.01)
+                dec = comp.topk_decompress(payload, g)
+                ratio = comp.compressed_ratio(g, payload)
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            for d, e, gg, r in zip(leaves(dec), leaves(new.residual),
+                                   leaves(g), leaves(ef.residual)):
+                want = gg.float() + r
+                worst = max(worst, float((d + e - want).abs().max())
+                            / max(float(want.abs().max()), 1e-30))
+            ef = new
+            del payload, dec
+        log(f"  gate (c) {kind} on the 2-layer copy's gradient tree ({n} "
+            f"entries): payload {ratio:.4f} of f32 (int8 limit "
+            f"{SH_INT8_RATIO}); error feedback: decompressed + residual = "
+            f"gradient + previous residual within {worst:.3g} of a leaf's "
+            f"largest (limit {SH_EF_REL}); compress + decompress {ms:.1f} ms "
+            f"[{card}]")
+        if worst > SH_EF_REL or (kind == "int8" and ratio >= SH_INT8_RATIO):
+            raise AssertionError(f"gate (c) {kind}: ratio {ratio}, error "
+                                 f"feedback {worst}")
+        del ef, new
+    del grads
+
+
+def tree_scale(tree, s):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda a: a * s, tree)
+
+
+def phase11(card, dev, single_tps: float) -> None:
+    """Sharded training over ``SH_RANKS`` ranks on this one card (see the
+    module docstring): the single-device yardsticks and gate (c) here, then
+    the world.  ``single_tps``: phase 9's tokens/s, for the log."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.train.step import make_train_step, microbatch_grads
+    from repro_torch.tree import leaves
+
+    t_start = time.perf_counter()
+    _, model, state0, batches = small_train_setup(dev)
+    step = make_train_step(model, train_opt(TRAIN_TIMED + 2))
+    # the single-device yardsticks on this card
+    first = to_device(batches[0], dev)
+    state = clone_state(state0)
+    g0, _, _ = microbatch_grads(model, state.params, first)
+    firm0 = [a.abs().cpu().numpy() for a in leaves(g0)]
+    del g0
+    one, m1 = step(state, first)
+    want_a = dict(params=host_params(one),
+                  metrics={k: float(v) for k, v in m1.items()})
+    want_losses = [want_a["metrics"]["loss"]]
+    for b in batches[1:]:
+        one, m = step(one, to_device(b, dev))
+        want_losses.append(float(m["loss"]))
+    want_b = host_params(one)
+    firm_b = [a.abs().cpu().numpy() for a in leaves(one.opt.m)]
+    del one, state
+    # the same 8 steps on one device in M = 4 microbatches
+    four = clone_state(state0)
+    for b in batches:
+        four, _ = step(four, to_device(
+            {k: v.reshape(4, -1, v.shape[-1]) for k, v in b.items()}, dev))
+    drift = hold_train(host_params(four), want_b, firm_b,
+                       want_a["metrics"]["lr"])
+    del four
+    state = clone_state(state0)
+    sh_gate_c(model, state, first, dev, card)
+    del state, state0, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"  world: {SH_RANKS} ranks sharing {SH_DEVICE} over {SH_BACKEND}, "
+        f"collective timeout {SH_TIMEOUT} s (yardsticks and gate (c) "
+        f"{time.perf_counter() - t_start:.1f} s)")
+    t0 = time.perf_counter()
+    res = run_world(phase11_rank, SH_RANKS, backend=SH_BACKEND,
+                    device=SH_DEVICE, timeout=SH_TIMEOUT,
+                    deadline=SH_DEADLINE,
+                    args=(dict(card=card, lr=want_a["metrics"]["lr"]),))
+    log(f"  the world of {SH_RANKS} ranks ran in "
+        f"{time.perf_counter() - t0:.1f} s (gate (a) "
+        f"{res[0]['gate_a_s']:.1f} s, gate (b) {res[0]['gate_b']['seconds']:.1f}"
+        f" s, the timed run {res[0]['timed_s']:.1f} s on rank 0)")
+    lr = want_a["metrics"]["lr"]
+    failed = []
+
+    # gate (a)
+    for shape in SH_MESHES:
+        ms = [r["gate_a"][shape]["metrics"] for r in res]
+        if any(m != ms[0] for m in ms):
+            raise AssertionError(f"gate (a) {shape}: ranks' metrics differ")
+        errs = {k: abs(ms[0][k] - want_a["metrics"][k])
+                / abs(want_a["metrics"][k]) for k in ("loss", "grad_norm")}
+        firm_d, all_d = hold_train(res[0]["gate_a"][shape]["params"],
+                                   want_a["params"], firm0, lr)
+        log(f"  gate (a) sharded step over mesh {shape} vs the single-device "
+            f"step, 2 layers f32 at full width: loss rel {errs['loss']:.3g}, "
+            f"grad_norm rel {errs['grad_norm']:.3g} (limit "
+            f"{TRAIN_LOSS_RTOL}); params {firm_d:.3g} lr where |g| is firm "
+            f"(limit 1e-3), {all_d:.3g} lr anywhere (limit 2)")
+        if max(errs.values()) > TRAIN_LOSS_RTOL or firm_d > 1e-3 \
+                or all_d > 2:
+            failed.append(f"gate (a) {shape}: {errs}, params {firm_d}, "
+                          f"{all_d} lr")
+
+    # gate (b)
+    el = SH_ELASTIC
+    for rank, r in enumerate(res):
+        b = r["gate_b"]
+        if (b["restarts"], b["reshards"]) != (1, 1) or \
+                b["survivor"] != (rank < SH_RANKS - el["lost_nodes"]):
+            failed.append(f"gate (b) rank {rank}: restarts {b['restarts']}, "
+                          f"reshards {b['reshards']}, survivor "
+                          f"{b['survivor']}")
+    b = res[0]["gate_b"]
+    k = b["restored_step"]
+    before, after = b["losses"][:el["fail_at"]], b["losses"][el["fail_at"]:]
+    if b["steps_done"] != el["n_steps"] or not all(
+            math.isfinite(x) for x in b["losses"]) or not b["restored_equal"] \
+            or len(after) != el["n_steps"] - k:
+        failed.append(f"gate (b): {b['steps_done']} steps, losses "
+                      f"{b['losses']}, restored equal {b['restored_equal']}")
+    # the restart: the survivor's steps k+1.. against one device from the
+    # committed step-k checkpoint
+    replay_rel = max(abs(x - y) / abs(y)
+                     for x, y in zip(after, b["replay_losses"]))
+    r_firm, r_all = b["replay_params"]
+    # the uninterrupted run: losses before the failure, final parameters
+    pre_rel = max(abs(x - y) / abs(y) for x, y in zip(before, want_losses))
+    firm_d, all_d = hold_train(b["params"], want_b, firm_b, lr)
+    log(f"  gate (b) elastic restart: {SH_RANKS} ranks over ({SH_RANKS}, 1), "
+        f"ckpt_every {el['ckpt_every']}, NodeFailure(lost_nodes="
+        f"{el['lost_nodes']}) at step {el['fail_at']}; steps_done "
+        f"{b['steps_done']}, restarts {b['restarts']}, reshards "
+        f"{b['reshards']}, {len(b['losses'])} losses (replayed steps "
+        f"included) all finite, in {b['seconds']:.1f} s; step {k} restored "
+        f"onto (1, 1) bit-equal to the committed checkpoint")
+    log(f"  gate (b) the survivor's steps {k + 1}-{el['n_steps']} vs one "
+        f"device stepping from the committed step-{k} checkpoint: losses rel "
+        f"{replay_rel:.3g} (limit {TRAIN_LOSS_RTOL}); final params "
+        f"{r_firm:.3g} lr where the single device's |m| is firm (limit "
+        f"1e-3), {r_all:.3g} lr anywhere (limit 2)")
+    log(f"  gate (b) vs {el['n_steps']} uninterrupted single-device steps: "
+        f"losses of steps 1-{el['fail_at']} rel {pre_rel:.3g} (limit "
+        f"{TRAIN_LOSS_RTOL}); final params {all_d:.3g} lr anywhere (limit "
+        f"2), {firm_d:.3g} lr where |m| is firm, beside the same steps on "
+        f"one device in M = 4 one-row microbatches: {drift[0]:.3g} lr where "
+        f"firm, {drift[1]:.3g} lr anywhere")
+    if replay_rel > TRAIN_LOSS_RTOL or r_firm > 1e-3 or r_all > 2 \
+            or pre_rel > TRAIN_LOSS_RTOL or all_d > 2:
+        failed.append(f"gate (b): replay losses {replay_rel}, params "
+                      f"{r_firm}, {r_all} lr; before the failure {pre_rel}; "
+                      f"uninterrupted {all_d} lr")
+
+    # the timed run
+    base = get_arch(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for rank, r in enumerate(res):
+        t = r["timed"]
+        timed = t["rows"][1:]
+        walls = sorted(x["wall_ms"] for x in timed)
+        med = walls[len(walls) // 2]
+        shares = sorted(x["coll_ms"] / x["wall_ms"] for x in timed)
+        gshare = sorted(x["gather_ms"] / x["wall_ms"] for x in timed)
+        for k, x in enumerate(t["rows"], 1):
+            log(f"  [rank {rank}] step {k}: loss {x['loss']:.6f}, grad_norm "
+                f"{x['grad_norm']:.6f}, lr {x['lr']:.6e}, wall "
+                f"{x['wall_ms']:.1f} ms, collectives {x['coll_ms']:.1f} ms "
+                f"(parameter all_gather {x['gather_ms']:.1f})"
+                + (" untimed" if k == 1 else ""))
+        log(f"  [rank {rank}] {TRAIN_ARCH} full width ({t['n_params'] / 1e9:.4f}"
+            f" B parameters, {base.dtype}, remat {base.remat}, scan_unroll "
+            f"{base.scan_unroll}) over ({SH_RANKS}, 1), {tokens} tokens a "
+            f"step: step wall median {med:.1f} ms, min {walls[0]:.1f}, max "
+            f"{walls[-1]:.1f} over {len(walls)} steps; "
+            f"{tokens / (med / 1e3):.0f} tokens/s of the world (phase 9, one "
+            f"rank alone on this card: {single_tps:.0f}); collectives "
+            f"{shares[len(shares) // 2]:.3f} of the step's own wall (median; "
+            f"min {shares[0]:.3f}, max {shares[-1]:.3f}; all_gather "
+            f"{gshare[len(gshare) // 2]:.3f}); stored state {t['stored_gb']:.2f}"
+            f" GB, peak memory over the steps {t['peak_gb']:.2f} GB [{card}]")
+        if rank == 0:
+            log(f"  [rank {rank}] sharded save_async after step "
+                f"{1 + SH_CKPT_AFTER}: snapshot (gather + host copy) "
+                f"{t['snap_ms']:.0f} ms, write {t['write_s'][0]:.1f} s on "
+                f"rank 0's thread, {t['ckpt_gb']:.2f} GB written, wait at the "
+                f"end {t['wait_s']:.1f} s [{card}]")
+    launched = sum(r["dslot_launches"] for r in res)
+    log(f"  dslot kernel launches in phase 11: {launched} (the model's MLPs "
+        f"are GLU; sharded training launches no hand-written kernel)")
+    if failed:
+        raise AssertionError("phase 11: " + "; ".join(failed))
+
+
 # ------------------------------------------------------------ phase 3
 
 def cpu_copy(prep):
@@ -2865,36 +3558,7 @@ def main() -> int:
 
     # -------------------------------------------------- 2. kernel vs plain
     log("phase 2: kernel vs plain version")
-    max_err = 0.0
-    shape_times = {}
-    for n, case in enumerate(phase2_cases()):
-        q, prep, kw = run_case(case, seed=100 + n, dev=dev)
-        a = dm.dslot_matmul_cuda(q, prep.w, **kw)
-        a2 = dm.dslot_matmul_cuda(q, prep.w, **kw)
-        b = dm.dslot_matmul_plain(q, prep.w, **kw)
-        torch.cuda.synchronize()
-        if not (torch.equal(a.out, a2.out)
-                and torch.equal(a.planes_used, a2.planes_used)):
-            raise AssertionError(f"{case.name}: two launches differ")
-        err = compare(case.name, a, b, case.weights == "dyadic", q, prep.w,
-                      kw)
-        max_err = max(max_err, err)
-        if case.weights == "inert" and not (
-                int(a.planes_used.max()) == 0 and float(a.out.abs().max())
-                == 0.0):
-            raise AssertionError(f"{case.name}: an inert weight must issue "
-                                 f"no planes and emit zeros")
-        log(f"  {case.name}: max err {err:.3g}, planes_used mean "
-            f"{float(a.planes_used.float().mean()):.3f} "
-            f"(plain {float(b.planes_used.float().mean()):.3f}), "
-            f"tiles {a.planes_used.numel()}")
-        if case.name.endswith("f32 normal n8"):     # one timing per shape
-            shape_times[case.name.split(" f32")[0]] = time_call(
-                case.name, q, prep.w, kw, (case.M, case.K, case.N),
-                lambda: dm.dslot_matmul_cuda(q, prep.w, **kw),
-                lambda: dm.dslot_matmul_plain(q, prep.w, **kw), card)
-        del q, prep, kw, a, a2, b
-        torch.cuda.empty_cache()
+    max_err, shape_times = phase2(card, dev)
 
     # -------------------------------------------------- 3. main path
     log("phase 3: MNIST CNN main path, B = 1024")
@@ -3028,7 +3692,7 @@ def main() -> int:
     # -------------------------------------------------- 9. training
     log(f"phase 9: training {TRAIN_ARCH} at full width [{card}]")
     n0 = dm.dslot_matmul_cuda.launches
-    phase9(card, dev)
+    single_tps = phase9(card, dev)
     log(f"  dslot kernel launches in phase 9: "
         f"{dm.dslot_matmul_cuda.launches - n0} (the model has no DSLOT "
         f"layer; training launches no hand-written kernel)")
@@ -3039,6 +3703,12 @@ def main() -> int:
     tp_launches, tp_err, tp_times = phase10(card, dev)
     max_err = max(max_err, tp_err)
     main_times += tp_times
+
+    # -------------------------------------------------- 11. sharded training
+    log(f"phase 11: sharded training over {SH_RANKS} ranks [{card}]")
+    t0 = time.perf_counter()
+    phase11(card, dev, single_tps)
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)

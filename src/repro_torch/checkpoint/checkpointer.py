@@ -21,8 +21,19 @@ Leaf paths are the reference's ``jax.tree_util`` paths
 no bfloat16, so a bf16 tensor is stored, as the reference stores it, as its
 uint16 bit pattern under the dtype name ``"bfloat16"``.
 
-Re-laying leaves onto a device mesh (the reference's ``shardings``) belongs
-to the port's multi-device slice.
+* **elastic restore** — ``restore(step, target, shardings)`` with a
+  ``train.sharding.Shardings`` (a mesh and a spec tree) gives each rank
+  only its own block of every leaf on the target mesh, which may differ
+  from the mesh that saved it.  Each rank reads the full leaf and checks its
+  crc.
+
+Tensors carry no placement here (the reference's arrays do), so a sharded
+state is saved by passing its ``Shardings`` to ``save`` / ``save_async``:
+every leaf is gathered (``all_gather``, a few leaves at a time), the mesh's
+first rank alone writes the one-file layout above, and the other ranks go
+on; ``wait`` then holds every rank of the mesh until the write is
+committed.  So the reference, the single-device port and another mesh all
+read the same checkpoint.
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ import zlib
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten_with_path, map_with_path
+from repro_torch.tree import flatten_with_path, map_with_path, tree_map
 
 __all__ = ["Checkpointer"]
 
@@ -75,32 +86,80 @@ def _from_stored(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _specs_by_leaf(tree, specs) -> dict:
+    """``{id(leaf): spec}`` for the leaves of ``tree`` and the matching
+    specs of ``specs``."""
+    out = {}
+    tree_map(lambda t, sp: out.__setitem__(id(t), sp), tree, specs)
+    return out
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self._barrier = None     # the mesh of the last sharded save
 
     # ------------------------------------------------------------- save
 
-    def save(self, step: int, tree) -> str:
-        """Write ``tree`` as step ``step``; returns the step's directory."""
-        return self._write(step, _snapshot(tree))
+    def save(self, step: int, tree, shardings=None) -> str | None:
+        """Write ``tree`` as step ``step``; returns the step's directory
+        (None on a rank of a sharded save that does not write)."""
+        flat = self._host(tree, shardings)
+        out = self._write(step, flat) if flat is not None else None
+        if shardings is not None:
+            from repro_torch.distributed import mesh_barrier
+            mesh_barrier(shardings.mesh)
+        return out
 
-    def save_async(self, step: int, tree) -> None:
-        """Snapshot ``tree`` to host memory now and write it on a thread
-        (after any write still in flight)."""
+    def save_async(self, step: int, tree, shardings=None) -> None:
+        """Snapshot ``tree`` to host memory now (gathered first when
+        ``shardings`` is given) and write it on a thread (after any write
+        still in flight)."""
         self.wait()
-        flat = _snapshot(tree)
-        self._thread = threading.Thread(
-            target=self._write, args=(step, flat), daemon=True)
-        self._thread.start()
+        flat = self._host(tree, shardings)
+        self._barrier = shardings.mesh if shardings is not None else None
+        if flat is not None:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, flat), daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
+        """Join the write in flight; after a sharded save, every rank of its
+        mesh waits here until the writer is done."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier is not None:
+            from repro_torch.distributed import mesh_barrier
+            mesh, self._barrier = self._barrier, None
+            mesh_barrier(mesh)
+
+    @staticmethod
+    def _host(tree, shardings):
+        """The host snapshot to write: the whole tree, or for a sharded
+        tree the gathered leaves on the mesh's first rank and None on the
+        others (gathered one ``sharding.buckets`` run of shards at a time,
+        so the card holds at most one run of full leaves beside the
+        shards)."""
+        if shardings is None:
+            return _snapshot(tree)
+        from repro_torch.train.sharding import buckets, gather_tree
+        mesh = shardings.mesh
+        writer = not any(mesh.get_coordinate())
+        pairs = flatten_with_path(tree)
+        by_id = _specs_by_leaf(tree, shardings.specs)
+        specs = [by_id[id(t)] for _, t in pairs]
+        out = []
+        for run in buckets([t for _, t in pairs]):
+            full = gather_tree([pairs[j][1] for j in run],
+                               [specs[j] for j in run], mesh)
+            if writer:
+                out += _snapshot({pairs[j][0]: f for j, f in zip(run, full)})
+            del full
+        return out if writer else None
 
     def _write(self, step: int, flat) -> str:
         name = f"step_{step:08d}"
@@ -147,26 +206,39 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target_tree):
+    def restore(self, step: int, target_tree, shardings=None):
         """Restore into the structure of ``target_tree``: every leaf onto
-        the target leaf's device and dtype.  Raises ``IOError`` on a crc
-        mismatch and ``KeyError`` for a leaf the checkpoint lacks."""
+        the target leaf's device and dtype.  With ``shardings`` (a
+        ``train.sharding.Shardings`` shaped like the tree) each rank keeps
+        only its block of every leaf on that mesh.  Raises ``IOError`` on a
+        crc mismatch and ``KeyError`` for a leaf the checkpoint lacks."""
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
+        if shardings is not None:
+            from repro_torch.train.sharding import local_slice
+            by_id = _specs_by_leaf(target_tree, shardings.specs)
 
+        leaves = manifest["leaves"]
         with np.load(os.path.join(d, "shard_0.npz")) as data:
-            by_key = {}
-            for key, meta in manifest["leaves"].items():
-                arr = data[f"a{meta['idx']}"]
-                if _crc(arr) != meta["crc32"]:
+            def read(key):
+                arr = data[f"a{leaves[key]['idx']}"]
+                if _crc(arr) != leaves[key]["crc32"]:
                     raise IOError(f"checkpoint corruption at leaf {key}")
-                by_key[key] = (arr, meta["dtype"])
+                return arr
 
-        def load(key, tgt):
-            if key not in by_key:
-                raise KeyError(f"missing leaf {key} in checkpoint")
-            return _from_stored(*by_key[key]).to(
-                device=tgt.device, dtype=tgt.dtype, copy=True)
+            def load(key, tgt):
+                if key not in leaves:
+                    raise KeyError(f"missing leaf {key} in checkpoint")
+                t = _from_stored(read(key), leaves[key]["dtype"])
+                if shardings is not None:
+                    t = local_slice(t, by_id[id(tgt)], shardings.mesh)
+                return t.to(device=tgt.device, dtype=tgt.dtype, copy=True)
 
-        return map_with_path(load, target_tree)
+            out = map_with_path(load, target_tree)
+            # every leaf is checked, as the reference checks them, also
+            # those the target does not take
+            wanted = {k for k, _ in flatten_with_path(target_tree)}
+            for key in leaves.keys() - wanted:
+                read(key)
+        return out

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["TokenPipeline"]
+__all__ = ["TokenPipeline", "make_global_batch"]
 
 
 def _hash_tokens(seed: int, sample_idx: np.ndarray, seq_len: int,
@@ -62,3 +62,15 @@ class TokenPipeline:
     def restore(self, st: dict) -> None:
         self._cursor = int(st["cursor"])
         self.seed = int(st["seed"])
+
+
+def make_global_batch(mesh, host_batch: dict, shardings) -> dict:
+    """This rank's block of every array of ``host_batch`` under the
+    matching spec of ``shardings`` (``train.sharding.make_batch_shardings``;
+    with ``batch_axis=1`` the (M, mb, ...) layout's rows), as contiguous
+    host arrays."""
+    from repro_torch.train.sharding import local_slice
+
+    return {k: np.ascontiguousarray(local_slice(np.asarray(v), shardings[k],
+                                                mesh))
+            for k, v in host_batch.items()}

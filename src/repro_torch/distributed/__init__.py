@@ -20,8 +20,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "all_to_all", "all_reduce_mean", "axis_rank",
-           "axis_size"]
+__all__ = ["all_gather", "all_to_all", "all_reduce_mean",
+           "all_reduce_mean_grad", "all_reduce_sum_", "axis_rank",
+           "axis_size", "mesh_barrier"]
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -81,3 +82,41 @@ def all_reduce_mean(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     except RuntimeError as e:
         raise _failed("all_reduce", axis, e) from e
     return t / n
+
+
+def all_reduce_mean_grad(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of ``axis``, differentiable: its
+    backward sums the ranks' gradients (``torch.distributed.nn``), so every
+    rank's autograd sees what a mean over the whole batch would give it."""
+    from torch.distributed.nn.functional import all_reduce
+
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t
+    try:
+        return all_reduce(t, group=mesh.get_group(axis)) / n
+    except RuntimeError as e:
+        raise _failed("all_reduce", axis, e) from e
+
+
+def all_reduce_sum_(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``t`` replaced in place by its sum over the ranks of ``axis``;
+    returns ``t``.  Every rank of the axis gets the same bits."""
+    if axis_size(mesh, axis) == 1:
+        return t
+    try:
+        dist.all_reduce(t, group=mesh.get_group(axis))
+    except RuntimeError as e:
+        raise _failed("all_reduce", axis, e) from e
+    return t
+
+
+def mesh_barrier(mesh) -> None:
+    """Wait for every rank of ``mesh``: a one-element ``all_reduce`` over
+    each axis in turn (after the last, each rank has met every rank whose
+    earlier rounds it depends on, which is all of them)."""
+    one = torch.zeros(1)
+    if dist.get_backend() == "nccl":
+        one = one.cuda()
+    for axis in mesh.mesh_dim_names:
+        all_reduce_sum_(one, mesh, axis)

@@ -223,14 +223,17 @@ __device__ __forceinline__ void product_round(
 // prepared MSR bounds), t depends on the row alone and is staged as f32, so
 // the inner loop is plain FMAs; otherwise q is staged and each (row, column)
 // applies its own mask.  Each round's loads are issued before the previous
-// round computes.
-template <int RN, typename QT>
+// round computes.  A launch covers at most 65535 column tiles (grid.y's
+// limit), so a wider product takes several launches of the SLAB variant,
+// whose column tile is y0 + blockIdx.y (the other variant's code is the
+// one that ran before slabs).
+template <int RN, typename QT, bool SLAB>
 __global__ void __launch_bounds__(PT_THREADS) product_kernel(
     const QT* __restrict__ q, const void* __restrict__ w, int wtype,
     const int* __restrict__ npl_ptr, const int* __restrict__ bnd,
     const int* __restrict__ bud, float* __restrict__ out,
     int* __restrict__ used, int M, int K, int N, int n_bits, int D, int bm,
-    int bn, int k_slice) {
+    int bn, int k_slice, int y0) {
   constexpr int TN = 16 * RN;
   constexpr int QL = PT_KS * PT_M / PT_THREADS;  // q loads per thread
   constexpr int WL = PT_KS * TN / PT_THREADS;    // W loads per thread
@@ -242,7 +245,7 @@ __global__ void __launch_bounds__(PT_THREADS) product_kernel(
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const long long m0 = static_cast<long long>(blockIdx.x) * PT_M;
-  const int n0 = blockIdx.y * TN;
+  const int n0 = (SLAB ? blockIdx.y + y0 : blockIdx.y) * TN;
   const int k_lo = blockIdx.z * k_slice;
   const int k_hi = min(K, k_lo + k_slice);
   const int npl = *npl_ptr;
@@ -348,7 +351,8 @@ __global__ void __launch_bounds__(PT_THREADS) product_kernel(
 #pragma unroll
       for (int a = 0; a < 4; ++a) acc[a][b] = 0.0f;
 
-  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+  if (blockIdx.x == 0 && (SLAB ? blockIdx.y + y0 : blockIdx.y) == 0 &&
+      blockIdx.z == 0) {
     const int Nt = N / bn;
     for (int e = threadIdx.x; e < (M / bm) * Nt; e += PT_THREADS)
       used[e] = min(e_max, bnd[e % Nt]);
@@ -763,6 +767,10 @@ struct PlaneGeom {
   int off_a, off_p, off_q;  // shared-memory offsets, bytes
   int p_part;     // bf16 elements per W part
   int smem;       // dynamic shared memory, bytes
+  int nstage;     // ring stages (plane_kernel's NS): NSTAGE, or 2 for a
+                  // tall tile whose NSTAGE stages overflow MAX_SMEM
+  int Nt;         // N tiles: N / bn
+  int y0;         // the first N tile of this launch (grid.y holds 65535)
 };
 
 template <int MI, int NI>
@@ -859,9 +867,17 @@ __device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4],
 // one computes).  Warp w owns rows (w / WN)*16*MI + [0, 16*MI) and columns
 // (w % WN)*8*NI + [0, 8*NI) of the physical tile.  A streamed block computes
 // one tile; a resident block computes M tiles blockIdx.x, + gridDim.x, ...
-// of N tile blockIdx.y, with W staged once.
-template <int MI, int NI, typename QT>
-__global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
+// of N tile nt, with W staged once.  More than 65535 N tiles (grid.y's
+// limit) take several launches, as the product path's do: in the SLAB
+// variant N tile nt = geo.y0 + blockIdx.y of geo.Nt, otherwise blockIdx.y
+// of gridDim.y, the code of the warp tiles that ran before slabs.  Only the
+// (1, 1) and (4, 1) warp tiles run resident; (2, 1), (8, 1) and (16, 1) are
+// for streamed tiles that (1, 1), (2, 2) and (4, 4) cannot cover in 16 or 8
+// warps (128 x 24, 512 x 8, 1024 x 24).  NS ring stages: NSTAGE, or 2 for a
+// tile whose NSTAGE stages overflow the shared memory (plane_geometry).
+template <int MI, int NI, typename QT, int NS, bool SLAB>
+__global__ void __launch_bounds__(
+    MI == 1 ? 512 : (NI == 1 ? (MI == 4 ? 128 : 512) : 256))
     plane_kernel(
     const QT* __restrict__ q, const void* __restrict__ w, int wtype,
     const __nv_bfloat16* __restrict__ wp, const float* __restrict__ sfx,
@@ -879,7 +895,11 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
   const int t4 = lane & 3;
   const int wm0 = (warp / geo.WN) * MI * 16;
   const int wn0 = (warp % geo.WN) * NI * 8;
-  const int n0 = blockIdx.y * bn;
+  // N tiles and this block's N tile, as expressions: where !SLAB they are
+  // gridDim.y and blockIdx.y themselves, in the types they have
+#define DSLOT_NT (SLAB ? static_cast<unsigned>(geo.Nt) : gridDim.y)
+#define DSLOT_TILE (SLAB ? blockIdx.y + geo.y0 : blockIdx.y)
+  const int n0 = DSLOT_TILE * bn;
   const int parts = wtype == W_F32 ? 3 : 1;
   const int PM = geo.PM;
   const int PN = geo.PN;
@@ -889,7 +909,7 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
   const int T = Kt * S;
 
   const int npl = *npl_ptr;
-  const int limit = min(min(D, npl), bnd[blockIdx.y]);
+  const int limit = min(min(D, npl), bnd[DSLOT_TILE]);
   const float tail = pow2(n_bits - npl);
 
   float tot_c[NI][2];
@@ -922,7 +942,7 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
       const int s = r - c * S;
       const int k0 = c * bk + s * KC;
       const int v = min(KC, bk - s * KC);
-      uint8_t* st = ring + (item % NSTAGE) * stage;
+      uint8_t* st = ring + (item % NS) * stage;
       if (!geo.q_once)
         copy_rows(st, geo.q_stride,
                   reinterpret_cast<const uint8_t*>(q_tile + k0),
@@ -931,23 +951,23 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
       for (int p = 0; p < parts; ++p)
         copy_rows(st + q_stage + p * geo.p_part * 2, p_row * 2,
                   reinterpret_cast<const uint8_t*>(
-                      wp + ((p * static_cast<long long>(K) + k0) * gridDim.y +
-                            blockIdx.y) * PN),
-                  static_cast<long long>(gridDim.y) * PN * 2, v, PN * 2);
+                      wp + ((p * static_cast<long long>(K) + k0) * DSLOT_NT +
+                            DSLOT_TILE) * PN),
+                  static_cast<long long>(DSLOT_NT) * PN * 2, v, PN * 2);
     };
     fill_budgets(m0);
     zero_tile<MI, NI>(acc);
     // zero the ring once: W rows past a chunk's end are multiplied by zero
     // digits and must be finite
     uint4* z = reinterpret_cast<uint4*>(ring);
-    for (int e = threadIdx.x; e < NSTAGE * stage / 16; e += blockDim.x)
+    for (int e = threadIdx.x; e < NS * stage / 16; e += blockDim.x)
       z[e] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
     if (geo.q_once && total > 0)  // lands with the first item
       copy_rows(q_area, geo.q_stride, reinterpret_cast<const uint8_t*>(q_tile),
                 static_cast<long long>(K) * sizeof(QT), bm,
                 K * static_cast<int>(sizeof(QT)));
-    for (int i = 0; i < NSTAGE - 1; ++i) {
+    for (int i = 0; i < NS - 1; ++i) {
       if (i < total) issue(i);
       cp_async_commit();
     }
@@ -962,14 +982,14 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
           load_sf<NI>(sf, sfx, c, N, n0, wn0, t4, bn);
         for (int s = 0; s < S; ++s, ++i) {
           const int v = min(KC, bk - s * KC);
-          cp_async_wait<NSTAGE - 2>();
+          cp_async_wait<NS - 2>();
           __syncthreads();  // item i landed; every thread is done with i-1
-          if (i + NSTAGE - 1 < total) issue(i + NSTAGE - 1);
+          if (i + NS - 1 < total) issue(i + NS - 1);
           cp_async_commit();
           // W rows from v on hold an earlier item's weights (and q_once
           // columns from v on the next sub-chunk's q); the digits there are
           // zero
-          const uint8_t* st = ring + (i % NSTAGE) * stage;
+          const uint8_t* st = ring + (i % NS) * stage;
           const QT* q_sub = reinterpret_cast<const QT*>(
               geo.q_once ? q_area : st) + (geo.q_once ? c * bk + s * KC : 0);
           extract_digits<QT>(a_s, q_sub,
@@ -987,12 +1007,12 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
     }
     cp_async_wait_all();
     store_tile<MI, NI>(acc, out, used, m0, n0, N,
-                       blockIdx.x * gridDim.y + blockIdx.y, planes, dead,
+                       blockIdx.x * DSLOT_NT + DSLOT_TILE, planes, dead,
                        relu, wm0, wn0, g, t4, bm, bn);
     return;
   }
 
-  if constexpr (NI == 1) {
+  if constexpr (NI == 1 && (MI == 1 || MI == 4)) {
     // ---- resident, 8 columns: W parts once per block, laid out per
     // sub-chunk with rows permuted for the register digits, zero past each
     // chunk's end
@@ -1097,13 +1117,16 @@ __global__ void __launch_bounds__(MI == 1 ? 512 : (NI == 1 ? 128 : 256))
         }
       }
       store_tile<MI, NI>(acc, out, used, m0, n0, N,
-                         tile * gridDim.y + blockIdx.y, planes, dead, relu,
+                         tile * DSLOT_NT + DSLOT_TILE, planes, dead, relu,
                          wm0, wn0, g, t4, bm, bn);
       __syncthreads();  // done with this q buffer and the budgets
     }
     cp_async_wait_all();
   }
 }
+
+#undef DSLOT_NT
+#undef DSLOT_TILE
 
 // ------------------------------------------------------------ launchers
 
@@ -1136,10 +1159,8 @@ int launch_product(const void* q, const void* w, int wtype, const void* npl,
   int slice = 0;
   const int splits = product_splits(M, K, N, &slice);
   const int tn = product_tn(N);
-  const dim3 grid((M + PT_M - 1) / PT_M, (N + tn - 1) / tn, splits);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const int col_tiles = (N + tn - 1) / tn;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
   cfg.blockDim = dim3(PT_THREADS);
   cfg.stream = s;
   cudaLaunchAttribute cluster[1];
@@ -1155,31 +1176,36 @@ int launch_product(const void* q, const void* w, int wtype, const void* npl,
   const int* bu = static_cast<const int*>(bud);
   float* o = static_cast<float*>(out);
   int* u = static_cast<int*>(used);
-  cudaError_t err =
-      tn == 16 ? cudaLaunchKernelEx(&cfg, product_kernel<1, QT>, qq, w, wtype,
-                                    np, bd, bu, o, u, M, K, N, n_bits, D, bm,
-                                    bn, slice)
-               : cudaLaunchKernelEx(&cfg, product_kernel<4, QT>, qq, w, wtype,
-                                    np, bd, bu, o, u, M, K, N, n_bits, D, bm,
-                                    bn, slice);
-  if (err != cudaSuccess) return err;
+  const bool slab = col_tiles > 65535;
+  auto kernel = tn == 16 ? (slab ? product_kernel<1, QT, true>
+                                 : product_kernel<1, QT, false>)
+                         : (slab ? product_kernel<4, QT, true>
+                                 : product_kernel<4, QT, false>);
+  for (int y0 = 0; y0 < col_tiles; y0 += 65535) {  // grid.y's limit
+    const int ny = col_tiles - y0 < 65535 ? col_tiles - y0 : 65535;
+    cfg.gridDim = dim3((M + PT_M - 1) / PT_M, ny, splits);
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, qq, w, wtype, np, bd,
+                                         bu, o, u, M, K, N, n_bits, D, bm,
+                                         bn, slice, y0);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
 // Function attributes of plane_kernel<MI, NI, QT>, once per device: the
 // most shared memory per SM (so that small tiles keep many blocks) and the
 // largest dynamic allocation a launch may ask for.
-template <int MI, int NI, typename QT>
+template <int MI, int NI, typename QT, int NS, bool SLAB>
 cudaError_t plane_attributes() {
   static std::atomic<unsigned> done{0};  // bit per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= 32 || (done.load() >> dev & 1u)) return err;
-  err = cudaFuncSetAttribute(plane_kernel<MI, NI, QT>,
+  err = cudaFuncSetAttribute(plane_kernel<MI, NI, QT, NS, SLAB>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(plane_kernel<MI, NI, QT>,
+    err = cudaFuncSetAttribute(plane_kernel<MI, NI, QT, NS, SLAB>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                MAX_SMEM);
   if (err == cudaSuccess) done.fetch_or(1u << dev);
@@ -1188,7 +1214,7 @@ cudaError_t plane_attributes() {
 
 // Blocks of plane_kernel<MI, NI, QT> that fit on one SM at once, asked of
 // the runtime once per device, block size and shared memory.
-template <int MI, int NI, typename QT>
+template <int MI, int NI, typename QT, int NS, bool SLAB>
 cudaError_t blocks_per_sm(int threads, int smem, int* per_sm) {
   static std::mutex mu;
   static std::map<long long, int> known;
@@ -1202,7 +1228,7 @@ cudaError_t blocks_per_sm(int threads, int smem, int* per_sm) {
   if (it == known.end()) {
     int n = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, plane_kernel<MI, NI, QT>, threads, smem);
+        &n, plane_kernel<MI, NI, QT, NS, SLAB>, threads, smem);
     if (err != cudaSuccess) return err;
     it = known.emplace(key, n).first;
   }
@@ -1210,14 +1236,14 @@ cudaError_t blocks_per_sm(int threads, int smem, int* per_sm) {
   return cudaSuccess;
 }
 
-template <int MI, int NI, typename QT>
+template <int MI, int NI, typename QT, int NS, bool SLAB>
 int launch_plane_mn(const void* q, const void* w, int wtype, const float* sfx,
                     const float* tot, const int* npl, const int* bnd,
                     const int* bud, float* out, int* used, void* ws, int M,
                     int K, int N, int n_bits, int D, int bm, int bn, int bk,
                     int relu, PlaneGeom geo, cudaStream_t s) {
-  auto kernel = plane_kernel<MI, NI, QT>;
-  cudaError_t err = plane_attributes<MI, NI, QT>();
+  auto kernel = plane_kernel<MI, NI, QT, NS, SLAB>;
+  cudaError_t err = plane_attributes<MI, NI, QT, NS, SLAB>();
   if (err != cudaSuccess) return err;
   const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(ws);
   if (!geo.resident) {
@@ -1227,34 +1253,52 @@ int launch_plane_mn(const void* q, const void* w, int wtype, const float* sfx,
   }
   const int threads = (geo.PM / (16 * MI)) * geo.WN * 32;
   const int Mt = M / bm;
-  const int Nt = N / bn;
-  int gx = Mt;
-  if (geo.resident) {  // as many blocks as fit at once, each over M tiles
-    int per_sm = 0;
-    err = blocks_per_sm<MI, NI, QT>(threads, geo.smem, &per_sm);
+  int per_sm = 0;
+  if (geo.resident) {
+    err = blocks_per_sm<MI, NI, QT, NS, SLAB>(threads, geo.smem, &per_sm);
     if (err != cudaSuccess) return err;
-    const long long fit = static_cast<long long>(per_sm > 1 ? per_sm : 1) *
-                          NUM_SMS;
-    const long long want = (fit + Nt - 1) / Nt;
-    gx = static_cast<int>(want < Mt ? want : Mt);
   }
-  kernel<<<dim3(gx, Nt), threads, geo.smem, s>>>(
-      static_cast<const QT*>(q), w, wtype, wp, sfx, tot, npl, bnd, bud, out,
-      used, Mt, K, N, n_bits, D, bm, bn, bk, relu, geo);
-  return cudaGetLastError();
+  for (int y0 = 0; y0 < geo.Nt; y0 += 65535) {  // grid.y's limit
+    const int ny = geo.Nt - y0 < 65535 ? geo.Nt - y0 : 65535;
+    int gx = Mt;
+    if (geo.resident) {  // as many blocks as fit at once, each over M tiles
+      const long long fit = static_cast<long long>(per_sm > 1 ? per_sm : 1) *
+                            NUM_SMS;
+      const long long want = (fit + ny - 1) / ny;
+      gx = static_cast<int>(want < Mt ? want : Mt);
+    }
+    geo.y0 = y0;
+    kernel<<<dim3(gx, ny), threads, geo.smem, s>>>(
+        static_cast<const QT*>(q), w, wtype, wp, sfx, tot, npl, bnd, bud, out,
+        used, Mt, K, N, n_bits, D, bm, bn, bk, relu, geo);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 long long align16(long long x) { return (x + 15) / 16 * 16; }
 
 // Warp tiles: (MI, NI) = (1, 1), (2, 2) or (4, 4) with the fewest rows per
 // warp that keeps at most 16 warps (8 for 2 x 2 and 4 x 4, which need more
-// registers).  A tile of 8 columns whose q rows and W parts fit in
+// registers).  A tile that none of these covers (128 x 24: 24 warps at
+// (1, 1), and 24 columns rule out (2, 2) and (4, 4)) takes 8-column warp
+// tiles of 2, 8 or 16 row fragments, the fewest that keep at most 16 warps,
+// its physical rows rounded up to the warps' rows; it streams.  A tile that
+// needs more than 16 warps even at 16 row fragments (ceil(bm / 256) *
+// ceil(bn / 8) > 16, e.g. 1024 x 136) is refused.  A tile of 8 columns
+// whose q rows and W parts fit in
 // RESIDENT_BYTES stays resident and builds its digits in registers, with
 // 64 x 8 warp tiles when its rows are a multiple of 64 (the CNN conv: two
 // warps per 128 x 8 tile).  Every other tile streams; its q rows over all of
 // K are staged once where they fit beside the ring, else with each
 // sub-chunk.  A staged q row is padded to 32 bytes past a multiple of 128,
 // so that the four rows a warp decodes at once fall in distinct banks.
+// Where NSTAGE ring stages of q and W sub-chunks overflow MAX_SMEM (1024 x
+// 24 at K = 1024: 250 KB), a tall tile's ring takes 2 stages (only tiles of
+// 8 or 16 row fragments a warp get that far); a tile whose digit tile and 2
+// stages still overflow is refused, as is a tile of another warp tiling
+// whose NSTAGE stages overflow (no 2-stage variant is built for it).
 template <typename QT>
 int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
                    PlaneGeom& geo, int& mi, int& ni) {
@@ -1265,10 +1309,17 @@ int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
     if (geo.PM % (16 * r) == 0 && geo.PN % (8 * r) == 0 &&
         (geo.PM / (16 * r)) * (geo.PN / (8 * r)) <= (r == 1 ? 16 : 8))
       mi = r;
-  if (mi == 0 || N / bn > 65535) return cudaErrorInvalidValue;
   ni = mi;
-  if (geo.PN == 8 && geo.PM % 64 == 0) mi = 4, ni = 1;
+  if (mi != 0 && geo.PN == 8 && geo.PM % 64 == 0) mi = 4, ni = 1;
+  const bool tall = mi == 0;  // 8-column warp tiles, streamed
+  for (int r = 2; tall && r <= 16 && mi == 0; r *= (r == 2 ? 4 : 2)) {
+    const int pm = (bm + 16 * r - 1) / (16 * r) * (16 * r);
+    if ((pm / (16 * r)) * (geo.PN / 8) <= 16) mi = r, ni = 1, geo.PM = pm;
+  }
+  if (mi == 0) return cudaErrorInvalidValue;
   geo.WN = geo.PN / (8 * ni);
+  geo.nstage = NSTAGE;
+  geo.Nt = N / bn;
 
   const long long es = sizeof(QT);
   const long long parts = wtype == W_F32 ? 3 : 1;
@@ -1278,7 +1329,7 @@ int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
   const long long res_p = parts * T * KC * p_row * 2;
   const long long res_q = align16(static_cast<long long>(geo.PM) * K * es + 256);
   const long long res_bytes = budgets + res_p + 2 * res_q;
-  if (geo.PN == 8 && res_bytes <= RESIDENT_BYTES) {
+  if (!tall && geo.PN == 8 && res_bytes <= RESIDENT_BYTES) {
     geo.resident = 1;
     geo.p_part = static_cast<int>(T * KC * p_row);
     geo.q_bytes = static_cast<int>(res_q);
@@ -1298,7 +1349,11 @@ int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
         geo.off_q + NSTAGE * (geo.PM * chunk_stride + w_stage);
     geo.q_once = once <= MAX_SMEM;
     geo.q_stride = static_cast<int>(geo.q_once ? once_stride : chunk_stride);
-    const long long bytes = geo.q_once ? once : each;
+    long long bytes = geo.q_once ? once : each;
+    if (bytes > MAX_SMEM && tall) {  // a shallower ring
+      geo.nstage = 2;
+      bytes = geo.off_q + 2 * (geo.PM * chunk_stride + w_stage);
+    }
     if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
     geo.smem = static_cast<int>(bytes);
   }
@@ -1327,15 +1382,27 @@ int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
   const int* bu = static_cast<const int*>(bud);
   float* o = static_cast<float*>(out);
   int* u = static_cast<int*>(used);
-#define DSLOT_PLANE(MI_, NI_)                                               \
-  if (mi == MI_ && ni == NI_)                                               \
-    return launch_plane_mn<MI_, NI_, QT>(q, w, wtype, sf, tt, np, bd, bu, o, \
-                                         u, ws, M, K, N, n_bits, D, bm, bn, \
-                                         bk, relu, geo, s);
-  DSLOT_PLANE(1, 1)
-  DSLOT_PLANE(2, 2)
-  DSLOT_PLANE(4, 4)
-  DSLOT_PLANE(4, 1)
+  // The warp tiles that ran before slabs keep a variant with their old code
+  // for up to 65535 N tiles; every other launch takes the SLAB variant.
+  const bool slab = geo.Nt > 65535;
+#define DSLOT_PLANE(MI_, NI_, NS_, SLAB_)                                   \
+  if (mi == MI_ && ni == NI_ && geo.nstage == NS_ && (SLAB_ || !slab))      \
+    return launch_plane_mn<MI_, NI_, QT, NS_, SLAB_>(                       \
+        q, w, wtype, sf, tt, np, bd, bu, o, u, ws, M, K, N, n_bits, D, bm,  \
+        bn, bk, relu, geo, s);
+  DSLOT_PLANE(1, 1, NSTAGE, false)
+  DSLOT_PLANE(2, 2, NSTAGE, false)
+  DSLOT_PLANE(4, 4, NSTAGE, false)
+  DSLOT_PLANE(4, 1, NSTAGE, false)
+  DSLOT_PLANE(1, 1, NSTAGE, true)
+  DSLOT_PLANE(2, 2, NSTAGE, true)
+  DSLOT_PLANE(4, 4, NSTAGE, true)
+  DSLOT_PLANE(4, 1, NSTAGE, true)
+  DSLOT_PLANE(2, 1, NSTAGE, true)
+  DSLOT_PLANE(8, 1, NSTAGE, true)
+  DSLOT_PLANE(16, 1, NSTAGE, true)
+  DSLOT_PLANE(8, 1, 2, true)
+  DSLOT_PLANE(16, 1, 2, true)
 #undef DSLOT_PLANE
   return cudaErrorInvalidValue;
 }

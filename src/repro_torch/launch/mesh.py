@@ -22,7 +22,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_production_mesh", "make_test_mesh", "run_world"]
+__all__ = ["make_mesh", "make_production_mesh", "make_test_mesh",
+           "run_world"]
 
 
 def make_production_mesh(*, multi_pod: bool = False):
@@ -60,6 +61,19 @@ def make_test_mesh(n_devices: int | None = None, model: int = 2):
     return _mesh((n // model, model), ("data", "model"))
 
 
+def make_mesh(shape: tuple, axes: tuple):
+    """A mesh of ``shape`` with axis names ``axes`` over the first ranks of
+    the world (the counterpart of ``jax.make_mesh``).  Every rank of the
+    world takes part in building it; a rank outside it gets a mesh whose
+    ``get_coordinate()`` is None."""
+    n = int(torch.tensor(shape).prod())
+    if len(shape) != len(axes) or n > _world_size():
+        raise ValueError(f"a mesh {tuple(shape)} over axes {tuple(axes)} "
+                         f"needs {n} ranks and one name an axis; the world "
+                         f"has {_world_size()}")
+    return _mesh(tuple(shape), tuple(axes))
+
+
 def _world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
@@ -93,8 +107,9 @@ def run_world(fn, n: int, *, backend: str, device: str,
     ``torch.distributed`` world and return their results in rank order.
 
     ``backend`` (``gloo`` or ``nccl``) is the caller's choice; nothing here
-    picks another.  ``device``: ``cpu``, or ``cuda:i`` (every rank on card
-    ``i``, which NCCL refuses and ``gloo`` allows).  ``timeout`` (seconds)
+    picks another.  ``device``: ``cpu``, ``cuda:i`` (every rank on card
+    ``i``, which NCCL refuses and ``gloo`` allows) or ``cuda`` (rank ``r``
+    on card ``r``).  ``timeout`` (seconds)
     bounds every collective; ``deadline`` (seconds) the whole run.  Each
     rank runs ``torch.set_num_threads(1)``, so ranks beside other processes
     do not oversubscribe the cores.  ``fn`` and ``args`` are pickled: ``fn``
@@ -103,9 +118,9 @@ def run_world(fn, n: int, *, backend: str, device: str,
     the rank's traceback.
     """
     dev = torch.device(device)
-    if dev.type != "cpu" and (dev.type != "cuda" or dev.index is None):
-        raise ValueError(f"run_world runs its ranks on 'cpu' or one card "
-                         f"'cuda:i', not {device!r}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"run_world runs its ranks on 'cpu', one card "
+                         f"'cuda:i' or a card each 'cuda', not {device!r}")
     ctx = multiprocessing.get_context("spawn")
     store = dist.TCPStore("127.0.0.1", 0, n, is_master=True,
                           wait_for_workers=False,
@@ -155,7 +170,7 @@ def _rank_main(fn, rank, n, port, backend, device, timeout, args, results):
         torch.set_num_threads(1)
         dev = torch.device(device)
         if dev.type == "cuda":
-            torch.cuda.set_device(dev)
+            torch.cuda.set_device(dev if dev.index is not None else rank)
         span = datetime.timedelta(seconds=timeout)
         store = dist.TCPStore("127.0.0.1", port, n, is_master=False,
                               timeout=span)

@@ -30,7 +30,7 @@ import torch
 
 from .layers import Params, _matmul, normal
 from .mlp import _ACTS
-from .pspec import fsdp_size
+from .pspec import fsdp_size, shard_mean
 
 TOKEN_BLOCK = 4096      # tokens per dispatch block of a long prefill
 
@@ -71,11 +71,11 @@ def apply_moe(p: Params, x: torch.Tensor, cfg
     nb = Tl // tb
     if nb > 1 and Tl % tb == 0 and S > 1:
         C = moe_capacity(cfg, tb)
-        ys, auxs = zip(*[moe_block(p, flat[:, i * tb:(i + 1) * tb], cfg, C)
-                         for i in range(nb)])
+        ys, auxs = zip(*[moe_block(p, flat[:, i * tb:(i + 1) * tb], cfg, C,
+                                   mean=shard_mean) for i in range(nb)])
         return torch.cat(ys, dim=1).reshape(B, S, D), torch.stack(auxs).mean()
     C = Tl * cfg.top_k if S == 1 else moe_capacity(cfg, Tl)
-    y, aux = moe_block(p, flat, cfg, C)
+    y, aux = moe_block(p, flat, cfg, C, mean=shard_mean)
     return y.reshape(B, S, D), aux
 
 

@@ -18,13 +18,17 @@ The registry is process state, as in the reference: one mesh per process.
 
 from __future__ import annotations
 
+import contextlib
+
 from repro_torch.distributed import axis_size
 
-__all__ = ["constrain", "fsdp_size", "head_scheme", "set_mesh", "tp_size"]
+__all__ = ["constrain", "data_shard", "fsdp_size", "head_scheme",
+           "set_mesh", "shard_mean", "tp_size"]
 
 _MESH = None
 _FSDP: tuple = ()
 _TP: str | None = None
+_SHARD = None        # (mesh, batch axes) inside ``data_shard``
 
 
 def set_mesh(mesh) -> None:
@@ -46,12 +50,42 @@ def tp_size() -> int:
 
 
 def fsdp_size() -> int:
-    if _MESH is None:
+    if _MESH is None or _SHARD is not None:
         return 1
     n = 1
     for a in _FSDP:
         n *= axis_size(_MESH, a)
     return n
+
+
+@contextlib.contextmanager
+def data_shard(mesh, axes: tuple):
+    """Code inside runs on the rows of one data shard of ``mesh`` (the
+    sharded train step's forward on a rank's batch slice), the shards split
+    over the mesh axes ``axes``.  There ``fsdp_size()`` is 1, so MoE
+    dispatch takes the rank's rows as one group, the group the reference's
+    GSPMD forward gives that shard; and ``shard_mean`` averages a batch
+    statistic over the shards, as the reference's means over the whole
+    batch do."""
+    global _SHARD
+    prev, _SHARD = _SHARD, (mesh, tuple(axes))
+    try:
+        yield
+    finally:
+        _SHARD = prev
+
+
+def shard_mean(t):
+    """``t``, a mean over this rank's rows, as the mean over every data
+    shard's rows inside ``data_shard`` (a differentiable ``all_reduce``);
+    ``t`` itself elsewhere."""
+    if _SHARD is None:
+        return t
+    from repro_torch.distributed import all_reduce_mean_grad
+    mesh, axes = _SHARD
+    for a in axes:
+        t = all_reduce_mean_grad(t, mesh, a)
+    return t
 
 
 def constrain(x, *axes):

@@ -77,11 +77,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt: OptState, cfg: AdamWConfig):
+def adamw_update(params, grads, opt: OptState, cfg: AdamWConfig,
+                 gnorm: torch.Tensor | None = None):
     """One AdamW step.  Returns ``(params, opt, metrics)``: the same
     parameter and moment tensors, updated in place, a new ``count``, and
-    ``{"grad_norm", "lr"}`` as 0-d f32 tensors.  ``grads`` is read only."""
-    gnorm = global_norm(grads)
+    ``{"grad_norm", "lr"}`` as 0-d f32 tensors.  ``grads`` is read only.
+    ``gnorm``: the global gradient norm where ``params``, ``grads`` and the
+    moments are one rank's slices (the sharded step); by default the norm
+    of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                             1.0)
     count = opt.count + 1

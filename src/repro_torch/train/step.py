@@ -12,22 +12,36 @@ The reference jits the step with the old state donated.  Here the step
 updates the state's parameter and moment tensors in place and returns a
 state that holds them: the old state must not be used again, and a caller
 that steps twice from one state clones it first.
+
+``make_sharded_train_step`` is the step over a mesh (the reference's
+``make_train_step`` jitted with FSDP x TP shardings): the state is stored
+sharded by ``train.sharding.make_state_shardings``, each rank gathers the
+parameters, computes the gradients of its slice of the batch, and the
+gradients are averaged over the batch axes before each rank updates its
+own slices.  GSPMD also splits the reference's compute over ``model``;
+here the model axis shards storage only, and every rank of a model group
+computes the whole forward.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.device import full_f32, resolve_device
+from repro_torch.models import pspec
 from repro_torch.models.model_zoo import Model, loss_fn
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
-                                     init_opt_state)
+                                     global_norm, init_opt_state)
+from repro_torch.train.sharding import (buckets, gather_tree, local_slice,
+                                        mesh_axes)
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["TrainState", "init_train_state", "make_train_step",
-           "microbatch_grads"]
+__all__ = ["CollectiveClock", "TrainState", "init_train_state",
+           "make_sharded_train_step", "make_train_step", "microbatch_grads"]
 
 
 class TrainState(NamedTuple):
@@ -96,3 +110,105 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
             metrics
 
     return train_step
+
+
+def _reduce_mean_(tensors: list, mesh, axes: tuple) -> list:
+    """Each f32 tensor of ``tensors`` replaced in place by its mean over
+    the ranks of ``axes`` (their product): one ``all_reduce`` per
+    ``sharding.buckets`` run, over each axis in turn, then a scale.  Every
+    rank gets the same bits."""
+    from repro_torch.distributed import all_reduce_sum_, axis_size
+
+    axes = tuple(a for a in axes if axis_size(mesh, a) > 1)
+    n = 1
+    for a in axes:
+        n *= axis_size(mesh, a)
+    if n == 1:
+        return tensors
+    for run in buckets(tensors):
+        part = [tensors[i] for i in run]
+        flat = torch.cat([t.reshape(-1) for t in part])
+        for a in axes:
+            all_reduce_sum_(flat, mesh, a)
+        flat.mul_(1.0 / n)
+        off = 0
+        for t in part:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+        del flat
+    return tensors
+
+
+class CollectiveClock:
+    """Host seconds spent in a step's collectives (the card synchronized
+    before and after each), by kind: ``gather`` (parameters) and
+    ``reduce`` (gradients, loss and aux).  Pass one to
+    ``make_sharded_train_step`` to time a step's collectives inside its
+    own wall; ``None`` times nothing and adds no synchronization."""
+
+    def __init__(self):
+        self.seconds = {"gather": 0.0, "reduce": 0.0}
+
+    @contextlib.contextmanager
+    def __call__(self, kind: str, device):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            self.seconds[kind] += time.perf_counter() - t0
+
+
+def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, shardings,
+                            clock: CollectiveClock | None = None):
+    """Returns ``train_step(state, batch) -> (state, metrics)`` over the
+    mesh of ``shardings`` (``train.sharding.Shardings`` of the state).
+
+    ``state`` holds this rank's slices (``shard_tree`` of a full state by
+    ``shardings.specs``); ``batch`` is this rank's slice of the global
+    batch (``data.pipeline.make_global_batch``).  One step: gather the
+    parameters; ``microbatch_grads`` on the batch slice (under
+    ``pspec.data_shard``: MoE dispatch takes the slice as one group, and
+    the router's load statistics are averaged over the data shards); the
+    gradients, loss and aux averaged over the batch axes (``pod``,
+    ``data``) in bucketed ``all_reduce``s; ``grad_norm`` and the clip scale
+    from the whole averaged gradient; then ``adamw_update`` of this rank's
+    slices.  All in ``full_f32()``; the metrics are equal on every rank.
+    The state is updated in place, as ``make_train_step``'s is.
+    """
+    mesh, specs = shardings
+    fsdp, _ = mesh_axes(mesh)
+    pspecs = specs.params
+    quiet = contextlib.nullcontext()
+
+    def timed(kind, dev):
+        return clock(kind, dev) if clock is not None else quiet
+
+    def train_step(state: TrainState, batch):
+        dev = leaves(state.params)[0].device
+        with full_f32():
+            with timed("gather", dev):
+                full = gather_tree(state.params, pspecs, mesh)
+            with pspec.data_shard(mesh, fsdp):
+                grads, loss, aux = microbatch_grads(model, full, batch)
+            del full
+            flat = leaves(grads)
+            stats = torch.stack([loss, aux]).to(torch.float32)
+            with timed("reduce", dev):
+                _reduce_mean_(flat + [stats], mesh, fsdp)
+            gnorm = global_norm(flat)
+            mine = tree_map(lambda g, s: local_slice(g, s, mesh).clone(),
+                            grads, pspecs)
+            del grads, flat
+            params, opt, om = adamw_update(state.params, mine, state.opt,
+                                           opt_cfg, gnorm=gnorm)
+            del mine
+        metrics = {"loss": stats[0], "aux": stats[1], **om}
+        return TrainState(params=params, opt=opt, step=state.step + 1), \
+            metrics
+
+    return train_step
+

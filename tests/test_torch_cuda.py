@@ -193,12 +193,45 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         dm.dslot_matmul_cuda(q.to(torch.int64), w, block_m=64, block_n=16)
     with pytest.raises(TypeError):
         dm.dslot_matmul_cuda(q, w.to(torch.float16), block_m=64, block_n=16)
-    # a 256 x 66 tile pads to 256 x 72: 16 x 9 warps of 16 x 8, and no
-    # larger warp tile divides it, so the launcher refuses it and the
-    # wrapper raises
-    w66 = torch.cat([w, w[:, :2]], dim=1)
+    # a 1024 x 136 tile pads to 1024 x 136: 17 warps across its columns
+    # even at 256 rows a warp (4 x 17 warps of 256 x 8), above the 16 a
+    # block runs, and no warp tile of 16 columns divides 136, so the
+    # launcher refuses it and the wrapper raises
+    q4, w4 = _dyadic_case(cuda, False, torch.float32, M=1024, N=136)
     with pytest.raises(RuntimeError, match="launch failed"):
-        dm.dslot_matmul_cuda(q, w66, block_m=256, block_n=66)
+        dm.dslot_matmul_cuda(q4, w4, block_m=1024, block_n=136)
+
+
+# Tiles the kernel once refused: (block_m, block_n, K, M, N).  128 x 24 and
+# 512 x 8 need more than 16 warps of (1, 1) warp tiles; 1024 x 24 at
+# K = 1024 also a 2-stage ring; N = 70000 at block_n 1 and 64 x 65537 at
+# block_n 64 more N tiles than grid.y holds; 144 x 24 rounds its physical
+# rows up to 160, past block_m; 256 x 66 pads to 256 x 72 (9 warps of
+# 256 x 8).
+REPAIRED_TILES = [(128, 24, 1024, 512, 96), (1024, 24, 1024, 2048, 48),
+                  (512, 8, 25, 1024, 16), (512, 8, 1024, 1024, 16),
+                  (16, 1, 64, 32, 70000), (16, 64, 16, 16, 64 * 65537),
+                  (144, 24, 256, 288, 48), (256, 66, 64, 512, 132)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_m,block_n,K,M,N", REPAIRED_TILES)
+def test_repaired_tiles_match_plain_exactly(cuda, block_m, block_n, K, M, N,
+                                            relu, wdtype):
+    """Each repaired tile on dyadic weights, with row budgets: output and
+    planes_used equal to the plain version's bit for bit."""
+    q, w = _dyadic_case(cuda, True, wdtype, seed=11, M=M, K=K, N=N)
+    bud = torch.as_tensor(np.random.default_rng(12).integers(1, 9, M),
+                          dtype=torch.int32, device=cuda)
+    args = dict(relu=relu, block_m=block_m, block_n=block_n, block_k=None,
+                row_budget=bud, n_planes_rt=bud.max())
+    a = dm.dslot_matmul_cuda(q, w, **args)
+    b = dm.dslot_matmul_plain(q, w, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(a.planes_used, b.planes_used)
+    assert torch.equal(a.out, b.out)
 
 
 @pytest.mark.gpu
@@ -511,3 +544,38 @@ def test_sharded_execute_on_card_equals_unsharded(cuda):
     for rank_flags in flags:
         for case_flags in rank_flags:
             assert all(case_flags.values()), case_flags
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_card_matches_single_device(cuda):
+    """A 2-rank sharded train step (mesh (2, 1), ``gloo``, both ranks on
+    ``cuda:0``) of reduced olmo-1b against the single-device step on the
+    card: loss and grad_norm within 1e-5 relative, parameters within
+    1e-3 lr where the single step's |m| is firm and 2 lr anywhere (the two
+    data shards' gradient means are the same f32 sums in another order)."""
+    import torch_sharded_ranks as sranks
+
+    cfg = ARCHS["olmo-1b"].reduced()
+    opt = dict(peak_lr=1e-3, warmup_steps=0, decay_steps=10)
+    st = init_train_state(build_model(cfg), torch.Generator().manual_seed(0),
+                          device="cpu")
+    state_np = tree_map(lambda a: a.numpy(), st)
+    host = TokenPipeline(vocab=cfg.vocab_size, seq_len=16, global_batch=8,
+                         microbatches=2).next_host_batch()
+    one, m1 = make_train_step(build_model(cfg), AdamWConfig(**opt))(
+        convert.train_state(state_np, device=cuda),
+        {k: torch.from_numpy(v).to(cuda) for k, v in host.items()})
+    (full, m2), _ = run_world(sranks.card_step, 2, backend="gloo",
+                              device="cuda:0", timeout=120, deadline=300,
+                              args=(cfg, state_np, host, opt))
+    for k in ("loss", "grad_norm"):
+        assert abs(m2[k] - float(m1[k])) <= 1e-5 * abs(float(m1[k])), k
+    lr = float(m1["lr"])
+    for a, b, m in zip(leaves(full.params), leaves(one.params),
+                       leaves(one.opt.m)):
+        d = np.abs(np.asarray(a, np.float32) - b.float().cpu().numpy())
+        m = m.abs().cpu().numpy()
+        firm = m > 1e-3 * m.max()
+        assert d.max() <= 2 * lr
+        if firm.any():
+            assert d[firm].max() <= 1e-3 * lr

@@ -1,0 +1,164 @@
+"""Rank bodies of the port's sharded-training tests
+(``test_torch_sharded_train.py``).
+
+Spawned ranks import this module, which imports only numpy, torch and
+``repro_torch``: the test process makes the inputs from numpy seeds (the
+reference's initial states, through ``convert``), runs the references, and
+hands the ranks numpy arrays.  ``train_world`` runs every check of one
+world and returns numpy results.
+"""
+
+import torch
+
+from repro_torch import convert
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.data.pipeline import make_global_batch
+from repro_torch.distributed.fault_tolerance import (NodeFailure,
+                                                     ResilientTrainer)
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import pspec
+from repro_torch.models.model_zoo import build_model
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.sharding import (gather_tree, make_batch_shardings,
+                                        make_state_shardings, shard_tree)
+from repro_torch.train.step import make_sharded_train_step
+from repro_torch.tree import tree_map
+
+MESHES = ((2, 2), (4, 1), (1, 4))
+AXES = ("data", "model")
+
+
+def np_tree(tree):
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+def t_batch(host: dict, dev="cpu") -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def sharded_placement(mesh, state, host_batch):
+    """The state's shardings and this rank's slice of ``host_batch``."""
+    ssh = make_state_shardings(mesh, state)
+    global_batch = host_batch["tokens"].shape[0] * host_batch["tokens"].shape[1]
+    bsh = make_batch_shardings(mesh, host_batch, global_batch, batch_axis=1)
+    return ssh, bsh
+
+
+def one_step(cfg, state_np, host, opt, shape, dev="cpu"):
+    """One sharded step over mesh ``shape`` from the reference's state: the
+    gathered new state (numpy), the metrics, this rank's batch slice and its
+    mesh coordinate."""
+    mesh = make_mesh(shape, AXES)
+    pspec.set_mesh(mesh)
+    try:
+        state = convert.train_state(state_np, device=dev)
+        ssh, bsh = sharded_placement(mesh, state, host)
+        mine = shard_tree(state, ssh.specs, mesh)
+        local = make_global_batch(mesh, host, bsh)
+        step = make_sharded_train_step(build_model(cfg), AdamWConfig(**opt),
+                                       ssh)
+        new, m = step(mine, t_batch(local, dev))
+        full = gather_tree(new, ssh.specs, mesh)
+    finally:
+        pspec.set_mesh(None)
+    metrics = {k: float(v) for k, v in m.items()}
+    return np_tree(full), metrics, local, list(mesh.get_coordinate())
+
+
+class RecordingCheckpointer(Checkpointer):
+    """Keeps what each ``restore`` gave, gathered to full leaves."""
+
+    def __init__(self, directory):
+        super().__init__(directory)
+        self.restored = []
+
+    def restore(self, step, target_tree, shardings=None):
+        out = super().restore(step, target_tree, shardings)
+        full = out if shardings is None else gather_tree(
+            out, shardings.specs, shardings.mesh)
+        self.restored.append((step, np_tree(full)))
+        return out
+
+
+def elastic(cfg, state_np, batches, opt, ckdir, n_steps, fail_at,
+            lost_nodes, ckpt_every):
+    """``ResilientTrainer`` over (2, 2) on 4 ranks; a ``NodeFailure`` of
+    ``lost_nodes`` at ``fail_at``; the survivors (the first ranks) go on
+    over (1, 4 - lost) with the state restored resharded."""
+    model = build_model(cfg)
+    aopt = AdamWConfig(**opt)
+    template = convert.train_state(state_np, device="cpu")
+
+    def make(n_lost):
+        n = 4 - n_lost
+        shape = (2, 2) if n == 4 else (1, n)
+        mesh = make_mesh(shape, AXES)          # collective: every rank
+        if mesh.get_coordinate() is None:
+            return None
+        ssh, bsh = sharded_placement(mesh, template, batches[0])
+
+        def place(host):
+            return t_batch(make_global_batch(mesh, host, bsh))
+
+        return mesh, ssh, make_sharded_train_step(model, aopt, ssh), place
+
+    ck = RecordingCheckpointer(ckdir)
+    mesh0 = make_mesh((2, 2), AXES)
+    state = shard_tree(template, make_state_shardings(mesh0, template).specs,
+                       mesh0)
+    trainer = ResilientTrainer(checkpointer=ck, make_mesh_and_step=make,
+                               ckpt_every=ckpt_every)
+    state, rep = trainer.run(state, lambda s: batches[s], n_steps,
+                             inject={fail_at: NodeFailure(
+                                 "ranks 2 and 3 died", lost_nodes=lost_nodes)})
+    return dict(steps_done=rep.steps_done, restarts=rep.restarts,
+                reshards=rep.reshards, losses=rep.losses, final=state,
+                restored=ck.restored)
+
+
+def train_world(rank, cases, ck_case, el_case):
+    """Every check of ``test_torch_sharded_train.py`` in a world of 4: the
+    sharded step of each case over ``MESHES``; a sharded checkpoint of the
+    olmo case's stepped state over (2, 2), restored onto (4, 1); the
+    elastic restart."""
+    out = {"rank": rank, "steps": {}}
+    for name, (cfg, state_np, host, opt) in cases.items():
+        for shape in MESHES:
+            full, metrics, local, coord = one_step(
+                cfg, state_np, host, opt, shape)
+            res = {"metrics": metrics, "coord": coord, "local": local}
+            if rank == 0:
+                res["state"] = full
+            out["steps"][(name, shape)] = res
+
+    # a sharded save over (2, 2), read back onto (4, 1)
+    cfg, state_np, host, opt, ckdir = ck_case
+    mesh22 = make_mesh((2, 2), AXES)
+    state = convert.train_state(state_np, device="cpu")
+    ssh22, _ = sharded_placement(mesh22, state, host)
+    mine = shard_tree(state, ssh22.specs, mesh22)
+    ck = Checkpointer(ckdir)
+    ck.save(7, mine, ssh22)
+    mesh41 = make_mesh((4, 1), AXES)
+    ssh41, _ = sharded_placement(mesh41, state, host)
+    back = ck.restore(7, mine, ssh41)
+    out["ckpt"] = dict(coord41=list(mesh41.get_coordinate()),
+                       slices=np_tree(back))
+
+    cfg, state_np, batches, opt, ckdir, kw = el_case
+    rep = elastic(cfg, state_np, batches, opt, ckdir, **kw)
+    mesh = make_mesh((1, 4 - kw["lost_nodes"]), AXES)  # collective: all ranks
+    if rep["final"] is not None:
+        ssh, _ = sharded_placement(mesh, convert.train_state(
+            state_np, device="cpu"), batches[0])
+        rep["final"] = np_tree(gather_tree(rep["final"], ssh.specs, mesh))
+    out["elastic"] = rep
+    return out
+
+
+def card_step(rank, cfg, state_np, host, opt):
+    """One sharded step over (2, 1) on this rank's card (the ranks share
+    it): the gathered new state (numpy) and the metrics."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    full, metrics, _, _ = one_step(cfg, state_np, host, opt, (2, 1), dev)
+    return full, metrics
