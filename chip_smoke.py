@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, hold its CUDA kernel
 against the kernel's plain PyTorch version, train a model at full width,
-serve one over two ranks sharing the card, and train it sharded over
-them.
+serve one over two ranks sharing the card, train it sharded over them,
+and hold the launch tools' counts and dry run against the card.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
@@ -25,7 +25,10 @@ Phases (any failure exits non-zero and prints no result line):
    with a 2-stage ring at the shared-memory edge, 512 x 8 at K = 25 and
    1024, ``block_n`` 1 at N = 70000 and 64 at N = 64 * 65537, past
    grid.y's 65535 tiles, 144 x 24 with physical rows past ``block_m``,
-   256 x 66), each with ReLU on and off and f32 dyadic, f32
+   256 x 66; ``WALKED_TILES``, each timed once: 16 x 256 at the olmo
+   engine's admission shape, 1024 x 136, (4, 4) warp tiles of 512 x 32
+   with int32 q on a 2-stage ring, ``block_m`` 2048 and 4096 at 8 and 24
+   columns), each with ReLU on and off and f32 dyadic, f32
    and bf16 weights; seamless's MLP up at 171 tiles of 24 columns, timed
    at 128 x 24 and at phase 10's 32 x 24.  Every case runs the kernel twice and
    the two results must be equal bit for bit.  Dyadic weights (multiples
@@ -259,6 +262,18 @@ Phases (any failure exits non-zero and prints no result line):
    share, the stored state and the peak memory over the steps, and the
    checkpoint's snapshot and write times.  Phase 11 launches no DSLOT
    kernel (GLU MLPs), and says so.
+12. The launch tools (``repro_torch.launch.op_cost``, ``dryrun``,
+   ``roofline``, ``summarize``): (a) one more step of phase 9's program
+   after its timed steps, counted by ``op_cost`` on the card: dot FLOPs
+   beside 6·N·T, the roofline's three terms and modeled step beside phase
+   9's wall, ``roofline_frac`` beside its model-FLOPs share; (b) the dry
+   run of that one-device program on fake CPU tensors in a subprocess,
+   gates: its dot FLOPs equal (a)'s exactly and its peak lies within 5% of
+   phase 9's ``max_memory_allocated``; (c) one more phase-5 ``generate``
+   counted by ``op_cost``, gate: its opaque DSLOT launches equal the launch
+   counter (216); (d) the olmo-1b ``train_4k`` cell on the 16 x 16 fake
+   world through the dry run's CLI in a subprocess: its record, roofline
+   and summarize rows.  (b) and (d) run side by side.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
@@ -279,6 +294,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -287,8 +303,14 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, data sheet, 700 W
-PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense, data sheet, 700 W
+sys.path.insert(0, str(ROOT / "src"))
+try:   # the H100's data-sheet rates at 700 W: HBM3 bytes/s, dense bf16 FLOP/s
+    from repro_torch.launch.roofline import HBM_BW as PEAK_BYTES_PER_S
+    from repro_torch.launch.roofline import PEAK_FLOPS as PEAK_BF16_FLOPS
+except ImportError:
+    print("chip_smoke: src/repro_torch not found beside this script; run it "
+          "from a checkout of the repository", file=sys.stderr)
+    raise SystemExit(1) from None
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside tensor cores, data sheet, 700 W
 OUT_RTOL = 1e-5
 MARGIN_RTOL = 1e-5
@@ -341,6 +363,7 @@ class Case:
     sort: bool = False
     zero_tile: int | None = None    # N tile given plane bound 0
     timed: bool = False     # timed in phase 4 (as every "f32 normal n8" is)
+    n_bits: int = 8
 
 
 def phase2_cases() -> list[Case]:
@@ -437,17 +460,44 @@ REPAIRED_TILES = (
                                block_k=None)),
 )
 
+# Tiles refused until walk_kernel and the (4, 4) 2-stage ring, each timed
+# once (its "f32 normal n6" ReLU case).  16 x 256 at the olmo engine's
+# admission shape needs 32 warps of (1, 1) and has no (2, 2) fit; 1024 x 136
+# needs 68 warps of 256 x 8, and its f32 sums (557 KB) fit no SM; 512 x 32
+# with int32 q (n_bits 20) overflows 3 ring stages of (4, 4) warp tiles
+# (287 KB) and fits 2; block_m 2048 and 4096 at 8 and 24 columns overflow
+# even a 2-stage ring beside their digit tile.
+WALKED_TILES = (
+    ("bm=16 bn=256 K=2048", dict(M=128, K=2048, N=8192, block_m=16,
+                                 block_n=256, block_k=None)),
+    ("bm=1024 bn=136 K=256", dict(M=2048, K=256, N=272, block_m=1024,
+                                  block_n=136, block_k=128)),
+    ("bm=512 bn=32 K=256 n_bits=20 (4, 4) 2-stage ring",
+     dict(M=1024, K=256, N=64, block_m=512, block_n=32, block_k=128,
+          n_bits=20)),
+    ("bm=2048 bn=8 K=256", dict(M=4096, K=256, N=16, block_m=2048,
+                                block_n=8, block_k=128)),
+    ("bm=2048 bn=24 K=256", dict(M=4096, K=256, N=48, block_m=2048,
+                                 block_n=24, block_k=128)),
+    ("bm=4096 bn=8 K=256", dict(M=8192, K=256, N=16, block_m=4096,
+                                block_n=8, block_k=128)),
+    ("bm=4096 bn=24 K=256", dict(M=8192, K=256, N=48, block_m=4096,
+                                 block_n=24, block_k=128)),
+)
+
 
 def repaired_tile_cases() -> list[Case]:
     out = []
-    for label, shape in REPAIRED_TILES:
+    for label, shape in REPAIRED_TILES + WALKED_TILES:
+        timed = (label, shape) in WALKED_TILES
         for relu in (True, False):
             geo = dict(shape, relu=relu, signed=True)
             tag = "" if relu else " no-relu"
             out += [Case(f"tile {label} f32 dyadic rows{tag}",
                          weights="dyadic", precision="rows", **geo),
                     Case(f"tile {label} f32 normal n6{tag}",
-                         weights="normal", precision=6, **geo),
+                         weights="normal", precision=6,
+                         timed=timed and relu, **geo),
                     Case(f"tile {label} bf16 normal n8{tag}",
                          weights="normal", wdtype=torch.bfloat16, **geo)]
     up = dict(M=2048, K=1024, N=171 * 24, block_n=24, block_k=None,
@@ -512,11 +562,15 @@ def make_inputs(case: Case, seed: int):
     "wide" gives each weight a random sign and a magnitude 2^u, u uniform
     in [-20, 0], unshifted.
     """
+    from repro_torch.kernels.dslot_matmul import q_storage_dtype
+
     g = torch.Generator().manual_seed(seed)
-    if case.signed:
-        q = (torch.randn((case.M, case.K), generator=g) * 40 + 20).round()
-        q = q.clamp(-127, 127).to(torch.int8)
-        mean, rms = 20.0, 44.7
+    if case.signed:  # n_bits > 8: the same law scaled to the wider range
+        top = 2 ** (case.n_bits - 1) - 1
+        q = ((torch.randn((case.M, case.K), generator=g) * 40 + 20)
+             * (top / 127)).round()
+        q = q.clamp(-top, top).to(q_storage_dtype(case.n_bits, True))
+        mean, rms = 20.0 * top / 127, 44.7 * top / 127
     else:
         q = torch.randint(0, 256, (case.M, case.K), generator=g,
                           dtype=torch.uint8)
@@ -541,7 +595,8 @@ def run_case(case: Case, seed: int, dev: torch.device):
     from repro_torch.kernels.ops import dslot_prepare
 
     q, w = make_inputs(case, seed)
-    prep = dslot_prepare(w.to(dev), relu=case.relu, signed=case.signed,
+    prep = dslot_prepare(w.to(dev), n_bits=case.n_bits, relu=case.relu,
+                         signed=case.signed,
                          sort_columns=case.sort, block_m=case.block_m,
                          block_n=case.block_n, block_k=case.block_k)
     q = dm._pad_to(q.to(dev), prep.block_k, axis=1)
@@ -557,7 +612,7 @@ def run_case(case: Case, seed: int, dev: torch.device):
     if case.zero_tile is not None:
         bound = bound.clone()
         bound[case.zero_tile] = 0
-    kw = dict(n_bits=8, relu=case.relu, block_m=case.block_m,
+    kw = dict(n_bits=case.n_bits, relu=case.relu, block_m=case.block_m,
               block_n=case.block_n, block_k=prep.block_k, n_planes_rt=npl,
               row_budget=budget, suffix_colsum=prep.suffix_colsum,
               total_colsum=prep.total_colsum, plane_bound=bound)
@@ -884,7 +939,8 @@ def median_ms(fn, reps: int = 5) -> tuple[float, list]:
 def phase5(card, dev):
     """The LM serving path: ``generate`` on full-width seamless-m4t-medium.
     Returns (kernel launches in the driven runs, max abs error, the three
-    kernel shapes' times)."""
+    kernel shapes' times, a third generate counted by ``op_cost`` for phase
+    12 (c))."""
     from repro_torch.kernels import dslot_matmul as dm
     from repro_torch.runtime import precision_scope
     from repro_torch.serve.engine import generate
@@ -917,6 +973,15 @@ def phase5(card, dev):
             f"skipped_frac {[round(float(v), 4) for v in res.skipped_frac]}, "
             f"planes_bounded_mean {float(res.planes_bounded_mean):.4f}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # phase 12 (c): one more generate under op_cost, its launches counted
+    # both ways
+    from repro_torch.launch.op_cost import OpCost
+    dm.dslot_matmul_cuda.launches = 0
+    with OpCost() as cost:
+        generate(model, prep, batch, LM_NEW, n_planes=8)
+    torch.cuda.synchronize()
+    counted = {"launches": dm.dslot_matmul_cuda.launches,
+               "totals": cost.totals(), "expected": expected}
     low = float(results["n_planes=[8,8,4,2]"].planes_used_mean[3])
     if low > 2.0:
         raise AssertionError(f"the 2-plane request used {low} planes")
@@ -1026,7 +1091,7 @@ def phase5(card, dev):
         for ms, count, key in rows[:8]:
             log(f"    {ms:.4f} ms x{count} {key[:90]}")
     log(f"  peak memory in the generate runs: {peak_gb:.2f} GB [{card}]")
-    return launches, max_err, times
+    return launches, max_err, times, counted
 
 
 # ------------------------------------------------------------ phase 6
@@ -2277,10 +2342,26 @@ def train_small_gates(dev) -> None:
         raise AssertionError(f"gate (c) microbatching: loss {dl}, params {dp}")
 
 
-def phase9(card, dev) -> float:
+def counted_step(step, state, batch, dev) -> dict:
+    """One more step of ``step`` under ``launch.op_cost.OpCost`` (phase 12
+    (a)): its totals and wall.  The step updates ``state`` in place."""
+    from repro_torch.launch.op_cost import OpCost
+
+    sync(dev)
+    t0 = time.perf_counter()
+    with OpCost() as cost:
+        step(state, batch)
+    sync(dev)
+    return {"totals": cost.totals(),
+            "wall_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def phase9(card, dev) -> dict:
     """Training at full published width and depth (see the module
     docstring): gates (a)-(e) and the step's figures.  Returns the timed
-    steps' tokens/s."""
+    steps' tokens/s (``tps``), median wall, model-FLOPs share, parameters,
+    tokens a step and peak memory, and the step counted by ``op_cost``
+    after the timed steps (``counted``, for phase 12)."""
     import math
     import shutil
 
@@ -2396,6 +2477,7 @@ def phase9(card, dev) -> float:
             f"[{card}]")
         log(f"  peak memory (torch.cuda.max_memory_allocated) "
             f"{peak / 1e9:.2f} GB")
+        counted = counted_step(step, state, batch, dev)
         if trace is None:
             log("  traced step: device time not measured (the profiler trace "
                 "holds no device time)")
@@ -2444,7 +2526,9 @@ def phase9(card, dev) -> float:
     finally:
         ck.wait()
         shutil.rmtree(ck_dir, ignore_errors=True)
-    return tokens / (med / 1e3)
+    return {"tps": tokens / (med / 1e3), "wall_ms": med, "mfu": mfu,
+            "n_params": n_params, "tokens": tokens, "peak": peak,
+            "counted": counted}
 
 
 # ------------------------------------------------------------ phase 10
@@ -3511,6 +3595,159 @@ def phase11(card, dev, single_tps: float) -> None:
 
 # ------------------------------------------------------------ phase 3
 
+# ------------------------------------------------------------ phase 12
+
+PEAK_RTOL = 0.05                # gate (b): dry-run peak against the card's
+DRYRUN_TIMEOUT = 600            # seconds a dry-run subprocess may take
+
+
+def dryrun_proc(args: list) -> subprocess.Popen:
+    """A dry run in its own process on fake CPU tensors (no card)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finished(proc: subprocess.Popen, what: str) -> str:
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what} ran past {DRYRUN_TIMEOUT} s") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} failed:\n{err[-3000:]}")
+    return out
+
+
+def log_roofline(label: str, row: dict) -> float:
+    """Log a roofline row; returns its modeled step seconds (the dominant
+    term)."""
+    modeled = max(row["compute_s"], row["memory_s"], row["collective_s"])
+    log(f"  {label}: compute {row['compute_s'] * 1e3:.1f} ms, memory "
+        f"{row['memory_s'] * 1e3:.1f} ms (every op's bytes "
+        f"{row['memory_upper_s'] * 1e3:.1f} ms), collective "
+        f"{row['collective_s'] * 1e3:.1f} ms: {row['dominant']}-bound, "
+        f"modeled step {modeled * 1e3:.1f} ms; roofline_frac "
+        f"{row['roofline_frac']:.4f}, useful/op FLOPs "
+        f"{row['useful_ratio']:.3f} (H100 data-sheet rates, 700 W)")
+    return modeled
+
+
+# the dry run of phase 9's one-device program: microbatches_for gives one
+# device min(batch, 2 x microbatches) microbatches, TRAIN_MICRO of them
+P9_DRYRUN = f"""
+import json
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch.dryrun import trace_cell
+shape = ShapeConfig("phase9", "train", {TRAIN_SEQ}, {TRAIN_BATCH},
+                    microbatches={TRAIN_MICRO // 2})
+print(json.dumps(trace_cell(get_arch("{TRAIN_ARCH}"), shape, None)))
+"""
+
+
+def phase12(card, trained: dict, lm_counted: dict) -> None:
+    """The launch tools against the card: (a) phase 9's step counted by
+    ``op_cost`` and put through the roofline; (b) the dry run of that same
+    one-device program on fake CPU tensors, whose dot FLOPs must equal
+    (a)'s and whose peak must lie within PEAK_RTOL of phase 9's
+    ``max_memory_allocated``; (c) phase 5's generate counted by ``op_cost``,
+    whose opaque DSLOT launches must equal the launch counter; (d) the
+    olmo-1b ``train_4k`` cell on the 16 x 16 fake world through the CLI,
+    its roofline and summarize rows.  (b) and (d) run as subprocesses on
+    the host's cores, side by side."""
+    from repro_torch.launch import roofline, summarize
+
+    out_dir = ROOT / "build" / "phase12_dryrun"
+    p9 = dryrun_proc(["-c", P9_DRYRUN])
+    cell = dryrun_proc(["-m", "repro_torch.launch.dryrun", "--arch",
+                        TRAIN_ARCH, "--shape", "train_4k", "--out",
+                        str(out_dir)])
+    try:
+        # (a)
+        c = trained["counted"]["totals"]
+        six_nt = 6 * trained["n_params"] * trained["tokens"]
+        log(f"  (a) {TRAIN_ARCH} step (seq {TRAIN_SEQ}, batch {TRAIN_BATCH}, "
+            f"M = {TRAIN_MICRO}, remat) under op_cost on the card: dot_flops "
+            f"{c['dot_flops']:.6e} against 6 N T {six_nt:.6e} (ratio "
+            f"{c['dot_flops'] / six_nt:.4f}); hbm_bytes "
+            f"{c['hbm_bytes']:.4e}, every op's bytes "
+            f"{c['hbm_bytes_upper']:.4e}, vector_flops "
+            f"{c['vector_flops']:.4e}, collectives "
+            f"{c['coll_total_bytes']}; the counted step's wall "
+            f"{trained['counted']['wall_ms']:.1f} ms")
+        rec = {"arch": TRAIN_ARCH, "shape": "phase 9", "mesh": {"card": 1},
+               "memory": {"argument_size_in_bytes": trained["peak"]},
+               "corrected": c}
+        row = roofline.analyze_cell(rec, model_flops=six_nt)
+        modeled = log_roofline("(a) roofline of the counted step", row)
+        log(f"      phase 9's measured wall {trained['wall_ms']:.1f} ms "
+            f"(modeled / measured "
+            f"{modeled * 1e3 / trained['wall_ms']:.4f}), model-FLOPs share "
+            f"{trained['mfu']:.4f} against roofline_frac "
+            f"{row['roofline_frac']:.4f}")
+
+        # (b)
+        t0 = time.perf_counter()
+        dry = json.loads(finished(p9, "the phase-9 dry run").splitlines()[-1])
+        mem = dry["memory"]
+        peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        flops = dry["corrected"]["dot_flops"]
+        log(f"  (b) dry run of the same one-device program on fake CPU "
+            f"tensors ({dry['compile_s']:.1f} s, M = {dry['microbatches']}): "
+            f"dot_flops {flops:.6e} (card {c['dot_flops']:.6e}); peak "
+            f"{peak / 1e9:.3f} GB predicted (state and batch "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB) against "
+            f"{trained['peak'] / 1e9:.3f} GB max_memory_allocated in phase 9 "
+            f"(rel {peak / trained['peak'] - 1:+.4f}, limit {PEAK_RTOL})")
+        if dry["microbatches"] != TRAIN_MICRO:
+            raise AssertionError(f"gate (b): the dry run took "
+                                 f"{dry['microbatches']} microbatches")
+        if flops != c["dot_flops"]:
+            raise AssertionError("gate (b): dot_flops of the fake trace "
+                                 "differ from the card's")
+        if abs(peak / trained["peak"] - 1) > PEAK_RTOL:
+            raise AssertionError(f"gate (b): predicted peak {peak} against "
+                                 f"{trained['peak']}")
+
+        # (c)
+        n = lm_counted["launches"]
+        got = lm_counted["totals"]["dslot_launches"]
+        log(f"  (c) {LM_ARCH} generate under op_cost: {got} opaque DSLOT "
+            f"launches, launch counter {n} (expected "
+            f"{lm_counted['expected']}); hbm_bytes "
+            f"{lm_counted['totals']['hbm_bytes']:.4e}, dot_flops "
+            f"{lm_counted['totals']['dot_flops']:.4e} outside the kernel")
+        if not got == n == lm_counted["expected"]:
+            raise AssertionError(f"gate (c): op_cost counted {got} DSLOT "
+                                 f"launches, the launch counter {n}")
+
+        # (d)
+        finished(cell, "the train_4k dry run")
+        rec = json.loads((out_dir / f"{TRAIN_ARCH}__train_4k__single.json")
+                         .read_text())
+        mem = rec["memory"]
+        gib = (mem["argument_size_in_bytes"]
+               + mem["temp_size_in_bytes"]) / 2 ** 30
+        traced = rec.get("microbatches_traced", [rec["microbatches"]])
+        log(f"  (d) {TRAIN_ARCH} train_4k on the 16 x 16 fake world "
+            f"({time.perf_counter() - t0:.1f} s after (b)): trace "
+            f"{rec['compile_s']:.1f} s, M = {rec['microbatches']} (traced "
+            f"at {traced}), peak {gib:.2f} GiB a rank, collectives "
+            f"{rec['collectives']['counts']}")
+        log_roofline("(d) roofline", roofline.analyze_cell(rec))
+        for line in summarize.render([summarize.row(rec)]).splitlines():
+            log(f"      {line}")
+    finally:   # neither subprocess outlives the phase
+        for proc in (p9, cell):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
 def cpu_copy(prep):
     """The prepared CNN with every tensor moved to the CPU."""
     def move(params):
@@ -3528,11 +3765,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside this script; run "
-              "it from a checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.configs.dslot_mnist import CONFIG
     from repro_torch.core import mnist_cnn
@@ -3667,7 +3899,7 @@ def main() -> int:
 
     # -------------------------------------------------- 5. LM serving path
     log(f"phase 5: LM serving path, {LM_ARCH} through generate")
-    lm_launches, lm_err, lm_times = phase5(card, dev)
+    lm_launches, lm_err, lm_times, lm_counted = phase5(card, dev)
     max_err = max(max_err, lm_err)
     main_times += lm_times
 
@@ -3692,7 +3924,7 @@ def main() -> int:
     # -------------------------------------------------- 9. training
     log(f"phase 9: training {TRAIN_ARCH} at full width [{card}]")
     n0 = dm.dslot_matmul_cuda.launches
-    single_tps = phase9(card, dev)
+    trained = phase9(card, dev)
     log(f"  dslot kernel launches in phase 9: "
         f"{dm.dslot_matmul_cuda.launches - n0} (the model has no DSLOT "
         f"layer; training launches no hand-written kernel)")
@@ -3707,8 +3939,14 @@ def main() -> int:
     # -------------------------------------------------- 11. sharded training
     log(f"phase 11: sharded training over {SH_RANKS} ranks [{card}]")
     t0 = time.perf_counter()
-    phase11(card, dev, single_tps)
+    phase11(card, dev, trained["tps"])
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------- 12. launch tools
+    log(f"phase 12: the op counter, the dry run and the roofline [{card}]")
+    t0 = time.perf_counter()
+    phase12(card, trained, lm_counted)
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)

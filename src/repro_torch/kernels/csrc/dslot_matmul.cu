@@ -82,6 +82,11 @@
 //      the vote is __syncthreads_and over the logical tile, with no branch
 //      per element, then a uniform break, so a dead tile issues no further
 //      loads or products.
+//
+// C. Walk (ReLU tiles that no warp tiling of B takes: more than 16 warps,
+//    or a digit tile and ring past the shared memory).  B's products and
+//    vote, with the tile's sums kept in its own region of `out` between
+//    chunks and the tile walked in sub-tiles (walk_kernel).
 // npl, the per-row budgets and the per-tile plane bounds are read from device
 // memory in both paths: a new precision needs no host sync and no rebuild.
 
@@ -768,7 +773,7 @@ struct PlaneGeom {
   int p_part;     // bf16 elements per W part
   int smem;       // dynamic shared memory, bytes
   int nstage;     // ring stages (plane_kernel's NS): NSTAGE, or 2 for a
-                  // tall tile whose NSTAGE stages overflow MAX_SMEM
+                  // tall or (4, 4) tile whose NSTAGE stages overflow MAX_SMEM
   int Nt;         // N tiles: N / bn
   int y0;         // the first N tile of this launch (grid.y holds 65535)
 };
@@ -799,11 +804,11 @@ __device__ __forceinline__ void load_sf(float (&sf)[NI][2],
     }
 }
 
-// The termination vote: "every acc + R of the logical tile is negative",
-// R = scale * sf + (scale - tail) * tot, ANDed over the block.  Physical pad
-// rows and columns do not vote.  No branches: every element is tested.
+// The thread's part of the termination vote: "every acc + R of its
+// elements is negative", R = scale * sf + (scale - tail) * tot.  Physical
+// pad rows and columns do not vote.  No branches: every element is tested.
 template <int MI, int NI>
-__device__ __forceinline__ bool tile_dead(const float (&acc)[MI][NI][4],
+__device__ __forceinline__ int tile_votes(const float (&acc)[MI][NI][4],
                                           const float (&sf)[NI][2],
                                           const float (&tot_c)[NI][2],
                                           float scale, float tail, int wm0,
@@ -826,7 +831,19 @@ __device__ __forceinline__ bool tile_dead(const float (&acc)[MI][NI][4],
                 static_cast<int>(__fadd_rn(acc[mi][ni][2 * h + j], rem) < 0.0f);
         }
     }
-  return __syncthreads_and(ok) != 0;
+  return ok;
+}
+
+// The termination vote of the logical tile: tile_votes ANDed over the block.
+template <int MI, int NI>
+__device__ __forceinline__ bool tile_dead(const float (&acc)[MI][NI][4],
+                                          const float (&sf)[NI][2],
+                                          const float (&tot_c)[NI][2],
+                                          float scale, float tail, int wm0,
+                                          int wn0, int g, int t4, int bm,
+                                          int bn) {
+  return __syncthreads_and(tile_votes<MI, NI>(acc, sf, tot_c, scale, tail,
+                                              wm0, wn0, g, t4, bm, bn)) != 0;
 }
 
 // Write the logical part of a tile ([relu], zeros when it terminated) and
@@ -1128,6 +1145,174 @@ __global__ void __launch_bounds__(
 #undef DSLOT_NT
 #undef DSLOT_TILE
 
+// ------------------------------------------------------------ C. walk
+
+// The tiles plane_kernel's warp tilings do not take: those needing more
+// than 16 warps with no (2, 2) or (4, 4) fit (16 x 256, 1024 x 136), and
+// those whose digit tile and a 2-stage ring overflow the shared memory
+// (block_m 2048 at 8 columns).  A 1024 x 136 tile's f32 sums alone are
+// 557 KB, more than one SM's registers and shared memory together, so here
+// the tile's sums live in its own region of `out` between its chunks (the
+// L2 holds them), and the block walks the tile in sub-tiles of SR x SC: for
+// each (plane, chunk) and sub-tile it loads its sums, stages each KC-row
+// sub-chunk's q rows and W parts, writes the digit tile, and each warp walks
+// up to WALK_FRAGS 16 x 8 fragments of the sub-tile (mma_item<1, 1>, the
+// same products and round-to-nearest adds as every other tiling, so the
+// sums are bit-identical); after the chunk's last sub-chunk the warp adds
+// its fragments' votes and stores them.  The vote is ANDed over the whole
+// logical tile once every sub-tile of the chunk is done, pad rows voting
+// as in plane_kernel, and planes_used counts the tile's planes.  Simple
+// and slow: every sub-chunk is staged again for each sub-tile and the
+// sums cross the L2 once a chunk.
+constexpr int WALK_WARPS = 16;
+constexpr int WALK_FRAGS = 4;        // fragments a warp walks per sub-tile
+constexpr int WALK_MAX_ROWS = 512;   // sub-tile rows: int32 q rows fit
+
+struct WalkGeom {
+  int SR, SC;          // sub-tile rows (multiple of 16) and columns (of 8)
+  int PN;              // block_n padded to 8: split_parts_kernel's PN
+  int q_stride;        // staged q row stride, bytes
+  int off_a, off_q, off_p;  // shared-memory offsets, bytes
+  int p_row, p_part;   // bf16 elements per staged W row and part
+  int smem;            // dynamic shared memory, bytes
+  int Nt, y0;          // N tiles, and this launch's first (grid.y's limit)
+};
+
+// Shared memory: row budgets [SR] i32 | digit tile [SR][AS] bf16 | q rows
+// [SR][q_stride] of a sub-chunk | W parts [parts][KC][p_row] of a
+// sub-chunk's columns [c0, c0 + SC), copied from `wp` (split_parts_kernel).
+template <typename QT>
+__global__ void __launch_bounds__(WALK_WARPS * 32) walk_kernel(
+    const QT* __restrict__ q, int wtype, const __nv_bfloat16* __restrict__ wp,
+    const float* __restrict__ sfx, const float* __restrict__ tot,
+    const int* __restrict__ npl_ptr, const int* __restrict__ bnd,
+    const int* __restrict__ bud, float* __restrict__ out,
+    int* __restrict__ used, int K, int N, int n_bits, int D, int bm, int bn,
+    int bk, int relu, WalkGeom geo) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* rb_s = reinterpret_cast<int*>(smem);
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_a);
+  uint8_t* q_s = smem + geo.off_q;
+  __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_p);
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int nt = blockIdx.y + geo.y0;
+  const long long m0 = static_cast<long long>(blockIdx.x) * bm;
+  const int n0 = nt * bn;
+  const int parts = wtype == W_F32 ? 3 : 1;
+  const int PM = (bm + 15) / 16 * 16;
+  const int Kt = K / bk;
+  const int S = (bk + KC - 1) / KC;
+  const long long tile_elems = static_cast<long long>(bm) * bn;
+  const int npl = *npl_ptr;
+  const int limit = min(min(D, npl), bnd[nt]);
+  const float tail = pow2(n_bits - npl);
+
+  for (long long e = threadIdx.x; e < tile_elems; e += blockDim.x)
+    out[(m0 + e / bn) * N + n0 + e % bn] = 0.0f;
+  // staged W rows past a chunk's end meet zero digits and must be finite
+  for (int e = threadIdx.x; e < parts * geo.p_part; e += blockDim.x)
+    reinterpret_cast<uint16_t*>(p_s)[e] = 0;
+
+  float acc[WALK_FRAGS][1][1][4];
+  float sf[1][2], tot_c[1][2];
+  int planes = 0;
+  bool dead = false;
+  for (int d = 0; d < limit && !dead; ++d) {
+    ++planes;
+    const int shift = n_bits - 1 - d;
+    for (int c = 0; c < Kt && !dead; ++c) {
+      int ok = 1;
+      for (int r0 = 0; r0 < PM; r0 += geo.SR)
+        for (int c0 = 0; c0 < geo.PN; c0 += geo.SC) {
+          const int sr = min(geo.SR, PM - r0);
+          const int cf = min(geo.SC, geo.PN - c0) / 8;  // fragment columns
+          const int frags = sr / 16 * cf;
+          __syncthreads();  // the last sub-tile is done with shared memory
+          for (int r = threadIdx.x; r < sr; r += blockDim.x)
+            rb_s[r] = r0 + r >= bm ? 0 : (bud == nullptr ? D
+                                                          : bud[m0 + r0 + r]);
+#pragma unroll
+          for (int j = 0; j < WALK_FRAGS; ++j) {
+            const int f = warp + j * WALK_WARPS;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = r0 + f / cf * 16 + g + 8 * (e >> 1);
+              const int col = c0 + f % cf * 8 + 2 * t4 + (e & 1);
+              acc[j][0][0][e] = f < frags && row < bm && col < bn
+                  ? out[(m0 + row) * N + n0 + col] : 0.0f;
+            }
+          }
+          for (int s = 0; s < S; ++s) {
+            const int k0 = c * bk + s * KC;
+            const int v = min(KC, bk - s * KC);
+            __syncthreads();  // every warp is done with the last sub-chunk
+            copy_rows(q_s, geo.q_stride,
+                      reinterpret_cast<const uint8_t*>(q + (m0 + r0) * K + k0),
+                      static_cast<long long>(K) * sizeof(QT), min(sr, bm - r0),
+                      v * static_cast<int>(sizeof(QT)));
+            for (int p = 0; p < parts; ++p)
+              copy_rows(reinterpret_cast<uint8_t*>(p_s + p * geo.p_part),
+                        geo.p_row * 2,
+                        reinterpret_cast<const uint8_t*>(
+                            wp + ((p * static_cast<long long>(K) + k0) *
+                                      geo.Nt + nt) * geo.PN + c0),
+                        static_cast<long long>(geo.Nt) * geo.PN * 2, v,
+                        cf * 16);
+            cp_async_wait_all();
+            __syncthreads();
+            extract_digits<QT>(a_s, reinterpret_cast<const QT*>(q_s),
+                               geo.q_stride / static_cast<int>(sizeof(QT)),
+                               rb_s, sr, shift, d, v);
+            __syncthreads();
+#pragma unroll
+            for (int j = 0; j < WALK_FRAGS; ++j) {
+              const int f = warp + j * WALK_WARPS;
+              if (f < frags)
+                mma_item<1, 1>(acc[j], a_s, p_s, geo.p_row, geo.p_part, parts,
+                               f / cf * 16, f % cf * 8, lane);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < WALK_FRAGS; ++j) {
+            const int f = warp + j * WALK_WARPS;
+            if (f >= frags) continue;
+            const int wm0 = r0 + f / cf * 16;
+            const int wn0 = c0 + f % cf * 8;
+            if (relu) {
+              load_sf<1>(sf, sfx, c, N, n0, wn0, t4, bn);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int col = wn0 + 2 * t4 + h;
+                tot_c[0][h] = col < bn ? tot[n0 + col] : 0.0f;
+              }
+              ok &= tile_votes<1, 1>(acc[j], sf, tot_c, pow2(shift), tail,
+                                     wm0, wn0, g, t4, bm, bn);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = wm0 + g + 8 * (e >> 1);
+              const int col = wn0 + 2 * t4 + (e & 1);
+              if (row < bm && col < bn)
+                out[(m0 + row) * N + n0 + col] = acc[j][0][0][e];
+            }
+          }
+        }
+      if (relu && __syncthreads_and(ok)) dead = true;
+    }
+  }
+  __syncthreads();  // every sum is in `out`
+  if (relu)
+    for (long long e = threadIdx.x; e < tile_elems; e += blockDim.x) {
+      float* o = out + (m0 + e / bn) * N + n0 + e % bn;
+      *o = dead ? 0.0f : fmaxf(*o, 0.0f);
+    }
+  if (threadIdx.x == 0) used[blockIdx.x * geo.Nt + nt] = planes;
+}
+
 // ------------------------------------------------------------ launchers
 
 bool product_path(int n_bits, int relu) { return !relu && n_bits <= 24; }
@@ -1192,24 +1377,29 @@ int launch_product(const void* q, const void* w, int wtype, const void* npl,
   return cudaGetLastError();
 }
 
-// Function attributes of plane_kernel<MI, NI, QT>, once per device: the
-// most shared memory per SM (so that small tiles keep many blocks) and the
-// largest dynamic allocation a launch may ask for.
-template <int MI, int NI, typename QT, int NS, bool SLAB>
-cudaError_t plane_attributes() {
-  static std::atomic<unsigned> done{0};  // bit per device
+// Function attributes of a kernel, once per device (`done` holds a bit per
+// device): the most shared memory per SM (so that small tiles keep many
+// blocks) and the largest dynamic allocation a launch may ask for.
+template <typename F>
+cudaError_t smem_attributes(F* kernel, std::atomic<unsigned>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= 32 || (done.load() >> dev & 1u)) return err;
-  err = cudaFuncSetAttribute(plane_kernel<MI, NI, QT, NS, SLAB>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(plane_kernel<MI, NI, QT, NS, SLAB>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                MAX_SMEM);
   if (err == cudaSuccess) done.fetch_or(1u << dev);
   return err;
+}
+
+template <int MI, int NI, typename QT, int NS, bool SLAB>
+cudaError_t plane_attributes() {
+  static std::atomic<unsigned> done{0};
+  return smem_attributes(plane_kernel<MI, NI, QT, NS, SLAB>, done);
 }
 
 // Blocks of plane_kernel<MI, NI, QT> that fit on one SM at once, asked of
@@ -1286,8 +1476,8 @@ long long align16(long long x) { return (x + 15) / 16 * 16; }
 // tiles of 2, 8 or 16 row fragments, the fewest that keep at most 16 warps,
 // its physical rows rounded up to the warps' rows; it streams.  A tile that
 // needs more than 16 warps even at 16 row fragments (ceil(bm / 256) *
-// ceil(bn / 8) > 16, e.g. 1024 x 136) is refused.  A tile of 8 columns
-// whose q rows and W parts fit in
+// ceil(bn / 8) > 16, e.g. 1024 x 136) goes to walk_kernel: mi = ni = 0.
+// A tile of 8 columns whose q rows and W parts fit in
 // RESIDENT_BYTES stays resident and builds its digits in registers, with
 // 64 x 8 warp tiles when its rows are a multiple of 64 (the CNN conv: two
 // warps per 128 x 8 tile).  Every other tile streams; its q rows over all of
@@ -1295,10 +1485,11 @@ long long align16(long long x) { return (x + 15) / 16 * 16; }
 // sub-chunk.  A staged q row is padded to 32 bytes past a multiple of 128,
 // so that the four rows a warp decodes at once fall in distinct banks.
 // Where NSTAGE ring stages of q and W sub-chunks overflow MAX_SMEM (1024 x
-// 24 at K = 1024: 250 KB), a tall tile's ring takes 2 stages (only tiles of
-// 8 or 16 row fragments a warp get that far); a tile whose digit tile and 2
-// stages still overflow is refused, as is a tile of another warp tiling
-// whose NSTAGE stages overflow (no 2-stage variant is built for it).
+// 24 at K = 1024: 250 KB; (4, 4) at 512 x 32 with int32 q: 287 KB), the
+// ring takes 2 stages.  Only the tall tilings and (4, 4) get that far: at
+// their warp limits a (1, 1) or (2, 2) tile's 3 stages of int32 q and f32
+// parts take at most 146 KB.  A tile whose digit tile and 2 stages still
+// overflow (block_m 2048 at 8 columns) goes to walk_kernel.
 template <typename QT>
 int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
                    PlaneGeom& geo, int& mi, int& ni) {
@@ -1316,7 +1507,7 @@ int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
     const int pm = (bm + 16 * r - 1) / (16 * r) * (16 * r);
     if ((pm / (16 * r)) * (geo.PN / 8) <= 16) mi = r, ni = 1, geo.PM = pm;
   }
-  if (mi == 0) return cudaErrorInvalidValue;
+  if (mi == 0) return cudaSuccess;  // walk_kernel
   geo.WN = geo.PN / (8 * ni);
   geo.nstage = NSTAGE;
   geo.Nt = N / bn;
@@ -1350,12 +1541,65 @@ int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
     geo.q_once = once <= MAX_SMEM;
     geo.q_stride = static_cast<int>(geo.q_once ? once_stride : chunk_stride);
     long long bytes = geo.q_once ? once : each;
-    if (bytes > MAX_SMEM && tall) {  // a shallower ring
-      geo.nstage = 2;
+    if (bytes > MAX_SMEM && (tall || (mi == 4 && ni == 4))) {
+      geo.nstage = 2;  // a shallower ring
       bytes = geo.off_q + 2 * (geo.PM * chunk_stride + w_stage);
     }
-    if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+    if (bytes > MAX_SMEM) {  // walk_kernel
+      mi = ni = 0;
+      return cudaSuccess;
+    }
     geo.smem = static_cast<int>(bytes);
+  }
+  return cudaSuccess;
+}
+
+// walk_kernel's sub-tiles: SC columns, at most WALK_WARPS * WALK_FRAGS
+// fragments of 8, and as many rows as keep the sub-tile's fragments within
+// that count, at most WALK_MAX_ROWS (16 x 512, 48 x 136, 336 x 24, 512 x 8).
+template <typename QT>
+WalkGeom walk_geometry(int N, int bm, int bn, int wtype) {
+  constexpr int frags = WALK_WARPS * WALK_FRAGS;
+  WalkGeom geo{};
+  geo.PN = (bn + 7) / 8 * 8;
+  geo.SC = geo.PN < 8 * frags ? geo.PN : 8 * frags;
+  const int rows = frags / (geo.SC / 8) * 16;
+  const int PM = (bm + 15) / 16 * 16;
+  geo.SR = PM < rows ? PM : rows;
+  if (geo.SR > WALK_MAX_ROWS) geo.SR = WALK_MAX_ROWS;
+  geo.q_stride = static_cast<int>(align16(KC * sizeof(QT)) + 16);
+  geo.p_row = geo.SC + 8;
+  geo.p_part = KC * geo.p_row;
+  geo.off_a = geo.SR * 4;
+  geo.off_q = geo.off_a + geo.SR * AS * 2;
+  geo.off_p = geo.off_q + geo.SR * geo.q_stride;
+  geo.smem = geo.off_p + (wtype == W_F32 ? 3 : 1) * geo.p_part * 2;
+  geo.Nt = N / bn;
+  return geo;
+}
+
+template <typename QT>
+int launch_walk(const void* q, const void* w, int wtype, const float* sfx,
+                const float* tot, const int* npl, const int* bnd,
+                const int* bud, float* out, int* used, void* ws, int M, int K,
+                int N, int n_bits, int D, int bm, int bn, int bk, int relu,
+                cudaStream_t s) {
+  static std::atomic<unsigned> done{0};
+  cudaError_t err = smem_attributes(walk_kernel<QT>, done);
+  if (err != cudaSuccess) return err;
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  WalkGeom geo = walk_geometry<QT>(N, bm, bn, wtype);
+  __nv_bfloat16* wp = static_cast<__nv_bfloat16*>(ws);
+  split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(w, wtype, wp, K, N, bn,
+                                                   geo.PN);
+  for (int y0 = 0; y0 < geo.Nt; y0 += 65535) {  // grid.y's limit
+    const int ny = geo.Nt - y0 < 65535 ? geo.Nt - y0 : 65535;
+    geo.y0 = y0;
+    walk_kernel<QT><<<dim3(M / bm, ny), WALK_WARPS * 32, geo.smem, s>>>(
+        static_cast<const QT*>(q), wtype, wp, sfx, tot, npl, bnd, bud, out,
+        used, K, N, n_bits, D, bm, bn, bk, relu, geo);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -1384,6 +1628,9 @@ int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
   int* u = static_cast<int*>(used);
   // The warp tiles that ran before slabs keep a variant with their old code
   // for up to 65535 N tiles; every other launch takes the SLAB variant.
+  if (mi == 0)
+    return launch_walk<QT>(q, w, wtype, sf, tt, np, bd, bu, o, u, ws, M, K, N,
+                           n_bits, D, bm, bn, bk, relu, s);
   const bool slab = geo.Nt > 65535;
 #define DSLOT_PLANE(MI_, NI_, NS_, SLAB_)                                   \
   if (mi == MI_ && ni == NI_ && geo.nstage == NS_ && (SLAB_ || !slab))      \
@@ -1403,6 +1650,7 @@ int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
   DSLOT_PLANE(16, 1, NSTAGE, true)
   DSLOT_PLANE(8, 1, 2, true)
   DSLOT_PLANE(16, 1, 2, true)
+  DSLOT_PLANE(4, 4, 2, true)
 #undef DSLOT_PLANE
   return cudaErrorInvalidValue;
 }

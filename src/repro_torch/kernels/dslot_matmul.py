@@ -305,8 +305,16 @@ def run(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
             "digit-serial MLP on CPU tensors (the plain version) or under "
             "torch.no_grad()")
     fn = _launch if q.is_cuda else _replay
-    return fn(q, w, n_bits, n_planes, relu, block_m, block_n, bk, suffix,
-              total, npl, row_budget, tile_bound)
+    args = (q, w, n_bits, n_planes, relu, block_m, block_n, bk, suffix,
+            total, npl, row_budget, tile_bound)
+    if _COST_HOOK is not None:   # an active launch.op_cost.OpCost
+        return _COST_HOOK(fn, args)
+    return fn(*args)
+
+
+# launch.op_cost.OpCost while one is active: it takes each call of ``run``
+# as one opaque op (dispatch never sees the ctypes launch)
+_COST_HOOK = None
 
 
 # ------------------------------------------------------------ entry points

@@ -1,0 +1,461 @@
+"""Multi-pod dry run: trace rank 0's program of every (arch x shape x mesh)
+cell on shapes alone (port of ``repro.launch.dryrun``).
+
+The reference lowers and compiles each cell for 256 or 512 placeholder TPU
+devices and reads XLA's memory and cost analyses.  The port runs one
+process per rank, so a cell here is rank 0's program: a fake
+``torch.distributed`` world of 256 (single pod, 16 x 16) or 512 (multi-pod,
+2 x 16 x 16) ranks carries the production mesh
+(``launch.mesh.make_production_mesh``), and the program runs under
+``FakeTensorMode`` on ``device="cpu"``, shapes without data: the zoo's
+programs branch on the device only at the DSLOT kernel, which
+``launch.op_cost`` takes at its boundary.  For each cell this shows,
+without a card,
+
+  * that the port's program runs on the production mesh (every collective
+    of ``repro_torch.distributed`` and ``train.sharding`` accepted),
+  * a rank's memory: the live storages tracked op by op, each rounded up to
+    the 512 bytes the CUDA caching allocator rounds a block to, against the
+    80 GB of an H100 (``launch.summarize``),
+  * the roofline inputs: ``op_cost``'s FLOPs, bytes and collectives
+    (``launch.roofline``).
+
+Rank 0's program, by shape kind: train -- ``init_train_state``, its
+``shard_tree`` slice, one ``make_sharded_train_step`` step at
+``microbatches_for``'s depth; prefill -- ``Model.prefill`` on rank 0's
+batch slice (``batch_pspec``); decode -- ``init_decode_state`` and
+``decode_step`` on that slice.  The port keeps parameters whole on a rank
+while serving and decode state sharded over the batch alone: the record
+lists the state leaves whose reference layout (``decode_state_shardings``)
+also splits them over ``model``.
+
+Usage:
+    python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k \\
+        [--multi-pod] [--out build/dryrun]
+    python -m repro_torch.launch.dryrun --all [--multi-pod]   # every live cell
+
+``trace_cell`` stands where the reference's ``lower_cell`` and compile
+stood: it takes any ``ShapeConfig`` and any mesh (None: one device), so a
+measured step can be held against it; ``run_cell`` wraps it for a
+registry cell on the production mesh.  One JSON record per cell, with the
+reference's keys; ``launch.sweep`` runs each cell in its own process, and
+the CLI keeps its fake world to its own process.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import time
+import traceback
+import weakref
+from typing import NamedTuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.registry import (cell_is_live, get_arch, get_shape,
+                                          live_cells)
+from repro_torch.train.sharding import P, _axis_sizes, batch_pspec, mesh_axes
+from repro_torch.tree import (flatten_with_path, leaves, map_with_path,
+                               tree_map)
+
+__all__ = ["LiveBytes", "TensorSpec", "decode_state_shardings",
+           "input_specs", "microbatches_for", "run_cell", "start_world",
+           "trace_cell"]
+
+BLOCK = 512                  # the CUDA caching allocator's block rounding
+
+
+class TensorSpec(NamedTuple):
+    """A model input's shape and dtype (the reference's
+    ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _fsdp_size(mesh) -> int:
+    fsdp, _ = mesh_axes(mesh)
+    sizes = _axis_sizes(mesh)
+    n = 1
+    for a in fsdp:
+        n *= sizes[a]
+    return n
+
+
+def microbatches_for(arch: ModelConfig, shape: ShapeConfig, mesh) -> int:
+    """Grad-accumulation depth: a per-rank microbatch of about one sample
+    bounds the saved activations of the big models (the reference's rule).
+    ``mesh`` None is one device."""
+    if shape.kind != "train":
+        return 1
+    n = 1 if mesh is None else _fsdp_size(mesh)
+    return max(1, min(shape.global_batch // n, shape.microbatches * 2))
+
+
+def input_specs(arch: ModelConfig, shape: ShapeConfig, mesh) -> dict:
+    """Shape and dtype of every model input of this cell (global batch)."""
+    S, B = shape.seq_len, shape.global_batch
+    F = arch.frontend_len if arch.frontend else 0
+    enc_len = arch.frontend_len if arch.family == "encdec" else 0
+    d = torch.bfloat16 if arch.dtype == "bfloat16" else torch.float32
+
+    if shape.kind == "train":
+        M = microbatches_for(arch, shape, mesh)
+        mb = B // M
+        batch = {"tokens": TensorSpec((M, mb, S - F), torch.int32),
+                 "labels": TensorSpec((M, mb, S - F), torch.int32)}
+        if arch.frontend:
+            batch["frontend"] = TensorSpec((M, mb, F, arch.d_model), d)
+        if arch.family == "encdec":
+            batch["src_embeds"] = TensorSpec((M, mb, enc_len, arch.d_model), d)
+        return batch
+
+    if shape.kind == "prefill":
+        batch = {"tokens": TensorSpec((B, S - F), torch.int32)}
+        if arch.frontend:
+            batch["frontend"] = TensorSpec((B, F, arch.d_model), d)
+        if arch.family == "encdec":
+            batch["src_embeds"] = TensorSpec((B, enc_len, arch.d_model), d)
+        return batch
+
+    # decode: one new token against a seq_len-deep cache
+    return {"tokens": TensorSpec((B, 1), torch.int32)}
+
+
+def decode_state_shardings(mesh, state):
+    """The reference's decode-state layout as plain-data specs: KV caches
+    shard the batch over (pod, data) when divisible and the cache sequence
+    axis over ``model`` (context parallelism); recurrent states shard their
+    feature axis over ``model``.  Leading stack dimensions replicate, and
+    every axis must divide its dimension."""
+    fsdp, tp = mesh_axes(mesh)
+    n_fsdp = _fsdp_size(mesh)
+    tp_n = _axis_sizes(mesh)[tp] if tp else 1
+
+    def one(path, leaf):
+        field = path.rsplit("/", 1)[-1].lstrip(".")
+        nd = leaf.ndim
+        if field == "positions" or nd == 0:
+            return ()
+
+        def spec_for(core: tuple) -> tuple:
+            lead = nd - len(core)
+            if lead < 0:
+                core = core[-nd:]
+                lead = 0
+            full = (None,) * lead + core
+            out = []
+            for i, a in enumerate(full):
+                if a is None:
+                    out.append(None)
+                    continue
+                n = n_fsdp if a == fsdp else tp_n
+                out.append(a if leaf.shape[i] % n == 0 else None)
+            return P(*out)
+
+        b = fsdp if fsdp else None
+        if field in ("k", "v"):          # KV cache (B, C, Hkv, hd)
+            return spec_for((b, tp, None, None))
+        if field == "ssm":               # (B, H, P, N): heads over model
+            return spec_for((b, tp, None, None))
+        if field == "conv":              # (B, k-1, C): channels over model
+            return spec_for((b, None, tp))
+        if field == "h":                 # rglru state (B, W)
+            return spec_for((b, tp))
+        return ()
+
+    return map_with_path(one, state)
+
+
+# ------------------------------------------------------------ memory
+
+class LiveBytes(TorchDispatchMode):
+    """The bytes of live storages, op by op, and their peak: each storage
+    an op's outputs hold is counted once, rounded up to ``BLOCK`` bytes,
+    from the op until the storage is freed (a finalizer on the storage,
+    which outlives its tensors while autograd saves it).  ``add`` counts
+    tensors made before the mode was entered."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._held: dict[int, int] = {}
+
+    def add(self, tree) -> None:
+        for t in leaves(tree):
+            if isinstance(t, torch.Tensor):
+                self._hold(t)
+
+    def _hold(self, t: torch.Tensor) -> None:
+        s = t.untyped_storage()
+        key = id(s)
+        if key in self._held:
+            return
+        nbytes = -(-s.nbytes() // BLOCK) * BLOCK
+        self._held[key] = nbytes
+        self.live += nbytes
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(s, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.live -= self._held.pop(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in leaves(out) if isinstance(out, (list, tuple)) else [out]:
+            if isinstance(t, torch.Tensor):
+                self._hold(t)
+        return out
+
+
+# ------------------------------------------------------------ the program
+
+def _rank_rows(mesh, global_batch: int) -> int:
+    """Rows of a batch of ``global_batch`` that one rank holds."""
+    if mesh is None or not batch_pspec(mesh, global_batch):
+        return global_batch
+    return global_batch // _fsdp_size(mesh)
+
+
+def _model_split(mesh, state) -> tuple[list, int]:
+    """The decode-state leaves whose reference spec splits them over
+    ``model``, and their bytes on this rank."""
+    if mesh is None:
+        return [], 0
+    specs = []
+    tree_map(lambda t, s: specs.append(s), state,
+             decode_state_shardings(mesh, state))
+    paths, nbytes = [], 0
+    for (path, leaf), spec in zip(flatten_with_path(state), specs):
+        if "model" in spec:
+            paths.append(path)
+            nbytes += leaf.numel() * leaf.element_size()
+    return paths, nbytes
+
+
+def _batch(specs: dict, lead: tuple) -> dict:
+    """Zero tensors of ``specs`` with their leading dimensions ``lead``."""
+    return {k: torch.zeros(lead + s.shape[len(lead):], dtype=s.dtype)
+            for k, s in specs.items()}
+
+
+def _batch_bytes(specs: dict, lead: tuple) -> int:
+    """The bytes ``LiveBytes`` holds for ``_batch(specs, lead)``."""
+    total = 0
+    for s in specs.values():
+        n = math.prod(lead + s.shape[len(lead):]) * s.dtype.itemsize
+        total += -(-n // BLOCK) * BLOCK
+    return total
+
+
+def _train_run(model, mesh, specs: dict, rows: int, M: int) -> dict:
+    """One train step of rank 0 at ``M`` microbatches of its ``rows //
+    M_cell`` rows each, counted: argument bytes, peak bytes and op_cost
+    totals."""
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.sharding import (Shardings, make_state_shardings,
+                                            shard_tree)
+    from repro_torch.train.step import (init_train_state,
+                                        make_sharded_train_step,
+                                        make_train_step)
+
+    per = rows // specs["tokens"].shape[0]
+    gen = torch.Generator().manual_seed(0)
+    mem, cost = LiveBytes(), OpCost()
+    if mesh is not None and any(n > 1 for n in _axis_sizes(mesh).values()):
+        # the rank's slices: storage the whole state never takes on a rank
+        state = init_train_state(model, gen, device="cpu")
+        shardings = make_state_shardings(mesh, state)
+        state = shard_tree(state, shardings.specs, mesh)
+        step = make_sharded_train_step(model, AdamWConfig(),
+                                       Shardings(mesh, shardings.specs))
+        batch = _batch(specs, (M, per))
+        mem.add((state, batch))
+        with mem:
+            argument = mem.live
+            with cost:
+                step(state, batch)
+    else:
+        # one device: its peak counts init's temporaries too, as a card's
+        # peak memory after init_train_state does
+        with mem:
+            state = init_train_state(model, gen, device="cpu")
+            batch = _batch(specs, (M, per))
+            argument = mem.live
+            step = make_train_step(model, AdamWConfig())
+            with cost:
+                step(state, batch)
+    return {"argument": argument, "peak": mem.peak, "totals": cost.totals()}
+
+
+def _extrapolate(one: dict, two: dict, M: int) -> dict:
+    """Totals at ``M`` microbatches from the counts at 1 and 2: every
+    microbatch runs the same ops on the same shapes."""
+    out = {}
+    for k, a in one.items():
+        if isinstance(a, dict):
+            out[k] = {j: a[j] + (M - 1) * (two[k][j] - a[j]) for j in a}
+        else:
+            out[k] = a + (M - 1) * (two[k] - a)
+    return out
+
+
+def trace_cell(arch: ModelConfig, shape: ShapeConfig, mesh=None, *,
+               fake: bool = True) -> dict:
+    """Rank 0's program of one cell on ``mesh`` (any size; None is the
+    one-device program, ``make_train_step`` for training), under
+    ``op_cost.OpCost`` and ``LiveBytes``.  ``fake=False`` runs it on real
+    CPU tensors instead (a check that the fake trace counts what a run
+    does).  A train step of more than 2 microbatches is traced at 1 and 2
+    microbatches of the same shape and its counts extrapolated (every
+    microbatch runs the same ops; the peak, reached in the second, holds
+    from there on).  Returns the record's ``memory``, ``collectives``,
+    ``corrected``, ``microbatches`` and timing entries."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models.model_zoo import build_model
+
+    model = build_model(arch)
+    specs = input_specs(arch, shape, mesh)
+    rows = _rank_rows(mesh, shape.global_batch)
+    extra: dict = {}
+    t0 = time.perf_counter()
+    with FakeTensorMode() if fake else contextlib.nullcontext():
+        if shape.kind == "train":
+            M = specs["tokens"].shape[0]
+            extra["microbatches"] = M
+            if M > 2:
+                one, two = (_train_run(model, mesh, specs, rows, m)
+                            for m in (1, 2))
+                extra["microbatches_traced"] = [1, 2]
+                totals = _extrapolate(one["totals"], two["totals"], M)
+                per = rows // M
+                more = _batch_bytes(specs, (M, per)) \
+                    - _batch_bytes(specs, (2, per))
+                argument = two["argument"] + more
+                peak = two["peak"] + more
+            else:
+                run = _train_run(model, mesh, specs, rows, M)
+                totals, argument, peak = (run["totals"], run["argument"],
+                                          run["peak"])
+        else:
+            enc_len = arch.frontend_len if arch.family == "encdec" else 0
+            params = model.init(torch.Generator().manual_seed(0),
+                                device="cpu")
+            batch = _batch(specs, (rows,))
+            mem, cost = LiveBytes(), OpCost()
+            if shape.kind == "decode":
+                state = model.init_decode_state(rows, shape.seq_len, enc_len,
+                                                device="cpu")
+                mem.add((params, batch, state))
+                with mem, cost:
+                    argument = mem.live
+                    _, state = model.decode_step(params, state,
+                                                 batch["tokens"])
+            else:
+                mem.add((params, batch))
+                with mem, cost:
+                    argument = mem.live
+                    _, state = model.prefill(params, batch,
+                                             max_len=shape.seq_len)
+            totals, peak = cost.totals(), mem.peak
+            paths, nbytes = _model_split(mesh, state)
+            extra["state_split_over_model"] = paths
+            extra["state_split_over_model_bytes"] = nbytes
+    seconds = round(time.perf_counter() - t0, 2)
+    return {**extra, "lower_s": seconds, "compile_s": seconds,
+            "memory": {"argument_size_in_bytes": argument,
+                       "temp_size_in_bytes": peak - argument},
+            "collectives": {"bytes": totals["coll_bytes"],
+                            "counts": totals["coll_counts"],
+                            "total_bytes": totals["coll_total_bytes"]},
+            "corrected": totals}
+
+
+# ------------------------------------------------------------ the world
+
+def start_world(n: int) -> None:
+    """A fake ``torch.distributed`` world of ``n`` ranks in this process,
+    rank 0 (``torch.testing``'s fake process group: collectives keep their
+    shapes and move nothing)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
+             out_dir: str, tag: str = "") -> dict:
+    """Trace one registry cell on the production mesh over a fake world of
+    256 (512 with ``multi_pod``) ranks and write its record."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import pspec
+
+    arch = get_arch(arch_name)
+    shape = get_shape(shape_name)
+    ok, why = cell_is_live(arch, shape)
+    if not ok:
+        raise SystemExit(f"cell skipped by assignment rule: {why}")
+    start_world(512 if multi_pod else 256)
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        pspec.set_mesh(mesh)
+        try:
+            traced = trace_cell(arch, shape, mesh)
+        finally:
+            pspec.set_mesh(None)
+        axes = _axis_sizes(mesh)
+    finally:
+        dist.destroy_process_group()
+    rec = {"arch": arch_name, "shape": shape_name, "multi_pod": multi_pod,
+           "mesh": axes, "tag": tag, **traced}
+    os.makedirs(out_dir, exist_ok=True)
+    fname = f"{arch_name}__{shape_name}__{'multi' if multi_pod else 'single'}"
+    if tag:
+        fname += f"__{tag}"
+    with open(os.path.join(out_dir, fname + ".json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="build/dryrun")
+    args = ap.parse_args(argv)
+
+    cells = live_cells() if args.all else [(args.arch, args.shape)]
+    for arch_name, shape_name in cells:
+        try:
+            rec = run_cell(arch_name, shape_name, multi_pod=args.multi_pod,
+                           out_dir=args.out)
+            peak = (rec["memory"]["argument_size_in_bytes"]
+                    + rec["memory"]["temp_size_in_bytes"])
+            print(f"OK  {arch_name} {shape_name} multi_pod={args.multi_pod} "
+                  f"trace={rec['lower_s'] + rec['compile_s']:.1f}s "
+                  f"flops={rec['corrected']['dot_flops']:.3e} "
+                  f"coll={rec['collectives']['total_bytes'] / 2 ** 20:.1f}"
+                  f"MiB peak={peak / 1e9:.2f}GB", flush=True)
+            print("  memory:", rec["memory"], flush=True)
+        except SystemExit as e:
+            print(f"SKIP {arch_name} {shape_name}: {e}")
+        except Exception:  # noqa: BLE001 -- reported, the next cell runs
+            print(f"FAIL {arch_name} {shape_name}")
+            traceback.print_exc()
+
+
+if __name__ == "__main__":
+    main()

@@ -193,13 +193,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         dm.dslot_matmul_cuda(q.to(torch.int64), w, block_m=64, block_n=16)
     with pytest.raises(TypeError):
         dm.dslot_matmul_cuda(q, w.to(torch.float16), block_m=64, block_n=16)
-    # a 1024 x 136 tile pads to 1024 x 136: 17 warps across its columns
-    # even at 256 rows a warp (4 x 17 warps of 256 x 8), above the 16 a
-    # block runs, and no warp tile of 16 columns divides 136, so the
-    # launcher refuses it and the wrapper raises
-    q4, w4 = _dyadic_case(cuda, False, torch.float32, M=1024, N=136)
+    # the kernel takes n_bits up to 30 (its plane scales are bf16 powers of
+    # two); above that the launcher refuses and the wrapper raises
     with pytest.raises(RuntimeError, match="launch failed"):
-        dm.dslot_matmul_cuda(q4, w4, block_m=1024, block_n=136)
+        dm.dslot_matmul_cuda(q, w, n_bits=31, block_m=64, block_n=16)
 
 
 # Tiles the kernel once refused: (block_m, block_n, K, M, N).  128 x 24 and
@@ -579,3 +576,46 @@ def test_sharded_step_on_card_matches_single_device(cuda):
         assert d.max() <= 2 * lr
         if firm.any():
             assert d[firm].max() <= 1e-3 * lr
+
+
+# Tiles that only walk_kernel takes, and (4, 4) with a 2-stage ring:
+# (block_m, block_n, K, M, N, n_bits).  16 x 256 needs 32 warps of (1, 1)
+# and has no (2, 2) fit (16 rows); 1024 x 136 needs 68 warps of 256 x 8
+# and its f32 sums (557 KB) fit no SM; 512 x 32 with int32 q (n_bits 20)
+# overflows 3 ring stages of (4, 4) (287 KB) and fits 2; block_m 2048 and
+# 4096 at 8 and 24 columns overflow even a 2-stage ring beside their digit
+# tile.  Row budgets of at most 8 planes keep n_bits 20's sums exact in f32.
+WALKED_TILES = [(16, 256, 1024, 64, 512, 8), (1024, 136, 256, 2048, 272, 8),
+                (512, 32, 256, 1024, 64, 20), (2048, 8, 256, 4096, 16, 8),
+                (2048, 24, 256, 4096, 48, 8), (4096, 8, 256, 8192, 16, 8),
+                (4096, 24, 256, 8192, 48, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_m,block_n,K,M,N,n_bits", WALKED_TILES)
+def test_walked_tiles_match_plain_exactly(cuda, block_m, block_n, K, M, N,
+                                          n_bits, relu, wdtype):
+    """Each tile the kernel refused before, on dyadic weights with row
+    budgets: output and planes_used equal to the plain version's bit for
+    bit, and two launches give the same bits."""
+    rng = np.random.default_rng(13)
+    top = 2 ** (n_bits - 1) - 1
+    q = torch.as_tensor(rng.integers(-top, top + 1, (M, K)))
+    q = q.to(dm.q_storage_dtype(n_bits, signed=True)).to(cuda)
+    w = rng.integers(-64, 65, (K, N)) / 64.0
+    w[:, : N // 2] -= 0.5                  # clustered ReLU-dead columns
+    w = torch.as_tensor(w, dtype=torch.float32).to(cuda, wdtype)
+    bud = torch.as_tensor(rng.integers(1, 9, M), dtype=torch.int32,
+                          device=cuda)
+    args = dict(n_bits=n_bits, relu=relu, block_m=block_m, block_n=block_n,
+                block_k=128 if K == 256 else None, row_budget=bud,
+                n_planes_rt=bud.max())
+    a = dm.dslot_matmul_cuda(q, w, **args)
+    a2 = dm.dslot_matmul_cuda(q, w, **args)
+    b = dm.dslot_matmul_plain(q, w, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(a.planes_used, b.planes_used)
+    assert torch.equal(a.out, b.out)
+    assert torch.equal(a.out, a2.out)

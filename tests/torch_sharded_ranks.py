@@ -1,5 +1,6 @@
 """Rank bodies of the port's sharded-training tests
-(``test_torch_sharded_train.py``).
+(``test_torch_sharded_train.py``, and ``test_torch_launch_tools.py``'s
+counted step).
 
 Spawned ranks import this module, which imports only numpy, torch and
 ``repro_torch``: the test process makes the inputs from numpy seeds (the
@@ -162,3 +163,46 @@ def card_step(rank, cfg, state_np, host, opt):
     dev = torch.device("cuda", torch.cuda.current_device())
     full, metrics, _, _ = one_step(cfg, state_np, host, opt, (2, 1), dev)
     return full, metrics
+
+
+def counted_step(rank, cfg):
+    """One sharded step of a state from ``Model.init`` over a (2, 1) mesh
+    under ``launch.op_cost.OpCost``: the collectives it counted, and the
+    ones the port's bucket plan (``sharding.buckets`` over the leaves
+    ``gather_tree`` gathers and the gradients ``_reduce_mean_`` averages)
+    says it issues, output bytes each."""
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.train.sharding import _spec_axes, buckets
+    from repro_torch.train.step import init_train_state
+    from repro_torch.tree import leaves
+
+    mesh = make_mesh((2, 1), AXES)
+    pspec.set_mesh(mesh)
+    try:
+        model = build_model(cfg)
+        state = init_train_state(model, torch.Generator().manual_seed(3),
+                                 device="cpu")
+        ssh = make_state_shardings(mesh, state)
+        mine = shard_tree(state, ssh.specs, mesh)
+        batch = {k: torch.zeros((1, 1, 16), dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        step = make_sharded_train_step(model, AdamWConfig(), ssh)
+        with OpCost() as cost:
+            step(mine, batch)
+    finally:
+        pspec.set_mesh(None)
+    gathered = []
+    tree_map(lambda t, s: gathered.append(t) if any(
+        "data" in _spec_axes(e) for e in s) else None, mine.params,
+        ssh.specs.params)
+    grads = [torch.zeros(t.shape) for t in leaves(state.params)] \
+        + [torch.zeros(2)]
+
+    def sizes(ts):
+        return [sum(ts[i].numel() * ts[i].element_size() for i in run)
+                for run in buckets(ts)]
+
+    t = cost.totals()
+    return {"counts": t["coll_counts"], "bytes": t["coll_bytes"],
+            "plan": {"all-gather": [2 * b for b in sizes(gathered)],
+                     "all-reduce": sizes(grads)}}
