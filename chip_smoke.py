@@ -252,16 +252,22 @@ Phases (any failure exits non-zero and prints no result line):
    the failure within ``TRAIN_LOSS_RTOL`` and the final parameters within
    2 lr anywhere (their firm difference is printed beside the drift of one
    device taking the same batches in M = 4 one-row microbatches: reason at
-   ``SH_ELASTIC``).  The timed run: full-width olmo-1b
+   ``SH_ELASTIC``).  Over (1, 2) the step splits its compute over the
+   model axis (heads, MLP columns and the vocab; ``pspec.model_shard``), so
+   gate (a) there holds the split.  The timed runs: full-width olmo-1b
    (phase 9's config and data: seq 2048, global batch 8, M = 2) over
-   (2, 1), 1 untimed and ``SH_TIMED`` timed steps, a sharded
-   ``save_async`` after the second timed step; printed per rank: every
-   step's loss, grad_norm, lr, wall and the seconds of its own collectives
-   (synchronized before and after, inside the step's wall), the median,
-   min and max wall, the world's tokens/s beside phase 9's, the collective
-   share, the stored state and the peak memory over the steps, and the
-   checkpoint's snapshot and write times.  Phase 11 launches no DSLOT
-   kernel (GLU MLPs), and says so.
+   (2, 1) and over (1, 2), 1 untimed and ``SH_TIMED`` timed steps each, a
+   sharded ``save_async`` after the second timed step of the (2, 1) run;
+   printed per rank: every step's loss, grad_norm, lr, wall and the
+   seconds of its own collectives by kind (parameter gather and gradient
+   reduce over the batch axis, the split's collectives over the model
+   axis; synchronized before and after, inside the step's wall), the
+   median, min and max wall, the world's tokens/s beside phase 9's, the
+   collective shares, the stored state and the peak memory over the steps,
+   and the checkpoint's snapshot and write times.  Gate (d): the untimed
+   first (1, 2) step counted by ``op_cost`` on rank 0, its dot FLOPs at most
+   ``SH_SPLIT_FLOPS`` of phase 9's one-device step at the same global
+   batch.  Phase 11 launches no DSLOT kernel (GLU MLPs), and says so.
 12. The launch tools (``repro_torch.launch.op_cost``, ``dryrun``,
    ``roofline``, ``summarize``): (a) one more step of phase 9's program
    after its timed steps, counted by ``op_cost`` on the card: dot FLOPs
@@ -272,8 +278,10 @@ Phases (any failure exits non-zero and prints no result line):
    phase 9's ``max_memory_allocated``; (c) one more phase-5 ``generate``
    counted by ``op_cost``, gate: its opaque DSLOT launches equal the launch
    counter (216); (d) the olmo-1b ``train_4k`` cell on the 16 x 16 fake
-   world through the dry run's CLI in a subprocess: its record, roofline
-   and summarize rows.  (b) and (d) run side by side.
+   world through the dry run's CLI in a subprocess: its record (with the
+   peak's breakdown), roofline and summarize rows, gate: MODEL/op at least
+   ``MODEL_OP_MIN`` (the step's compute split over the model axis).  (b)
+   and (d) run side by side.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
@@ -290,6 +298,7 @@ engine's decode and admission shard launches).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3057,7 +3066,9 @@ SH_TIMEOUT = 600                # seconds a collective may wait for a peer
 SH_DEADLINE = 900               # seconds the whole world may take
 SH_MESHES = ((2, 1), (1, 2))    # gate (a): (data, model)
 SH_AXES = ("data", "model")
-SH_TIMED = 4                    # timed steps after one untimed step
+SH_TIMED = 3                    # timed steps after one untimed step
+SH_TIMED_MESHES = ((2, 1), (1, 2))
+SH_SPLIT_FLOPS = 0.6            # gate (d): (1, 2) rank 0 / one device
 SH_CKPT_AFTER = 2               # sharded save_async after this timed step
 SH_ELASTIC = dict(n_steps=8, fail_at=4, lost_nodes=1, ckpt_every=3)
 # Gate (b) holds the restart apart from the reordering.  The run's first
@@ -3243,16 +3254,18 @@ def sh_elastic(rank, dev, model, state0, batches, lr) -> dict:
     return out
 
 
-def sh_timed(rank, dev, card) -> dict:
-    """The timed run in a rank: full-width olmo-1b over (2, 1), phase 9's
-    data; per step its wall and the seconds of its own collectives; one
-    sharded save_async."""
+def sh_timed(rank, dev, card, shape) -> dict:
+    """A timed run in a rank: full-width olmo-1b over ``shape``, phase 9's
+    data; per step its wall and the seconds of its own collectives by kind;
+    over (2, 1) one sharded save_async; over a split model axis the
+    untimed first step counted by ``op_cost`` on rank 0 (its dot FLOPs)."""
     import shutil
 
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import TokenPipeline, make_global_batch
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_cost import OpCost
     from repro_torch.models import pspec
     from repro_torch.models.model_zoo import build_model
     from repro_torch.optim.adamw import schedule
@@ -3263,10 +3276,11 @@ def sh_timed(rank, dev, card) -> dict:
 
     cfg = get_arch(TRAIN_ARCH)
     model = build_model(cfg)
-    mesh = make_mesh((SH_RANKS, 1), SH_AXES)
+    mesh = make_mesh(shape, SH_AXES)
     pspec.set_mesh(mesh)
     total = SH_TIMED + 1
     opt = train_opt(total)
+    ckpt = shape == (SH_RANKS, 1)
     pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ,
                          global_batch=TRAIN_BATCH, microbatches=TRAIN_MICRO)
     full = init_train_state(model, torch.Generator(dev).manual_seed(0),
@@ -3282,7 +3296,7 @@ def sh_timed(rank, dev, card) -> dict:
     clock = CollectiveClock()
     step = make_sharded_train_step(model, opt, ssh, clock)
     ck_dir = ROOT / "build" / "phase11_ckpt"
-    if rank == 0:
+    if rank == 0 and ckpt:
         shutil.rmtree(ck_dir, ignore_errors=True)
     ck = Checkpointer(str(ck_dir), keep=1)
     write_s = []
@@ -3297,22 +3311,30 @@ def sh_timed(rank, dev, card) -> dict:
     ck._write = timed_write
     torch.cuda.reset_peak_memory_stats(dev)
     rows = []
-    snap_ms = None
+    snap_ms = wait_s = flops = None
+    nbytes = 0
     try:
         for k in range(1, total + 1):
             batch = to_device(make_global_batch(mesh, pipe.next_host_batch(),
                                                 bsh), dev)
-            before = sum(clock.seconds.values())
-            gather0 = clock.seconds["gather"]
+            before = dict(clock.seconds)
+            # gate (d): the untimed first step over a split model axis is
+            # rank 0's counted one
+            count = k == 1 and shape[1] > 1 and rank == 0
+            cost = OpCost() if count else contextlib.nullcontext()
             sync(dev)
             t0 = time.perf_counter()
-            state, m = step(state, batch)
+            with cost:
+                state, m = step(state, batch)
             sync(dev)
             wall = time.perf_counter() - t0
-            coll = sum(clock.seconds.values()) - before
+            if count:
+                flops = cost.totals()["dot_flops"]
             row = {n: float(m[n]) for n in ("loss", "grad_norm", "lr")}
-            row.update(wall_ms=wall * 1e3, coll_ms=coll * 1e3,
-                       gather_ms=(clock.seconds["gather"] - gather0) * 1e3)
+            row.update(wall_ms=wall * 1e3, **{
+                f"{kind}_ms": (clock.seconds[kind] - before[kind]) * 1e3
+                for kind in clock.seconds})
+            row["coll_ms"] = sum(row[f"{kind}_ms"] for kind in clock.seconds)
             if not (math.isfinite(row["loss"])
                     and math.isfinite(row["grad_norm"])):
                 raise AssertionError(f"phase 11: step {k} is not finite")
@@ -3320,25 +3342,29 @@ def sh_timed(rank, dev, card) -> dict:
                                                              device=dev))):
                 raise AssertionError(f"phase 11: step {k} lr {row['lr']}")
             rows.append(row)
-            if k == 1 + SH_CKPT_AFTER:
+            if ckpt and k == 1 + SH_CKPT_AFTER:
                 sync(dev)
                 t0 = time.perf_counter()
                 ck.save_async(k, state, ssh)
                 snap_ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated(dev)
-        t0 = time.perf_counter()
-        ck.wait()
-        wait_s = time.perf_counter() - t0
-        nbytes = sum(f.stat().st_size for f in ck_dir.rglob("*")
-                     if f.is_file()) if rank == 0 else 0
+        if ckpt:
+            t0 = time.perf_counter()
+            ck.wait()
+            wait_s = time.perf_counter() - t0
+            nbytes = sum(f.stat().st_size for f in ck_dir.rglob("*")
+                         if f.is_file()) if rank == 0 else 0
     finally:
         ck.wait()
         pspec.set_mesh(None)
-        if rank == 0:
+        if rank == 0 and ckpt:
             shutil.rmtree(ck_dir, ignore_errors=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
     return dict(rows=rows, peak_gb=peak / 1e9, stored_gb=stored / 1e9,
                 n_params=n_params, snap_ms=snap_ms, write_s=write_s,
-                wait_s=wait_s, ckpt_gb=nbytes / 1e9)
+                wait_s=wait_s, ckpt_gb=nbytes / 1e9, dot_flops=flops)
 
 
 def phase11_rank(rank, spec) -> dict:
@@ -3358,11 +3384,48 @@ def phase11_rank(rank, spec) -> dict:
     del state0
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out["timed"] = sh_timed(rank, dev, spec["card"])
-    out["timed_s"] = time.perf_counter() - t0
+    out["timed"], out["timed_s"] = {}, {}
+    for shape in SH_TIMED_MESHES:
+        t0 = time.perf_counter()
+        out["timed"][shape] = sh_timed(rank, dev, spec["card"], shape)
+        out["timed_s"][shape] = time.perf_counter() - t0
     out["dslot_launches"] = dm.dslot_matmul_cuda.launches
     return out
+
+
+def log_timed(rank, shape, t, base, tokens, single_tps, card) -> None:
+    """The log of one rank's timed run over ``shape``."""
+    timed = t["rows"][1:]
+    walls = sorted(x["wall_ms"] for x in timed)
+    med = walls[len(walls) // 2]
+
+    def share(key):
+        vals = sorted(x[key] / x["wall_ms"] for x in timed)
+        return vals[len(vals) // 2]
+
+    for k, x in enumerate(t["rows"], 1):
+        log(f"  [rank {rank}] {shape} step {k}: loss {x['loss']:.6f}, "
+            f"grad_norm {x['grad_norm']:.6f}, lr {x['lr']:.6e}, wall "
+            f"{x['wall_ms']:.1f} ms, collectives {x['coll_ms']:.1f} ms "
+            f"(gather {x['gather_ms']:.1f}, reduce {x['reduce_ms']:.1f}, "
+            f"model {x['model_ms']:.1f})" + (" untimed" if k == 1 else ""))
+    log(f"  [rank {rank}] {TRAIN_ARCH} full width ({t['n_params'] / 1e9:.4f}"
+        f" B parameters, {base.dtype}, remat {base.remat}, scan_unroll "
+        f"{base.scan_unroll}) over {shape}, {tokens} tokens a step: step "
+        f"wall median {med:.1f} ms, min {walls[0]:.1f}, max {walls[-1]:.1f} "
+        f"over {len(walls)} steps; {tokens / (med / 1e3):.0f} tokens/s of "
+        f"the world (phase 9, one rank alone on this card: "
+        f"{single_tps:.0f}); collectives {share('coll_ms'):.3f} of the "
+        f"step's own wall (median; gather {share('gather_ms'):.3f}, reduce "
+        f"{share('reduce_ms'):.3f}, model {share('model_ms'):.3f}); stored "
+        f"state {t['stored_gb']:.2f} GB, peak memory over the steps "
+        f"{t['peak_gb']:.2f} GB [{card}]")
+    if rank == 0 and t["snap_ms"] is not None:
+        log(f"  [rank {rank}] sharded save_async after step "
+            f"{1 + SH_CKPT_AFTER}: snapshot (gather + host copy) "
+            f"{t['snap_ms']:.0f} ms, write {t['write_s'][0]:.1f} s on "
+            f"rank 0's thread, {t['ckpt_gb']:.2f} GB written, wait at the "
+            f"end {t['wait_s']:.1f} s [{card}]")
 
 
 def hold_train(params, want, grads, lr, steps=1) -> tuple[float, float]:
@@ -3428,10 +3491,11 @@ def tree_scale(tree, s):
     return tree_map(lambda a: a * s, tree)
 
 
-def phase11(card, dev, single_tps: float) -> None:
+def phase11(card, dev, single_tps: float, single_flops: float) -> None:
     """Sharded training over ``SH_RANKS`` ranks on this one card (see the
     module docstring): the single-device yardsticks and gate (c) here, then
-    the world.  ``single_tps``: phase 9's tokens/s, for the log."""
+    the world.  ``single_tps``: phase 9's tokens/s, for the log;
+    ``single_flops``: the dot FLOPs of phase 9's counted step (gate (d))."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.mesh import run_world
     from repro_torch.train.step import make_train_step, microbatch_grads
@@ -3481,7 +3545,10 @@ def phase11(card, dev, single_tps: float) -> None:
     log(f"  the world of {SH_RANKS} ranks ran in "
         f"{time.perf_counter() - t0:.1f} s (gate (a) "
         f"{res[0]['gate_a_s']:.1f} s, gate (b) {res[0]['gate_b']['seconds']:.1f}"
-        f" s, the timed run {res[0]['timed_s']:.1f} s on rank 0)")
+        f" s, the timed runs "
+        + ", ".join(f"{shape} {sec:.1f} s"
+                    for shape, sec in res[0]["timed_s"].items())
+        + " on rank 0)")
     lr = want_a["metrics"]["lr"]
     failed = []
 
@@ -3553,39 +3620,23 @@ def phase11(card, dev, single_tps: float) -> None:
                       f"{r_firm}, {r_all} lr; before the failure {pre_rel}; "
                       f"uninterrupted {all_d} lr")
 
-    # the timed run
+    # the timed runs
     base = get_arch(TRAIN_ARCH)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    for rank, r in enumerate(res):
-        t = r["timed"]
-        timed = t["rows"][1:]
-        walls = sorted(x["wall_ms"] for x in timed)
-        med = walls[len(walls) // 2]
-        shares = sorted(x["coll_ms"] / x["wall_ms"] for x in timed)
-        gshare = sorted(x["gather_ms"] / x["wall_ms"] for x in timed)
-        for k, x in enumerate(t["rows"], 1):
-            log(f"  [rank {rank}] step {k}: loss {x['loss']:.6f}, grad_norm "
-                f"{x['grad_norm']:.6f}, lr {x['lr']:.6e}, wall "
-                f"{x['wall_ms']:.1f} ms, collectives {x['coll_ms']:.1f} ms "
-                f"(parameter all_gather {x['gather_ms']:.1f})"
-                + (" untimed" if k == 1 else ""))
-        log(f"  [rank {rank}] {TRAIN_ARCH} full width ({t['n_params'] / 1e9:.4f}"
-            f" B parameters, {base.dtype}, remat {base.remat}, scan_unroll "
-            f"{base.scan_unroll}) over ({SH_RANKS}, 1), {tokens} tokens a "
-            f"step: step wall median {med:.1f} ms, min {walls[0]:.1f}, max "
-            f"{walls[-1]:.1f} over {len(walls)} steps; "
-            f"{tokens / (med / 1e3):.0f} tokens/s of the world (phase 9, one "
-            f"rank alone on this card: {single_tps:.0f}); collectives "
-            f"{shares[len(shares) // 2]:.3f} of the step's own wall (median; "
-            f"min {shares[0]:.3f}, max {shares[-1]:.3f}; all_gather "
-            f"{gshare[len(gshare) // 2]:.3f}); stored state {t['stored_gb']:.2f}"
-            f" GB, peak memory over the steps {t['peak_gb']:.2f} GB [{card}]")
-        if rank == 0:
-            log(f"  [rank {rank}] sharded save_async after step "
-                f"{1 + SH_CKPT_AFTER}: snapshot (gather + host copy) "
-                f"{t['snap_ms']:.0f} ms, write {t['write_s'][0]:.1f} s on "
-                f"rank 0's thread, {t['ckpt_gb']:.2f} GB written, wait at the "
-                f"end {t['wait_s']:.1f} s [{card}]")
+    for shape in SH_TIMED_MESHES:
+        for rank, r in enumerate(res):
+            log_timed(rank, shape, r["timed"][shape], base, tokens,
+                      single_tps, card)
+
+    # gate (d): the split computes its share
+    flops = res[0]["timed"][(1, SH_RANKS)]["dot_flops"]
+    ratio = flops / single_flops
+    log(f"  gate (d) rank 0's dot_flops of one (1, {SH_RANKS}) step under "
+        f"op_cost: {flops:.6e} against phase 9's one-device step at the same "
+        f"global batch {single_flops:.6e}: ratio {ratio:.4f} (limit "
+        f"{SH_SPLIT_FLOPS})")
+    if ratio > SH_SPLIT_FLOPS:
+        failed.append(f"gate (d): (1, {SH_RANKS}) dot FLOPs ratio {ratio}")
     launched = sum(r["dslot_launches"] for r in res)
     log(f"  dslot kernel launches in phase 11: {launched} (the model's MLPs "
         f"are GLU; sharded training launches no hand-written kernel)")
@@ -3598,6 +3649,7 @@ def phase11(card, dev, single_tps: float) -> None:
 # ------------------------------------------------------------ phase 12
 
 PEAK_RTOL = 0.05                # gate (b): dry-run peak against the card's
+MODEL_OP_MIN = 0.6              # gate (d): train_4k MODEL/op on 16 x 16
 DRYRUN_TIMEOUT = 600            # seconds a dry-run subprocess may take
 
 
@@ -3738,9 +3790,18 @@ def phase12(card, trained: dict, lm_counted: dict) -> None:
             f"{rec['compile_s']:.1f} s, M = {rec['microbatches']} (traced "
             f"at {traced}), peak {gib:.2f} GiB a rank, collectives "
             f"{rec['collectives']['counts']}")
-        log_roofline("(d) roofline", roofline.analyze_cell(rec))
+        row = roofline.analyze_cell(rec)
+        log_roofline("(d) roofline", row)
         for line in summarize.render([summarize.row(rec)]).splitlines():
             log(f"      {line}")
+        parts = rec["peak_breakdown"]
+        log("  (d) the rank's peak: " + ", ".join(
+            f"{k} {v / 1e9:.2f} GB" for k, v in parts.items()))
+        log(f"  (d) MODEL/op {row['useful_ratio']:.4f} (limit "
+            f"{MODEL_OP_MIN}: the step's compute split over the model axis)")
+        if row["useful_ratio"] < MODEL_OP_MIN:
+            raise AssertionError(f"gate (d): MODEL/op "
+                                 f"{row['useful_ratio']} < {MODEL_OP_MIN}")
     finally:   # neither subprocess outlives the phase
         for proc in (p9, cell):
             if proc.poll() is None:
@@ -3939,7 +4000,8 @@ def main() -> int:
     # -------------------------------------------------- 11. sharded training
     log(f"phase 11: sharded training over {SH_RANKS} ranks [{card}]")
     t0 = time.perf_counter()
-    phase11(card, dev, trained["tps"])
+    phase11(card, dev, trained["tps"],
+            trained["counted"]["totals"]["dot_flops"])
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
     # -------------------------------------------------- 12. launch tools

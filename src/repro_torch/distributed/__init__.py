@@ -13,16 +13,25 @@ that disagree cannot be repaired by a retry on one of them, so callers that
 absorb other errors (the serving engine's step retry) let it through.
 Under ``gloo`` every collective here takes CUDA tensors as they are; only the
 point-to-point ring of ``overlap.py`` copies through the host.
+
+``copy_to_model`` and ``reduce_from_model`` are Megatron's "f" and "g", the
+autograd operators around a column- and row-parallel pair of products over
+the model axis (the sharded train step's split, ``models/pspec.py``
+``model_shard``); ``all_reduce_max`` is the vocab-parallel cross-entropy's
+max.  Their ``timer`` is an optional ``timer("model")`` context manager
+around each collective (``train.step.CollectiveClock``).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "all_to_all", "all_reduce_mean",
+__all__ = ["all_gather", "all_to_all", "all_reduce_max", "all_reduce_mean",
            "all_reduce_mean_grad", "all_reduce_sum_", "axis_rank",
-           "axis_size", "mesh_barrier"]
+           "axis_size", "copy_to_model", "mesh_barrier", "reduce_from_model"]
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -109,6 +118,86 @@ def all_reduce_sum_(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     except RuntimeError as e:
         raise _failed("all_reduce", axis, e) from e
     return t
+
+
+def _sum_f32(t: torch.Tensor, mesh, axis: str, dtype, timer
+             ) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``axis``, taken in f32 and rounded
+    once to ``dtype``; a new tensor.  ``timer(kind)``, when given, is a
+    context manager around the collective."""
+    flat = t.to(torch.float32, copy=True).contiguous()
+    with timer("model") if timer is not None else contextlib.nullcontext():
+        all_reduce_sum_(flat, mesh, axis)
+    return flat.to(dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's "f": the identity forward; the backward sums the ranks'
+    gradients over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, timer):
+        ctx.mesh, ctx.axis, ctx.timer = mesh, axis, timer
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.mesh, ctx.axis, g.dtype, ctx.timer), None, \
+            None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's "g": the forward sums the ranks' partial values over the
+    axis; the identity backward (in the partials' dtype).  Not
+    ``torch.distributed.nn.functional.all_reduce``, whose backward
+    all-reduces again and would multiply every gradient by the axis size."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dtype, timer):
+        ctx.dtype = x.dtype
+        return _sum_f32(x, mesh, axis, dtype, timer)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None, None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh, axis: str = "model",
+                  timer=None) -> torch.Tensor:
+    """``x``, replicated on every rank of ``axis``, entering a
+    column-parallel product: the identity, whose backward all-reduces the
+    sum of the ranks' gradients (each rank's holds its columns' share).
+    The sum runs in f32 and is rounded once to the gradient's dtype."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _CopyToModel.apply(x, mesh, axis, timer)
+
+
+def reduce_from_model(x: torch.Tensor, mesh, dtype, axis: str = "model",
+                      timer=None) -> torch.Tensor:
+    """The sum over the ranks of ``axis`` of each rank's partial ``x`` (a
+    row-parallel product's output, best in f32), rounded once to ``dtype``:
+    one device and the split differ only in the order of the sum.  The
+    backward passes the gradient to every rank's partial unchanged."""
+    if axis_size(mesh, axis) == 1:
+        return x.to(dtype)
+    return _ReduceFromModel.apply(x, mesh, axis, dtype, timer)
+
+
+def all_reduce_max(t: torch.Tensor, mesh, axis: str = "model",
+                   timer=None) -> torch.Tensor:
+    """The elementwise max of ``t`` over the ranks of ``axis``, detached
+    (no gradient flows through it); a new tensor."""
+    if axis_size(mesh, axis) == 1:
+        return t.detach().clone()
+    out = t.detach().to(torch.float32, copy=True).contiguous()   # exact
+    try:
+        with timer("model") if timer is not None else contextlib.nullcontext():
+            dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(axis))
+    except RuntimeError as e:
+        raise _failed("all_reduce", axis, e) from e
+    return out.to(t.dtype)
 
 
 def mesh_barrier(mesh) -> None:

@@ -22,12 +22,16 @@ without a card,
 
 Rank 0's program, by shape kind: train -- ``init_train_state``, its
 ``shard_tree`` slice, one ``make_sharded_train_step`` step at
-``microbatches_for``'s depth; prefill -- ``Model.prefill`` on rank 0's
-batch slice (``batch_pspec``); decode -- ``init_decode_state`` and
-``decode_step`` on that slice.  The port keeps parameters whole on a rank
-while serving and decode state sharded over the batch alone: the record
-lists the state leaves whose reference layout (``decode_state_shardings``)
-also splits them over ``model``.
+``microbatches_for``'s depth, whose compute is split over ``model``
+(heads, ``d_ff`` and the vocab, with parameters gathered over the batch
+axes only where the split reads the rank's slice; the record's
+``peak_breakdown`` divides a rank's peak into its stored state, the
+gathered parameters, their f32 gradient sum and the rest); prefill --
+``Model.prefill`` on rank 0's batch slice (``batch_pspec``); decode --
+``init_decode_state`` and ``decode_step`` on that slice.  The port keeps
+parameters whole on a rank while serving and decode state sharded over
+the batch alone: the record lists the state leaves whose reference layout
+(``decode_state_shardings``) also splits them over ``model``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k \\
@@ -282,6 +286,14 @@ def _train_run(model, mesh, specs: dict, rows: int, M: int) -> dict:
             argument = mem.live
             with cost:
                 step(state, batch)
+        parts = _gathered_bytes(model.cfg, mesh, state.params,
+                                shardings.specs.params)
+        parts["activations_and_rest"] = mem.peak - argument - sum(
+            parts.values())
+        parts["stored_state"] = sum(t.numel() * t.element_size()
+                                    for t in leaves(state))
+        return {"argument": argument, "peak": mem.peak,
+                "totals": cost.totals(), "breakdown": parts}
     else:
         # one device: its peak counts init's temporaries too, as a card's
         # peak memory after init_train_state does
@@ -293,6 +305,32 @@ def _train_run(model, mesh, specs: dict, rows: int, M: int) -> dict:
             with cost:
                 step(state, batch)
     return {"argument": argument, "peak": mem.peak, "totals": cost.totals()}
+
+
+def _gathered_bytes(cfg, mesh, params, specs) -> dict:
+    """A train step's largest buffers on a rank besides its state, bytes
+    each: the parameters as ``gather_tree`` rebuilds them (a SPLIT leaf of
+    ``sharding.model_reads`` stays the rank's model slice), one
+    microbatch's gradients of them (the parameters' dtype, live while
+    ``microbatch_grads`` adds them up) and their f32 sum."""
+    from repro_torch.train.sharding import (gather_specs, model_reads)
+
+    sizes = _axis_sizes(mesh)
+    gspecs = gather_specs(specs, model_reads(mesh, cfg, params), mesh)
+    gathered = grads = 0
+
+    def one(t, spec):
+        nonlocal gathered, grads
+        n = t.numel()
+        for e in spec:
+            for a in (e if isinstance(e, tuple) else (e,)):
+                n *= sizes[a] if a is not None else 1
+        gathered += n * t.element_size()
+        grads += n * 4
+
+    tree_map(one, params, gspecs)
+    return {"gathered_params": gathered, "grad_microbatch": gathered,
+            "grad_sum_f32": grads}
 
 
 def _extrapolate(one: dict, two: dict, M: int) -> dict:
@@ -342,10 +380,13 @@ def trace_cell(arch: ModelConfig, shape: ShapeConfig, mesh=None, *,
                     - _batch_bytes(specs, (2, per))
                 argument = two["argument"] + more
                 peak = two["peak"] + more
+                run = two
             else:
                 run = _train_run(model, mesh, specs, rows, M)
                 totals, argument, peak = (run["totals"], run["argument"],
                                           run["peak"])
+            if "breakdown" in run:
+                extra["peak_breakdown"] = run["breakdown"]
         else:
             enc_len = arch.frontend_len if arch.family == "encdec" else 0
             params = model.init(torch.Generator().manual_seed(0),

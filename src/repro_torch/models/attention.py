@@ -9,6 +9,12 @@ the query axis and slices only the in-window KV span of each chunk.  No
 library attention kernel is used, so CPU results keep the reference's
 rounding.
 
+Inside ``pspec.model_shard`` (the sharded train step) attention is split by
+heads where ``pspec.splits`` allows: the rank's block of q heads comes
+from its column slice of ``wq``; k and v from its kv heads (the "kv"
+scheme) or, under "group" and "repeat", from the kv heads its q heads
+read, cut from the whole ``wk``/``wv``; ``wo`` is row-parallel.
+
 Decode uses a ring-buffer KV cache: slot = position % capacity, with an
 explicit per-row position array (-1 = empty) for exact masking.  Full
 attention uses capacity = seq_len (no wraparound); SWA uses capacity =
@@ -24,7 +30,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, apply_dense, apply_rope, init_dense
+from . import pspec
+from .layers import Params, apply_dense, apply_rope, init_dense, row_parallel
 
 _NEG_INF = -1e30
 
@@ -287,7 +294,18 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
     B, S, _ = x.shape
     hd = cfg.head_dim_
     cross = is_cross or kv_x is not None
-    q = apply_dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    sp = pspec.active_splits(cfg)
+    hq = cfg.n_heads
+    if sp.heads:
+        if cache is not None or return_cache:
+            raise NotImplementedError(
+                "the model-axis split covers the train forward; decode "
+                "caches over the model axis are not ported")
+        hq //= pspec.tp_size()
+        x = pspec.copy_to_model(x)
+        if kv_x is not None:
+            kv_x = pspec.copy_to_model(kv_x)
+    q = apply_dense(p["wq"], x).reshape(B, S, hq, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
 
     if cross and cache is not None and kv_x is None:
@@ -300,8 +318,12 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
 
     src = kv_x if kv_x is not None else x
     Skv = src.shape[1]
-    k = apply_dense(p["wk"], src).reshape(B, Skv, cfg.n_kv_heads, hd)
-    v = apply_dense(p["wv"], src).reshape(B, Skv, cfg.n_kv_heads, hd)
+    if sp.heads and not sp.kv:
+        k, v = _kv_read(p, src, cfg, pspec.tp_rank() * hq, hq)
+    else:       # every kv head, or under "kv" the rank's (its wk/wv slices)
+        hk = cfg.n_kv_heads // (pspec.tp_size() if sp.kv else 1)
+        k = apply_dense(p["wk"], src).reshape(B, Skv, hk, hd)
+        v = apply_dense(p["wv"], src).reshape(B, Skv, hk, hd)
     if not cross:
         kv_pos = positions
     else:
@@ -359,5 +381,42 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
             new_cache = _build_ring(k, v, kv_pos, C,
                                     None if cross else q_valid)
 
-    y = apply_dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd))
-    return y, new_cache
+    out = out.reshape(B, S, hq * hd)
+    if sp.heads:
+        return row_parallel(p["wo"], out), new_cache
+    return apply_dense(p["wo"], out), new_cache
+
+
+def _kv_heads_read(n_heads: int, n_kv: int, h0: int, hl: int
+                   ) -> tuple[int, int, list | None]:
+    """The kv heads that q heads ``h0 .. h0 + hl - 1`` read (q head h reads
+    kv head ``h // (n_heads // n_kv)``): ``(lo, hi, index)``, kv heads
+    ``lo .. hi - 1``; ``index`` is None where the q heads fold onto them as
+    GQA groups of one size, else each q head's kv head less ``lo`` (the kv
+    heads repeated to the q heads)."""
+    g = n_heads // n_kv
+    idx = [(h0 + i) // g for i in range(hl)]
+    lo, hi = idx[0], idx[-1] + 1
+    nk = hi - lo
+    if hl % nk == 0 and idx == [lo + i // (hl // nk) for i in range(hl)]:
+        return lo, hi, None
+    return lo, hi, [i - lo for i in idx]
+
+
+def _kv_read(p: Params, src: torch.Tensor, cfg, h0: int, hl: int):
+    """k and v (B, Skv, heads, hd) for the rank's q heads ``h0 .. h0 + hl -
+    1`` under the "group" and "repeat" schemes: the kv heads those q heads
+    read, cut from the whole ``wk``/``wv``, repeated to the q heads where
+    they do not fold as GQA groups of one size."""
+    B, Skv, _ = src.shape
+    hd = cfg.head_dim_
+    lo, hi, index = _kv_heads_read(cfg.n_heads, cfg.n_kv_heads, h0, hl)
+    cols = slice(lo * hd, hi * hd)
+    out = []
+    for name in ("wk", "wv"):
+        part = {key: w[..., cols] for key, w in p[name].items()}
+        t = apply_dense(part, src).reshape(B, Skv, hi - lo, hd)
+        out.append(t if index is None else t[:, :, index])
+    return tuple(out)
+
+

@@ -5,11 +5,19 @@ Parameters are plain nested dicts of tensors.  Initializers draw from a
 ``torch.Generator`` on the generator's own device (a CUDA generator draws on
 the card) and place the result on ``device``; every layer has a pure
 ``apply`` function.
+
+Inside ``pspec.model_shard`` (the sharded train step) the embedding and the
+head are vocab-parallel where ``pspec.splits`` says the vocab divides: the
+rank holds rows ``r * V/n ..`` of the embedding (and those columns of an
+untied head), looks up only the tokens in its slice, and produces only its
+slice of the logits (``model_zoo.loss_fn`` reduces over the slices).
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import pspec
 
 Params = dict
 
@@ -82,7 +90,18 @@ def init_embedding(cfg, gen, device) -> Params:
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return p["embedding"][tokens]
+    table = p["embedding"]
+    if not pspec.active_splits(cfg).vocab:
+        return table[tokens]
+    # vocab-parallel: this rank's rows, zeros for tokens outside its slice,
+    # then the sum over the ranks (one nonzero term: exact)
+    lo = pspec.tp_rank() * table.shape[0]
+    local = tokens - lo
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(mine, local, 0)]
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+    return pspec.reduce_from_model(rows, table.dtype)
 
 
 def init_lm_head(cfg, gen, device) -> Params:
@@ -94,8 +113,12 @@ def init_lm_head(cfg, gen, device) -> Params:
 
 def lm_logits(head: Params, embed: Params, x: torch.Tensor, cfg
               ) -> torch.Tensor:
-    """Logits in the residual dtype (f32 accumulation inside the product)."""
+    """Logits in the residual dtype (f32 accumulation inside the product);
+    inside ``pspec.model_shard`` with the vocab split, this rank's slice of
+    them (a column-parallel product)."""
     w = embed["embedding"].t() if cfg.tie_embeddings else head["w"]
+    if pspec.active_splits(cfg).vocab:
+        x = pspec.copy_to_model(x)
     return _matmul(x, w, x.dtype)
 
 
@@ -117,6 +140,24 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype
     ``repro_torch.device.full_f32``), like the reference's."""
     ct = torch.promote_types(x.dtype, w.dtype)
     return torch.matmul(x.to(ct), w.to(ct)).to(out_dtype)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with both cast to f32 and the product left in f32: a
+    row-parallel product's partial sum, which ``pspec.reduce_from_model``
+    adds over the ranks before the one rounding to the value dtype."""
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def row_parallel(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A dense layer whose input features (``p["w"]``'s rows, ``x``'s last
+    axis) are split over the ``model_shard`` ranks: the ranks' partial
+    products summed ("g") and rounded once to the weight's dtype, then the
+    bias, added once."""
+    y = pspec.reduce_from_model(matmul_f32(x, p["w"]), p["w"].dtype)
+    if "b" in p:
+        y = y + p["b"]
+    return y
 
 
 def apply_dense(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,10 @@ up-projection in a params tree; a stacked group of layers gets a list with
 one ``DslotWeights`` per layer.  The runtime precision comes from the active
 ``repro_torch.runtime`` precision scope, and termination statistics go out
 through ``repro_torch.models.stats``.
+
+Inside ``pspec.model_shard`` the float MLP is Megatron's pair: ``up`` and
+``gate`` column-parallel over ``d_ff`` (the input through "f"), ``down``
+row-parallel ("g").  The DSLOT path never splits.
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ import torch
 from repro_torch.kernels.ops import dslot_prepare
 from repro_torch.layers import DslotDense
 
-from . import stats
-from .layers import Params, apply_dense, init_dense
+from . import pspec, stats
+from .layers import Params, apply_dense, init_dense, row_parallel
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -63,8 +67,13 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     if mlp_uses_dslot(cfg):
         return _apply_mlp_dslot(p, x, cfg)
     act = _ACTS[cfg.act]
+    split = pspec.active_splits(cfg).mlp
+    if split:
+        x = pspec.copy_to_model(x)
     up = apply_dense(p["up"], x)
     h = act(apply_dense(p["gate"], x)) * up if cfg.glu else act(up)
+    if split:
+        return row_parallel(p["down"], h)
     return apply_dense(p["down"], h)
 
 

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.device import full_f32, resolve_device
 
+from . import pspec
 from .layers import (Params, apply_norm, embed_tokens, init_embedding,
                      init_lm_head, init_norm, lm_logits)
 from .transformer import Stack
@@ -278,19 +279,44 @@ def loss_fn(model: Model, params, batch, aux_weight: float = 0.01):
 
     ``batch["labels"]`` (B, S) int, entries < 0 masked out.  As in the
     reference, no f32 (B, S, V) tensor is made: probabilities stay in the
-    logits' dtype (max-subtracted) and only the reductions are f32.
+    logits' dtype (max-subtracted) and only the reductions are f32.  Inside
+    ``pspec.model_shard`` with the vocab split, the logits are this rank's
+    slice and the cross-entropy is vocab-parallel (``_vocab_parallel_ll``).
     """
     logits, aux, _ = model.forward(params, batch, mode="train")
     labels = batch["labels"].to(torch.int64)
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    sumexp = torch.exp(logits - m).to(torch.float32).sum(dim=-1)
-    lse = torch.log(sumexp) + m[..., 0].to(torch.float32)
-    # a masked label indexes like the reference's (negative from the end);
-    # its term is multiplied by 0
-    idx = torch.where(labels < 0, labels + logits.shape[-1], labels)
-    tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
-    ll = tgt.to(torch.float32) - lse
+    if pspec.active_splits(model.cfg).vocab:
+        ll = _vocab_parallel_ll(logits, labels, model.cfg.vocab_size)
+    else:
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        sumexp = torch.exp(logits - m).to(torch.float32).sum(dim=-1)
+        lse = torch.log(sumexp) + m[..., 0].to(torch.float32)
+        # a masked label indexes like the reference's (negative from the
+        # end); its term is multiplied by 0
+        idx = torch.where(labels < 0, labels + logits.shape[-1], labels)
+        tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
+        ll = tgt.to(torch.float32) - lse
     mask = (labels >= 0).to(torch.float32)
     loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return loss + aux_weight * aux, (loss, aux)
+
+
+def _vocab_parallel_ll(logits, labels, vocab: int):
+    """The log-likelihood of ``labels`` from this rank's vocab slice of the
+    logits (inside ``pspec.model_shard``): the max over every rank's slice
+    (detached, as ``loss_fn``'s is), the sum of exponentials summed over the
+    ranks in f32, and the target logit from the rank that owns the label
+    (zeros elsewhere, then a sum: exact).  As in ``loss_fn``, no f32
+    (B, S, V) tensor is made."""
+    vl = logits.shape[-1]
+    m = pspec.model_max(logits.amax(dim=-1, keepdim=True))
+    part = torch.exp(logits - m).to(torch.float32).sum(dim=-1)
+    sumexp = pspec.reduce_from_model(part, torch.float32)
+    lse = torch.log(sumexp) + m[..., 0].to(torch.float32)
+    idx = torch.where(labels < 0, labels + vocab, labels)
+    local = idx - pspec.tp_rank() * vl
+    mine = (local >= 0) & (local < vl)
+    tgt = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    tgt = torch.where(mine, tgt[..., 0].to(torch.float32), 0.0)
+    return pspec.reduce_from_model(tgt, torch.float32) - lse
 

@@ -22,13 +22,19 @@ Ties in the router's top-k go to the lower expert index, as
 expert products accumulate in f32 (the entry points run under
 ``repro_torch.device.full_f32``) with outputs in the activation dtype, the
 reference's ``preferred_element_type``.
+
+Inside ``pspec.model_shard`` each expert's ``d_ff`` is split over the model
+ranks (``up``/``gate`` column-parallel on the dispatched slots through "f",
+``down`` row-parallel with "g"); the router, dispatch and combine stay
+whole on every rank.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .layers import Params, _matmul, normal
+from . import pspec
+from .layers import Params, _matmul, matmul_f32, normal
 from .mlp import _ACTS
 from .pspec import fsdp_size, shard_mean
 
@@ -109,8 +115,13 @@ def route(p: Params, flat: torch.Tensor, cfg, C: int):
 def expert_ffn(p: Params, xb: torch.Tensor, cfg) -> torch.Tensor:
     """Every expert's FFN on its capacity slots: (G, E, C, D) -> same."""
     act = _ACTS[cfg.act]
+    split = pspec.active_splits(cfg).moe
+    if split:
+        xb = pspec.copy_to_model(xb)
     up = _matmul(xb, p["up"], xb.dtype)
     h = act(_matmul(xb, p["gate"], xb.dtype)) * up if cfg.glu else act(up)
+    if split:
+        return pspec.reduce_from_model(matmul_f32(h, p["down"]), h.dtype)
     return _matmul(h, p["down"], h.dtype)
 
 

@@ -14,21 +14,35 @@ geometry, as the reference does:
     "repeat" — otherwise:       repeat kv to n_heads and shard q-heads
 
 The registry is process state, as in the reference: one mesh per process.
+
+``model_shard`` is where the model axis splits compute: inside it (the
+sharded train step's forward and backward) ``tp_size`` and ``tp_rank``
+report the step's model axis, ``splits`` says which products split, and
+the model code runs Megatron's column- and row-parallel products on the
+rank's slices of the parameters, with ``copy_to_model`` /
+``reduce_from_model`` ("f" / "g") around them.  Outside it nothing splits,
+whatever mesh is installed: serving with ``ServeConfig.mesh`` splits only
+its DSLOT MLPs (``dslot_prepare(mesh=...)``).
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
+from repro_torch import distributed
 from repro_torch.distributed import axis_size
 
-__all__ = ["constrain", "data_shard", "fsdp_size", "head_scheme",
-           "set_mesh", "shard_mean", "tp_size"]
+__all__ = ["Splits", "active_splits", "constrain", "copy_to_model",
+           "data_shard", "fsdp_size", "head_scheme", "model_max",
+           "model_shard", "model_split", "reduce_from_model", "set_mesh",
+           "shard_mean", "splits", "tp_rank", "tp_size"]
 
 _MESH = None
 _FSDP: tuple = ()
 _TP: str | None = None
 _SHARD = None        # (mesh, batch axes) inside ``data_shard``
+_SPLIT = None        # (mesh, model axis, timer) inside ``model_shard``
 
 
 def set_mesh(mesh) -> None:
@@ -44,9 +58,26 @@ def set_mesh(mesh) -> None:
 
 
 def tp_size() -> int:
+    """Ranks on the model axis: the ``model_shard`` axis inside it, else
+    the installed mesh's ``model`` axis (1 without one)."""
+    if _SPLIT is not None:
+        return axis_size(_SPLIT[0], _SPLIT[1])
     if _MESH is None or _TP is None:
         return 1
     return axis_size(_MESH, _TP)
+
+
+def tp_rank() -> int:
+    """This rank's index on the ``model_shard`` axis (0 outside it)."""
+    if _SPLIT is None:
+        return 0
+    return distributed.axis_rank(_SPLIT[0], _SPLIT[1])
+
+
+def model_split() -> int:
+    """Ranks the model code splits its products over: ``tp_size()`` inside
+    ``model_shard``, 1 elsewhere."""
+    return tp_size() if _SPLIT is not None else 1
 
 
 def fsdp_size() -> int:
@@ -75,16 +106,86 @@ def data_shard(mesh, axes: tuple):
         _SHARD = prev
 
 
+@contextlib.contextmanager
+def model_shard(mesh, axis: str = "model", timer=None):
+    """Code inside splits its compute over mesh axis ``axis`` (the sharded
+    train step's forward and backward): attention heads, MLP and expert
+    ``d_ff`` columns and the vocab, where ``splits`` says they divide.  The
+    parameters it reads are the rank's ``model`` slices of those leaves
+    (``train.sharding.model_reads``).  ``timer(kind)``: an optional context
+    manager around every model-axis collective."""
+    global _SPLIT
+    prev, _SPLIT = _SPLIT, (mesh, axis, timer)
+    try:
+        yield
+    finally:
+        _SPLIT = prev
+
+
+class Splits(NamedTuple):
+    """What the model code splits over ``n`` model ranks.  heads: q heads,
+    ``wo``'s rows, the attention products; kv: ``wk``/``wv`` by kv head
+    (``head_scheme``'s "kv"; under "group" and "repeat" each rank reads the
+    kv heads its q heads read);
+    mlp / moe: the dense MLP's and the experts' ``d_ff`` columns (not a
+    DSLOT MLP); vocab: embedding rows, head columns and the logits."""
+    heads: bool
+    kv: bool
+    mlp: bool
+    moe: bool
+    vocab: bool
+
+
+def splits(cfg, n: int) -> Splits:
+    """The split of ``cfg``'s products over ``n`` model ranks: each axis
+    only where ``n`` divides it, where ``train.sharding.sanitize_spec``
+    stores it split (the heads, whose columns divide whenever they do)."""
+    from .mlp import mlp_uses_dslot
+
+    if n <= 1:
+        return Splits(False, False, False, False, False)
+    heads = cfg.n_heads > 0 and cfg.n_heads % n == 0
+    ff = cfg.d_ff > 0 and cfg.d_ff % n == 0
+    return Splits(heads=heads, kv=heads and cfg.n_kv_heads % n == 0,
+                  mlp=ff and not mlp_uses_dslot(cfg),
+                  moe=ff and cfg.n_experts > 0,
+                  vocab=cfg.vocab_size % n == 0)
+
+
+def active_splits(cfg) -> Splits:
+    """``splits`` of ``cfg`` over ``model_split()`` ranks: nothing splits
+    outside ``model_shard``."""
+    return splits(cfg, model_split())
+
+
+def copy_to_model(x):
+    """Megatron's "f" over the ``model_shard`` axis."""
+    mesh, axis, timer = _SPLIT
+    return distributed.copy_to_model(x, mesh, axis, timer)
+
+
+def reduce_from_model(x, dtype):
+    """Megatron's "g" over the ``model_shard`` axis: the ranks' partial
+    ``x`` summed in f32, rounded once to ``dtype``."""
+    mesh, axis, timer = _SPLIT
+    return distributed.reduce_from_model(x, mesh, dtype, axis, timer)
+
+
+def model_max(x):
+    """The max of ``x`` over the ``model_shard`` axis, detached."""
+    mesh, axis, timer = _SPLIT
+    return distributed.all_reduce_max(x, mesh, axis, timer)
+
+
 def shard_mean(t):
     """``t``, a mean over this rank's rows, as the mean over every data
     shard's rows inside ``data_shard`` (a differentiable ``all_reduce``);
     ``t`` itself elsewhere."""
     if _SHARD is None:
         return t
-    from repro_torch.distributed import all_reduce_mean_grad
     mesh, axes = _SHARD
     for a in axes:
-        t = all_reduce_mean_grad(t, mesh, a)
+        t = distributed.all_reduce_mean_grad(t, mesh, a)
     return t
 
 
@@ -92,11 +193,12 @@ def constrain(x, *axes):
     """The reference's GSPMD layout hint; here ``x`` itself.
 
     In the reference, ``constrain`` tells XLA's partitioner how to lay out
-    an activation across the mesh.  The port runs eager SPMD: every rank
-    holds the whole activation (replicated), and only code written against
-    the mesh (the sharded DSLOT execute, expert parallelism, the collective
-    matmul) splits work and calls a collective.  There is no layout to
-    hint, so the activation comes back unchanged."""
+    an activation across the mesh.  The port runs eager SPMD: only code
+    written against the mesh splits work and calls a collective: the
+    model code inside ``model_shard`` (heads, ``d_ff`` columns and the vocab
+    over ``model``, where the reference's ``constrain`` puts "tp"), the
+    sharded DSLOT execute, expert parallelism and the collective matmul.
+    There is no layout to hint, so the activation comes back unchanged."""
     return x
 
 

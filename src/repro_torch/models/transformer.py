@@ -270,6 +270,10 @@ class Stack:
             # The recompute records its statistics into a sink of its own,
             # which is dropped, so each group's records and aux count once.
             # The model draws no random numbers, so no RNG state is kept.
+            # Inside pspec.model_shard the recompute reruns the group's
+            # model-axis collectives in the backward; every rank builds the
+            # same graph, so every rank recomputes the same groups in the
+            # same order and the collectives pair up.
             def body(x, g):
                 return torch.utils.checkpoint.checkpoint(
                     group_body, x, g, use_reentrant=False,

@@ -21,9 +21,13 @@ by one ``None``.
 GSPMD places shards and inserts the collectives for the reference; here
 ``shard_tree`` keeps each rank's slice of every leaf and ``gather_tree``
 rebuilds full leaves with ``all_gather`` over each sharded axis, a few
-bucketed collectives for the whole tree.  The rule functions take any mesh
-with the reference's surface (``axis_names`` and ``shape`` by axis name) or
-a ``DeviceMesh`` (``mesh_dim_names``), so the rules need no world.
+bucketed collectives for the whole tree.  ``model_reads`` is the table of
+how the sharded train step's split compute (``models/pspec.py``
+``model_shard``) reads each leaf: a leaf it reads only as the rank's
+``model`` slice is gathered over the batch axes alone (``gather_specs``).
+The rule functions take any mesh with the reference's surface
+(``axis_names`` and ``shape`` by axis name) or a ``DeviceMesh``
+(``mesh_dim_names``), so the rules need no world.
 """
 
 from __future__ import annotations
@@ -35,8 +39,8 @@ import torch
 
 from repro_torch.tree import map_with_path, tree_map
 
-__all__ = ["Shardings", "batch_pspec", "buckets", "gather_tree",
-           "local_slice",
+__all__ = ["PART", "SPLIT", "Shardings", "WHOLE", "batch_pspec", "buckets",
+           "gather_specs", "gather_tree", "local_slice", "model_reads",
            "make_batch_shardings", "make_param_shardings",
            "make_state_shardings", "mesh_axes", "param_pspec", "replicated",
            "sanitize_spec", "shard_tree"]
@@ -90,6 +94,58 @@ _RULES: list[tuple[str, object]] = [
     (r"(norm\d?|normx|final_norm|enc_norm)/(scale|bias)$",
      lambda f, t: P(None)),
 ]
+
+
+# How the split compute reads a leaf (``model_reads``): SPLIT, only the
+# rank's model slice; PART, gathered whole and read in part (its gradient
+# is summed over the model axis); WHOLE, gathered whole and read whole by
+# every model rank alike.
+SPLIT, PART, WHOLE = "split", "part", "whole"
+
+# (regex over the flattened path, the ``pspec.Splits`` field that splits it)
+_READS: list[tuple[str, str]] = [
+    (r"(embed/embedding|head/w)$", "vocab"),
+    (r"(wq/(w|b)|wo/w)$",          "heads"),
+    (r"(wk|wv)/(w|b)$",            "kv"),
+    (r"mlp/(up|gate|down)/w$",     "mlp"),
+    (r"moe/(up|gate|down)$",       "moe"),
+]
+
+
+def model_reads(mesh, cfg, params):
+    """A tree shaped like ``params`` of SPLIT / PART / WHOLE: how the
+    compute inside ``pspec.model_shard`` over ``mesh``'s model axis reads
+    each leaf (``pspec.splits``).  SPLIT: embedding and head where the
+    vocab divides, ``wq`` and ``wo`` where the heads do, ``wk``/``wv`` under
+    the "kv" scheme, MLP and expert ``d_ff`` products.  PART: ``wk``/``wv``
+    under "group" and "repeat" (each rank reads the kv heads its q heads
+    read).  WHOLE: the rest -- a vocab or head count that does not divide,
+    the Mamba2 and RG-LRU mixers (the reference's ``constrain`` does not
+    split them), norms, the router, ``wo``'s bias."""
+    from repro_torch.models.pspec import splits
+
+    _, tp = mesh_axes(mesh)
+    sp = splits(cfg, _axis_sizes(mesh)[tp] if tp else 1)
+
+    def one(path, leaf):
+        for pat, field in _READS:
+            if re.search(pat, path):
+                if getattr(sp, field):
+                    return SPLIT
+                return PART if field == "kv" and sp.heads else WHOLE
+        return WHOLE
+
+    return map_with_path(one, params)
+
+
+def gather_specs(specs, reads, mesh):
+    """The specs ``gather_tree`` gathers the parameters by: each SPLIT
+    leaf's spec without the model axis (it stays the rank's slice), the
+    others' as they are."""
+    _, tp = mesh_axes(mesh)
+    return tree_map(
+        lambda r, s: P(*(None if e == tp else e for e in s))
+        if r == SPLIT else s, reads, specs)
 
 
 def _path_str(path) -> str:

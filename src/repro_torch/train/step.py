@@ -16,11 +16,12 @@ that steps twice from one state clones it first.
 ``make_sharded_train_step`` is the step over a mesh (the reference's
 ``make_train_step`` jitted with FSDP x TP shardings): the state is stored
 sharded by ``train.sharding.make_state_shardings``, each rank gathers the
-parameters, computes the gradients of its slice of the batch, and the
-gradients are averaged over the batch axes before each rank updates its
-own slices.  GSPMD also splits the reference's compute over ``model``;
-here the model axis shards storage only, and every rank of a model group
-computes the whole forward.
+parameters over the batch axes, computes the gradients of its slice of the
+batch with the compute split over ``model`` as the reference's
+``constrain`` asks (Megatron's column- and row-parallel attention, MLP and
+expert FFN, a vocab-parallel embedding, head and cross-entropy;
+``models/pspec.py`` ``model_shard``), and the gradients are averaged over
+the batch axes before each rank updates its own slices.
 """
 
 from __future__ import annotations
@@ -32,12 +33,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.device import full_f32, resolve_device
+from repro_torch.distributed import all_reduce_sum_, axis_size
 from repro_torch.models import pspec
 from repro_torch.models.model_zoo import Model, loss_fn
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
                                      global_norm, init_opt_state)
-from repro_torch.train.sharding import (buckets, gather_tree, local_slice,
-                                        mesh_axes)
+from repro_torch.train.sharding import (PART, SPLIT, buckets, gather_specs,
+                                        gather_tree, local_slice, mesh_axes,
+                                        model_reads)
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["CollectiveClock", "TrainState", "init_train_state",
@@ -112,13 +115,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
     return train_step
 
 
-def _reduce_mean_(tensors: list, mesh, axes: tuple) -> list:
-    """Each f32 tensor of ``tensors`` replaced in place by its mean over
-    the ranks of ``axes`` (their product): one ``all_reduce`` per
-    ``sharding.buckets`` run, over each axis in turn, then a scale.  Every
-    rank gets the same bits."""
-    from repro_torch.distributed import all_reduce_sum_, axis_size
-
+def _reduce_(tensors: list, mesh, axes: tuple, mean: bool) -> list:
+    """Each f32 tensor of ``tensors`` replaced in place by its sum (or,
+    with ``mean``, its mean) over the ranks of ``axes`` (their product):
+    one ``all_reduce`` per ``sharding.buckets`` run, over each axis in
+    turn (then, for the mean, a scale).  Every rank gets the same bits."""
     axes = tuple(a for a in axes if axis_size(mesh, a) > 1)
     n = 1
     for a in axes:
@@ -130,7 +131,8 @@ def _reduce_mean_(tensors: list, mesh, axes: tuple) -> list:
         flat = torch.cat([t.reshape(-1) for t in part])
         for a in axes:
             all_reduce_sum_(flat, mesh, a)
-        flat.mul_(1.0 / n)
+        if mean:
+            flat.mul_(1.0 / n)
         off = 0
         for t in part:
             t.copy_(flat[off:off + t.numel()].view(t.shape))
@@ -141,13 +143,16 @@ def _reduce_mean_(tensors: list, mesh, axes: tuple) -> list:
 
 class CollectiveClock:
     """Host seconds spent in a step's collectives (the card synchronized
-    before and after each), by kind: ``gather`` (parameters) and
-    ``reduce`` (gradients, loss and aux).  Pass one to
-    ``make_sharded_train_step`` to time a step's collectives inside its
-    own wall; ``None`` times nothing and adds no synchronization."""
+    before and after each), by kind: ``gather`` (parameters over the batch
+    axes), ``reduce`` (gradients, loss and aux over the batch axes) and
+    ``model`` (the split compute's collectives over the model axis in the
+    forward and backward, and the model-axis sums of gradients and of the
+    gradient norm).  Pass one to ``make_sharded_train_step`` to time a
+    step's collectives inside its own wall; ``None`` times nothing and adds
+    no synchronization."""
 
     def __init__(self):
-        self.seconds = {"gather": 0.0, "reduce": 0.0}
+        self.seconds = {"gather": 0.0, "reduce": 0.0, "model": 0.0}
 
     @contextlib.contextmanager
     def __call__(self, kind: str, device):
@@ -169,37 +174,69 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, shardings,
 
     ``state`` holds this rank's slices (``shard_tree`` of a full state by
     ``shardings.specs``); ``batch`` is this rank's slice of the global
-    batch (``data.pipeline.make_global_batch``).  One step: gather the
-    parameters; ``microbatch_grads`` on the batch slice (under
-    ``pspec.data_shard``: MoE dispatch takes the slice as one group, and
-    the router's load statistics are averaged over the data shards); the
-    gradients, loss and aux averaged over the batch axes (``pod``,
-    ``data``) in bucketed ``all_reduce``s; ``grad_norm`` and the clip scale
-    from the whole averaged gradient; then ``adamw_update`` of this rank's
-    slices.  All in ``full_f32()``; the metrics are equal on every rank.
-    The state is updated in place, as ``make_train_step``'s is.
+    batch (``data.pipeline.make_global_batch``).  One step:
+
+    * gather the parameters by ``sharding.gather_specs``: a leaf that the
+      split compute reads only as the rank's ``model`` slice
+      (``sharding.model_reads`` SPLIT) over the batch axes alone, every
+      other leaf over every axis;
+    * ``microbatch_grads`` on the batch slice under ``pspec.data_shard``
+      (MoE dispatch takes the slice as one group, the router's load
+      statistics are averaged over the data shards) and
+      ``pspec.model_shard`` (heads, ``d_ff`` and the vocab split over
+      ``model``);
+    * the gradients of leaves gathered whole but read in part (PART:
+      ``wk``/``wv`` under "group" and "repeat") summed over ``model``; every
+      gradient, the loss and aux averaged over the batch axes (``pod``,
+      ``data``) in bucketed ``all_reduce``s;
+    * ``grad_norm`` of the whole gradient: the squares of SPLIT leaves
+      summed over ``model``, the other leaves (alike on every model rank)
+      counted once; then ``adamw_update`` of this rank's slices.
+
+    All in ``full_f32()``; the metrics are equal on every rank.  The state
+    is updated in place, as ``make_train_step``'s is.  Over a model axis of
+    one rank nothing splits and the step is the batch-parallel one.
     """
     mesh, specs = shardings
-    fsdp, _ = mesh_axes(mesh)
-    pspecs = specs.params
+    fsdp, tp = mesh_axes(mesh)
     quiet = contextlib.nullcontext()
+    splits = tp is not None and axis_size(mesh, tp) > 1
+    plan = {}      # the first step's reads and gather specs
 
     def timed(kind, dev):
         return clock(kind, dev) if clock is not None else quiet
 
     def train_step(state: TrainState, batch):
         dev = leaves(state.params)[0].device
+        if not plan:
+            reads = model_reads(mesh, model.cfg, state.params) \
+                if splits else None
+            plan.update(reads=reads, specs=specs.params if reads is None
+                        else gather_specs(specs.params, reads, mesh))
+        reads, pspecs = plan["reads"], plan["specs"]
         with full_f32():
             with timed("gather", dev):
                 full = gather_tree(state.params, pspecs, mesh)
-            with pspec.data_shard(mesh, fsdp):
+            split = quiet if reads is None else pspec.model_shard(
+                mesh, tp, None if clock is None
+                else (lambda kind: clock(kind, dev)))
+            with pspec.data_shard(mesh, fsdp), split:
                 grads, loss, aux = microbatch_grads(model, full, batch)
             del full
             flat = leaves(grads)
+            if reads is not None:
+                kinds = leaves(reads)
+                with timed("model", dev):
+                    _reduce_([g for g, k in zip(flat, kinds) if k == PART],
+                             mesh, (tp,), mean=False)
             stats = torch.stack([loss, aux]).to(torch.float32)
             with timed("reduce", dev):
-                _reduce_mean_(flat + [stats], mesh, fsdp)
-            gnorm = global_norm(flat)
+                _reduce_(flat + [stats], mesh, fsdp, mean=True)
+            if reads is None:
+                gnorm = global_norm(flat)
+            else:
+                gnorm = _split_norm(flat, kinds, mesh, tp,
+                                    lambda: timed("model", dev))
             mine = tree_map(lambda g, s: local_slice(g, s, mesh).clone(),
                             grads, pspecs)
             del grads, flat
@@ -212,3 +249,19 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, shardings,
 
     return train_step
 
+
+def _split_norm(flat: list, kinds: list, mesh, tp: str, timed
+                ) -> torch.Tensor:
+    """The global norm of a gradient whose SPLIT leaves are this rank's
+    model slices: their squares summed here and over ``tp``, the other
+    leaves' (alike on every model rank) added once; f32."""
+    def sq(ts):
+        return sum((torch.sum(torch.square(t.to(torch.float32))) for t in ts),
+                   torch.zeros((), dtype=torch.float32,
+                               device=flat[0].device))
+
+    mine = sq(g for g, k in zip(flat, kinds) if k == SPLIT).reshape(1)
+    with timed():
+        all_reduce_sum_(mine, mesh, tp)
+    return torch.sqrt(mine[0] + sq(g for g, k in zip(flat, kinds)
+                                   if k != SPLIT))

@@ -550,6 +550,18 @@ def test_sharded_step_on_card_matches_single_device(cuda):
     card: loss and grad_norm within 1e-5 relative, parameters within
     1e-3 lr where the single step's |m| is firm and 2 lr anywhere (the two
     data shards' gradient means are the same f32 sums in another order)."""
+    _card_step_matches_single_device(cuda, (2, 1))
+
+
+@pytest.mark.gpu
+def test_split_step_on_card_matches_single_device(cuda):
+    """The same over mesh (1, 2): the compute split over the model axis
+    (heads, MLP columns, the vocab), the row-parallel sums in another
+    order; the same bounds."""
+    _card_step_matches_single_device(cuda, (1, 2))
+
+
+def _card_step_matches_single_device(cuda, shape):
     import torch_sharded_ranks as sranks
 
     cfg = ARCHS["olmo-1b"].reduced()
@@ -564,7 +576,7 @@ def test_sharded_step_on_card_matches_single_device(cuda):
         {k: torch.from_numpy(v).to(cuda) for k, v in host.items()})
     (full, m2), _ = run_world(sranks.card_step, 2, backend="gloo",
                               device="cuda:0", timeout=120, deadline=300,
-                              args=(cfg, state_np, host, opt))
+                              args=(cfg, state_np, host, opt, shape))
     for k in ("loss", "grad_norm"):
         assert abs(m2[k] - float(m1[k])) <= 1e-5 * abs(float(m1[k])), k
     lr = float(m1["lr"])

@@ -19,6 +19,8 @@ mesh's axis sizes only, so no world is needed).
   its test sequence and on seeded random ones.
 """
 
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -337,3 +339,61 @@ def test_heartbeat_tracker_matches_reference():
     err = tft.NodeFailure("host 3 died", lost_nodes=2)
     assert isinstance(err, RuntimeError) and err.lost_nodes == 2
     assert str(err) == str(jft.NodeFailure("host 3 died", lost_nodes=2))
+
+
+# ------------------------------------------------------------ the split
+
+# at model 16, per architecture (published widths): the (q heads, wk/wv,
+# MLP d_ff, expert d_ff, vocab) reads of the sharded step's split compute
+SPLIT16 = {
+    "olmo-1b": ("split", "split", "split", None, "split"),
+    "deepseek-67b": ("split", "part", "split", None, "split"),
+    "mixtral-8x22b": ("split", "part", None, "split", "split"),
+    "internvl2-26b": ("split", "part", "split", None, "whole"),
+    "qwen2.5-3b": ("split", "part", "split", None, "split"),
+    "granite-moe-1b-a400m": ("split", "part", None, "split", "whole"),
+    "h2o-danube-3-4b": ("split", "part", "split", None, "split"),
+    "seamless-m4t-medium": ("split", "split", "split", None, "whole"),
+    "mamba2-780m": (None, None, None, None, "whole"),
+    "recurrentgemma-2b": ("whole", "whole", "split", None, "split"),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(SPLIT16))
+def test_model_reads_table(port_params, arch):
+    """``sharding.model_reads`` on the 16 x 16 mesh with each published
+    config (the leaf paths from the reduced tree): heads split where 16
+    divides them, ``wk``/``wv`` split under "kv" and read in part under
+    "repeat" (every 7 B-and-up model and qwen, granite, h2o), ``d_ff`` and
+    the vocab split where 16 divides them (granite's 49155, internvl2's
+    92553 and seamless' 256206 do not), recurrentgemma's 10 heads whole, and
+    norms, the router, the mixers and ``wo``'s bias whole.  A SPLIT leaf's
+    gather spec drops ``model``; every other spec is the storage spec."""
+    fake = FakeMesh(MESHES["16x16"])
+    cfg = ARCHS[arch]
+    params = port_params(arch)
+    reads = dict(flatten_with_path(tsh.model_reads(fake, cfg, params)))
+    heads, kv, mlp, moe, vocab = SPLIT16[arch]
+    want_of = [(r"/wq/(w|b)$|/wo/w$", heads), (r"/(wk|wv)/(w|b)$", kv),
+               (r"/mlp/", mlp), (r"/moe/(up|gate|down)$", moe),
+               (r"^(embed/embedding|head/w)$", vocab)]
+    seen = set()
+    for path, got in reads.items():
+        want = "whole"
+        for pat, w in want_of:
+            if re.search(pat, path):
+                want = w
+                seen.add(pat)
+        assert got == want, (path, got, want)
+    assert seen == {pat for pat, w in want_of if w is not None}
+    specs = tsh.make_param_shardings(fake, params)
+    gspecs = tsh.gather_specs(specs, tsh.model_reads(fake, cfg, params), fake)
+    rows = []
+    tree_map(lambda p, s, g, r: rows.append((s, g, r)), params, specs, gspecs,
+             tsh.model_reads(fake, cfg, params))
+    for s, g, r in rows:
+        if r == "split":
+            assert "model" in s, s
+            assert g == tuple(None if e == "model" else e for e in s)
+        else:
+            assert g == s

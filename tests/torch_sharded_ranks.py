@@ -9,6 +9,8 @@ hands the ranks numpy arrays.  ``train_world`` runs every check of one
 world and returns numpy results.
 """
 
+import contextlib
+
 import torch
 
 from repro_torch import convert
@@ -45,10 +47,11 @@ def sharded_placement(mesh, state, host_batch):
     return ssh, bsh
 
 
-def one_step(cfg, state_np, host, opt, shape, dev="cpu"):
+def one_step(cfg, state_np, host, opt, shape, dev="cpu", counter=None):
     """One sharded step over mesh ``shape`` from the reference's state: the
     gathered new state (numpy), the metrics, this rank's batch slice and its
-    mesh coordinate."""
+    mesh coordinate.  ``counter``: a context manager around the step alone
+    (``launch.op_cost.OpCost``)."""
     mesh = make_mesh(shape, AXES)
     pspec.set_mesh(mesh)
     try:
@@ -58,7 +61,8 @@ def one_step(cfg, state_np, host, opt, shape, dev="cpu"):
         local = make_global_batch(mesh, host, bsh)
         step = make_sharded_train_step(build_model(cfg), AdamWConfig(**opt),
                                        ssh)
-        new, m = step(mine, t_batch(local, dev))
+        with counter if counter is not None else contextlib.nullcontext():
+            new, m = step(mine, t_batch(local, dev))
         full = gather_tree(new, ssh.specs, mesh)
     finally:
         pspec.set_mesh(None)
@@ -119,9 +123,12 @@ def elastic(cfg, state_np, batches, opt, ckdir, n_steps, fail_at,
 
 def train_world(rank, cases, ck_case, el_case):
     """Every check of ``test_torch_sharded_train.py`` in a world of 4: the
-    sharded step of each case over ``MESHES``; a sharded checkpoint of the
-    olmo case's stepped state over (2, 2), restored onto (4, 1); the
-    elastic restart."""
+    sharded step of each case over ``MESHES``; the olmo case's step over
+    (1, 4) counted by ``launch.op_cost`` (its dot FLOPs); a sharded
+    checkpoint of the olmo case's stepped state over (2, 2), restored onto
+    (4, 1); the elastic restart."""
+    from repro_torch.launch.op_cost import OpCost
+
     out = {"rank": rank, "steps": {}}
     for name, (cfg, state_np, host, opt) in cases.items():
         for shape in MESHES:
@@ -131,6 +138,9 @@ def train_world(rank, cases, ck_case, el_case):
             if rank == 0:
                 res["state"] = full
             out["steps"][(name, shape)] = res
+    cost = OpCost()
+    one_step(*cases["olmo-1b"], (1, 4), counter=cost)
+    out["flops14"] = cost.totals()["dot_flops"]
 
     # a sharded save over (2, 2), read back onto (4, 1)
     cfg, state_np, host, opt, ckdir = ck_case
@@ -157,11 +167,11 @@ def train_world(rank, cases, ck_case, el_case):
     return out
 
 
-def card_step(rank, cfg, state_np, host, opt):
-    """One sharded step over (2, 1) on this rank's card (the ranks share
+def card_step(rank, cfg, state_np, host, opt, shape=(2, 1)):
+    """One sharded step over ``shape`` on this rank's card (the ranks share
     it): the gathered new state (numpy) and the metrics."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    full, metrics, _, _ = one_step(cfg, state_np, host, opt, (2, 1), dev)
+    full, metrics, _, _ = one_step(cfg, state_np, host, opt, shape, dev)
     return full, metrics
 
 
@@ -169,7 +179,7 @@ def counted_step(rank, cfg):
     """One sharded step of a state from ``Model.init`` over a (2, 1) mesh
     under ``launch.op_cost.OpCost``: the collectives it counted, and the
     ones the port's bucket plan (``sharding.buckets`` over the leaves
-    ``gather_tree`` gathers and the gradients ``_reduce_mean_`` averages)
+    ``gather_tree`` gathers and the gradients ``_reduce_`` averages)
     says it issues, output bytes each."""
     from repro_torch.launch.op_cost import OpCost
     from repro_torch.train.sharding import _spec_axes, buckets
