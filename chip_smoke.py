@@ -209,11 +209,28 @@ Phases (any failure exits non-zero and prints no result line):
    against the plain version by phase 2's rule.  Gate (b): phase 6's model,
    ``act_scale`` and ``ServeConfig`` with the mesh, on ``TP_REQUESTS``
    seeded requests with per-request budgets ``TP_BUDGETS`` outside the
-   reserved tier: on every rank the token streams and per-request
-   ``planes_used_mean`` must equal those of the unsharded engine, which
-   the parent runs first on the same card with the same weights and
-   traffic; the auditor empty every step; no errors, quarantines or
-   timeouts; each rank's launches = 16 x forwards.  Gate (c):
+   reserved tier, the forward split over the model axis (each rank keeps
+   its model slice of the parameters; attention by heads over KV rings
+   split along their slots, the vocab, the DSLOT up-projection's N tiles),
+   run twice on every rank.  The gate run, on an f32 copy of the model
+   with its dense ReLU MLP (the bf16 weights cast up; no DSLOT quantizer,
+   which turns an f32 rounding difference into a whole 8-bit step): the
+   token streams and per-request ``planes_used_mean`` must equal those of
+   the unsharded f32 engine, which the parent runs first on the same card
+   with the same weights and traffic, recording each sampled token's top-2
+   logit margin; a stream that differs is accepted only where that margin
+   at its first differing token is within ``SV_LOGIT_REL`` (the CPU test's
+   f32 bound) of the row's largest |logit|.  The timed run, the bf16 DSLOT
+   model without the collective clock: its streams are counted against
+   the unsharded bf16 engine's, not held, beside one device's run that
+   walks the admission's keys in ``SV_WITNESS_CHUNK`` chunks.  In both:
+   the auditor empty every step; no errors, quarantines or timeouts; the
+   DSLOT run's launches = 16 x forwards; every KV ring of each rank's pool
+   a ``KVShard`` of ``ENGINE_MAX_LEN / 2`` slots.  Rank 0's bf16 decode
+   forward at most ``SV_SPLIT_FLOPS`` of the unsharded forward's dot FLOPs
+   (``op_cost``; the DSLOT launches are opaque to it, and the DSLOT MLP's
+   down-projection
+   stays whole on every rank).  Gate (c):
    ``apply_moe_ep`` at granite-moe-1b-a400m's full width (d_model 1024, 32
    experts, top-8, d_ff 512, bf16) on 4 x 2048 tokens at its capacity
    factor within ``EP_Y_ATOL`` / ``EP_AUX_ATOL`` of the dense ``apply_moe``
@@ -221,10 +238,12 @@ Phases (any failure exits non-zero and prints no result line):
    collective matmul at (4096, 2048) @ (2048, 8192) within ``CM_RTOL`` of
    the largest |y| of ``x @ w``.  Printed per rank with the card: engine
    tokens/s, decode and admission forward walls with device time and idle
-   share (a traced warm-up call), every ``all_gather``'s time (warm-up),
-   peak memory, the EP and collective-matmul times; rank 0's kernel time
-   at the shard shapes (16, 2048) and (128, 2048) @ (2048, 4096) as in
-   phase 4.
+   share (a traced warm-up call), every DSLOT ``all_gather``'s time, the
+   gate run's model-axis collective seconds by kind (``CollectiveClock``:
+   "g" sums, head and logit gathers, the attention's max and sum), peak
+   memory, the decode forward's dot FLOPs, the EP and collective-matmul
+   times; rank 0's kernel time at the shard shapes (16, 2048) and (128,
+   2048) @ (2048, 4096) as in phase 4.
 
 11. Sharded training (``repro_torch.train.sharding``,
    ``make_sharded_train_step``, ``distributed.compression``,
@@ -2553,6 +2572,31 @@ TP_KERNEL_ROWS = {"tp2 decode shard launch": ENGINE_SLOTS,
                   "tp2 admission shard launch": ENGINE_LANES * ENGINE_CHUNK}
 EP_ARCH, EP_BATCH, EP_SEQ = "granite-moe-1b-a400m", 4, 2048
 EP_Y_ATOL, EP_AUX_ATOL = 2e-3, 1e-3     # the reference test's bounds
+# Gate (b) of the split: rank 0's decode forward against the unsharded one,
+# in op_cost's dot FLOPs.  Over (1, 2) at 16 rows and 512 slots the split
+# halves wq/wk/wv/wo, the attention (every head against half the slots) and
+# the tied head; the DSLOT up-projection is opaque to op_cost and its
+# down-projection stays whole (the sharded DSLOT up-projection gathers its
+# output): 941.9 of 1346.9 MFLOP a row, 0.699; the bound stays below the
+# 0.712 that taking the attention scores twice would count.
+SV_SPLIT_FLOPS = 0.705
+# Gate (b)'s streams are held on an f32 copy of the model with its dense
+# ReLU MLP (the bf16 weights cast up, no DSLOT quantizer): the split sums
+# the same products in another order than one device, which in f32 moves a
+# value by ~1e-7 of itself.  The DSLOT MLP's 8-bit quantizer turns such a
+# difference into a whole step wherever an input lies that close to a step
+# boundary, and that moves the logits as a bf16 rounding does (on an H100
+# 80GB HBM3 at 700 W the f32 copy with the DSLOT MLP parted at a margin of
+# 0.0041, the dense one not at all).  A stream that parts is accepted
+# only where the unsharded run's top-2 margin at the first differing token
+# is within SV_LOGIT_REL of the row's largest |logit|:
+# tests/test_torch_serve_split.py's f32 bound REL, which each sampled row's
+# two largest logits must keep as well.  The bf16 DSLOT run is
+# timed and launches the kernel; its partings are counted, beside those of
+# one device walking the admission's keys in SV_WITNESS_CHUNK chunks (the
+# same function in another order).
+SV_LOGIT_REL = 1e-5
+SV_WITNESS_CHUNK = 128
 CM_SHAPE = (4096, 2048, 8192)   # olmo's up-projection width: (S, K) @ (K, N)
 CM_RTOL = 1e-5                  # of the largest |y|
 
@@ -2776,17 +2820,157 @@ def streams(run) -> list:
             for r in run["reqs"]]
 
 
+class Margins:
+    """Stands in for an engine's ``sample``: records, for every token each
+    request samples (admission first, then pooled decode steps), the row's
+    two largest logits and its largest |logit|, in stream order."""
+
+    def __init__(self, eng):
+        self.eng, self.fn, self.rows, self.pending = eng, eng.sample, [], []
+        tick = eng.pipeline.tick
+
+        def counted_tick(free_slot):
+            done = tick(free_slot)
+            self.pending.extend(t.req.uid for t in done)
+            return done
+        eng.pipeline.tick = counted_tick
+        eng.sample = self
+
+    def __call__(self, logits):
+        lg = logits.float()
+        top = torch.cat([lg.topk(2, dim=-1).values,
+                         lg.abs().amax(dim=-1, keepdim=True)], dim=-1)
+        if logits.shape[0] == 1 and self.pending:       # an admission
+            uids = [self.pending.pop(0)]
+        else:
+            uids = [None if r is None else r.uid for r in self.eng.slot_req]
+        self.rows.append((uids, top))
+        return self.fn(logits)
+
+    def by_uid(self) -> dict:
+        """uid -> [(top-2 margin over the largest |logit|, largest logit,
+        second logit, largest |logit|)] in stream order."""
+        out: dict = {}
+        for uids, top in self.rows:
+            for u, (a, b, big) in zip(uids, top.tolist()):
+                if u is not None:
+                    out.setdefault(u, []).append(((a - b) / big, a, b, big))
+        return out
+
+
+def ring_slots(state) -> list:
+    """(class name, slots) of every KV ring of a decode state."""
+    from repro_torch.models.attention import KVCache
+
+    found = []
+
+    def walk(node):
+        if isinstance(node, KVCache):
+            found.append((type(node).__name__, int(node.k.shape[1])))
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+    walk(state["caches"])
+    return found
+
+
+def split_partings(specs, got, plain) -> tuple[list, list]:
+    """Where the streams in ``got`` leave the unsharded run's: (uid, first
+    differing token, the unsharded run's top-2 margin there) of every
+    request whose stream differs, and the uids of those whose stream is
+    equal but whose ``planes_used_mean`` is not."""
+    parted, planes = [], []
+    for spec, (toks, pm), (ref, rm) in zip(specs, got, plain["streams"]):
+        if toks == ref:
+            if pm != rm:
+                planes.append(spec["uid"])
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b),
+                 min(len(toks), len(ref)))
+        seen = plain["margins"].get(spec["uid"], [])
+        parted.append((spec["uid"], j, seen[j][0] if j < len(seen)
+                       else float("inf")))
+    return parted, planes
+
+
+def logit_drift(specs, got, plain) -> tuple[float, int | None]:
+    """The largest difference, over the requests whose streams in ``got``
+    equal the unsharded run's (so every forward saw the same tokens), of a
+    sampled row's two largest logits from the unsharded row's, over that
+    row's largest |logit|; and the request it came from."""
+    worst, at = 0.0, None
+    for spec, (toks, _), (ref, _) in zip(specs, got["streams"],
+                                         plain["streams"]):
+        if toks != ref:
+            continue
+        for (_, a, b, _), (_, ra, rb, big) in zip(
+                got["margins"][spec["uid"]], plain["margins"][spec["uid"]]):
+            d = max(abs(a - ra), abs(b - rb)) / big
+            if d > worst:
+                worst, at = d, spec["uid"]
+    return worst, at
+
+
+def decode_dot_flops(eng, dev) -> float:
+    """op_cost's dot FLOPs of one pooled decode forward of ``eng`` at full
+    budgets (its ring writes land at positions already written)."""
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.serve import ServeEngine
+
+    toks = torch.zeros((eng.n_slots, 1), dtype=torch.int32, device=dev)
+    budgets = torch.full((eng.n_slots,), eng.n_bits, dtype=torch.int32,
+                         device=dev)
+    cost = OpCost()
+    with cost:
+        ServeEngine._decode(eng, toks, budgets)
+    sync(dev)
+    return float(cost.totals()["dot_flops"])
+
+
+def gate_copy(base, params):
+    """Gate (b)'s model: phase 6's olmo-1b with its dense ReLU MLP (no
+    DSLOT quantizer) in f32, and ``params`` cast up to f32."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.tree import tree_map
+
+    return build_model(dataclasses.replace(base, dtype="float32")), tree_map(
+        lambda a: a.float() if a.is_floating_point() else a, params)
+
+
+def split_run(eng, specs, dev) -> dict:
+    """``specs`` through ``eng`` (its ``_decode`` a ``Timed``) with its
+    kernel launches counted from 0: the run's streams, launches (one a
+    layer a forward with a DSLOT MLP, else none), forwards and fault
+    counts."""
+    from repro_torch.kernels import dslot_matmul as dm
+
+    dm.dslot_matmul_cuda.launches = 0
+    run = drive_engine(eng, specs, dev, n_first=len(specs))
+    forwards = eng._decode.calls + eng.pipeline.forwards
+    return dict(run=run, streams=streams(run),
+                launches=dm.dslot_matmul_cuda.launches,
+                expected=eng.model.cfg.n_layers * forwards * eng.dslot,
+                done=all(r.phase == "done" for r in run["reqs"]),
+                faults=(eng.errors, eng.quarantined, eng.timeouts),
+                tokens=run["tokens"], seconds=run["seconds"],
+                steps=run["run_steps"], rings=ring_slots(eng.state))
+
+
 def tp_engine(rank, mesh, dev, spec) -> dict:
     """Gate (b) on this rank: the tensor-parallel ``ServeEngine``.  A
-    warm-up on 6 requests traces one forward of each kind; the timed run
-    counts this rank's launches and times every forward and every
-    ``all_gather`` inside it; rank 0 then holds and times its launches at
-    the two shard shapes while rank 1 waits."""
+    warm-up on 6 requests traces one forward of each kind; the gate run, on
+    ``gate_copy``, times the model-axis collectives by kind
+    (``CollectiveClock``, which synchronizes the card around each); the
+    timed bf16 run, without that clock, counts this rank's launches and
+    times every forward and every DSLOT ``all_gather`` inside it; rank 0
+    then holds and times its launches at the two shard shapes while rank 1
+    waits."""
     import torch.distributed as dist
 
     from repro_torch.kernels import dslot_matmul as dm
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine
+    from repro_torch.train.step import CollectiveClock
 
     base, _, params = tp_olmo(dev)
     cfg, model, scfg = tp_engine_model(base, spec["act_scale"])
@@ -2802,6 +2986,21 @@ def tp_engine(rank, mesh, dev, spec) -> dict:
     del warm
     gc.collect()
     torch.cuda.empty_cache()
+
+    model32, params32 = gate_copy(base, params)
+    eng = ServeEngine(model32, params32, scfg)
+    del params32
+    eng._decode = Timed(eng._decode, dev)
+    clock = CollectiveClock()
+    eng.clock = lambda kind: clock(kind, dev)
+    margins = Margins(eng)
+    gate = split_run(eng, specs, dev)
+    del gate["run"], eng
+    gate.update(model_s=dict(clock.seconds), margins=margins.by_uid())
+    del margins
+    gc.collect()
+    torch.cuda.empty_cache()
+
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(model, params, scfg)
     gathers = GatherTimes(ops)
@@ -2817,26 +3016,20 @@ def tp_engine(rank, mesh, dev, spec) -> dict:
             captured[rows] = args
         return orig_run(*args)
 
-    dm.dslot_matmul_cuda.launches = 0
     dm.run = capture
     try:
         with gathers:
-            run = drive_engine(eng, specs, dev, n_first=len(specs))
+            out = split_run(eng, specs, dev)
     finally:
         dm.run = orig_run
-    launches = dm.dslot_matmul_cuda.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    forwards = eng._decode.calls + eng.pipeline.forwards
-    out = dict(streams=streams(run), launches=launches,
-               expected=cfg.n_layers * forwards, layers=cfg.n_layers,
-               done=all(r.phase == "done" for r in run["reqs"]),
-               faults=(eng.errors, eng.quarantined, eng.timeouts),
-               tokens=run["tokens"], seconds=run["seconds"],
-               steps=run["run_steps"], peak_gb=peak_gb,
+    del out["run"]
+    out.update(gate=gate, layers=cfg.n_layers,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                decode_walls=eng._decode.walls,
                admission_walls=eng.pipeline._extend_lanes.walls,
                decode_gathers=decode.ms, admission_gathers=admission.ms,
-               traces=traces, gathers=gathers.ms)
+               traces=traces, gathers=gathers.ms,
+               decode_flops=decode_dot_flops(eng, dev))
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2973,22 +3166,45 @@ def phase10(card, dev):
     log(f"  world: {TP_RANKS} ranks sharing {TP_DEVICE} over {TP_BACKEND} (one "
         f"card, and NCCL needs a device per rank), collective timeout "
         f"{TP_TIMEOUT} s")
-    # the unsharded engine on this card: same weights, scale and traffic
+    # the unsharded engine on this card: same weights, scale and traffic,
+    # in bf16, again walking the admission's keys in SV_WITNESS_CHUNK
+    # chunks, and on gate (b)'s f32 copy; each sampled token's top-2
+    # margin kept
     base, dense, params = tp_olmo(dev)
     scale = calibrated_act_scale(dense, params, base.vocab_size, dev)
     cfg, model, scfg = tp_engine_model(base, scale)
     specs = tp_traffic(cfg.vocab_size)
-    eng = ServeEngine(model, params, scfg)
-    plain = drive_engine(eng, specs, dev, n_first=len(specs))
-    want = streams(plain)
-    log(f"  unsharded engine, {TP_REQUESTS} requests (budgets "
-        f"{[s.get('n_planes', 8) for s in specs]}): {plain['tokens']} tokens "
-        f"in {plain['seconds']:.2f} s, "
-        f"{plain['tokens'] / plain['seconds']:.1f} tokens/s, "
-        f"{plain['run_steps']} steps [{card}]")
-    del eng, params, model, dense, plain
-    gc.collect()
-    torch.cuda.empty_cache()
+    plain = {}
+    for kind in ("bf16", "witness", "f32"):
+        if kind == "bf16":
+            eng = ServeEngine(model, params, scfg)
+        elif kind == "witness":
+            eng = ServeEngine(tp_engine_model(dataclasses.replace(
+                base, attn_chunk=SV_WITNESS_CHUNK), scale)[1], params, scfg)
+        else:
+            model32, params32 = gate_copy(base, params)
+            eng = ServeEngine(model32, params32, scfg)
+            del params32
+        margins = Margins(eng)
+        run = drive_engine(eng, specs, dev, n_first=len(specs))
+        plain[kind] = dict(streams=streams(run), margins=margins.by_uid())
+        if kind == "bf16":
+            plain_flops = decode_dot_flops(eng, dev)
+        log(f"  unsharded engine ({kind}), {TP_REQUESTS} requests (budgets "
+            f"{[s.get('n_planes', 8) for s in specs]}): {run['tokens']} "
+            f"tokens in {run['seconds']:.2f} s, "
+            f"{run['tokens'] / run['seconds']:.1f} tokens/s, "
+            f"{run['run_steps']} steps [{card}]")
+        del eng, margins, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, model, dense
+    witness, _ = split_partings(specs, plain["witness"]["streams"],
+                                plain["bf16"])
+    log(f"  one device, the admission's keys in {SV_WITNESS_CHUNK}-key "
+        f"chunks: {len(specs) - len(witness)} of {len(specs)} bf16 streams "
+        f"equal to the first run's; parted (uid, token, margin): "
+        f"{[(u, j, round(m, 6)) for u, j, m in witness]} [{card}]")
 
     t0 = time.perf_counter()
     res = run_world(phase10_rank, TP_RANKS, backend=TP_BACKEND,
@@ -2999,28 +3215,79 @@ def phase10(card, dev):
         f"{res[0]['execute_s']:.1f} s of it)")
     max_err = max(r["execute_err"] for r in res)
     launches = 0
+    slots = ENGINE_MAX_LEN // TP_RANKS
     for rank, r in enumerate(res):
         e = r["engine"]
-        if not e["done"] or any(e["faults"]):
-            raise AssertionError(f"rank {rank}: requests not done or faults "
-                                 f"{e['faults']}")
-        if e["launches"] != e["expected"]:
-            raise AssertionError(f"rank {rank}: {e['launches']} kernel "
-                                 f"launches, expected {e['expected']}")
-        if [t for t, _ in e["streams"]] != [t for t, _ in want]:
-            raise AssertionError(f"rank {rank}: token streams differ from "
-                                 f"the unsharded engine's")
-        if [m for _, m in e["streams"]] != [m for _, m in want]:
-            raise AssertionError(f"rank {rank}: planes_used_mean differs "
-                                 f"from the unsharded engine's")
+        for kind, run in (("f32", e["gate"]), ("bf16", e)):
+            # f32: gate_copy, held; bf16: the DSLOT model, counted
+            if not run["done"] or any(run["faults"]):
+                raise AssertionError(f"rank {rank} ({kind}): requests not "
+                                     f"done or faults {run['faults']}")
+            if run["launches"] != run["expected"]:
+                raise AssertionError(f"rank {rank} ({kind}): "
+                                     f"{run['launches']} kernel launches, "
+                                     f"expected {run['expected']}")
+            if not run["rings"] or any(ring != ("KVShard", slots)
+                                       for ring in run["rings"]):
+                raise AssertionError(f"rank {rank} ({kind}): KV rings "
+                                     f"{run['rings']}, expected KVShard of "
+                                     f"{slots} slots each")
+            parted, planes = split_partings(specs, run["streams"],
+                                            plain[kind])
+            if kind == "f32" and planes:
+                raise AssertionError(f"rank {rank}: requests {planes}' "
+                                     f"planes_used_mean differ from the "
+                                     f"unsharded f32 engine's")
+            for uid, j, margin in parted:
+                log(f"  [rank {rank}] {kind} request {uid}: stream differs "
+                    f"from the unsharded engine's at token {j}, where the "
+                    f"unsharded run's top-2 logit margin is {margin:.4g} of "
+                    f"the row's largest |logit|"
+                    + (f" (accepted only within {SV_LOGIT_REL:.4g})"
+                       if kind == "f32" else " (counted, not held)"))
+                if kind == "f32" and not margin <= SV_LOGIT_REL:
+                    raise AssertionError(
+                        f"rank {rank}: request {uid}'s f32 token stream "
+                        f"differs from the unsharded engine's at a margin "
+                        f"of {margin:.4g}, past {SV_LOGIT_REL:.4g}")
+            run["parted"], run["planes"] = len(parted), len(planes)
+        g = e["gate"]
+        drift, at = logit_drift(specs, g, plain["f32"])
+        if not drift <= SV_LOGIT_REL:
+            raise AssertionError(f"rank {rank}: request {at}'s f32 logits "
+                                 f"differ from the unsharded engine's by "
+                                 f"{drift:.4g} of the row's largest, past "
+                                 f"{SV_LOGIT_REL:.4g}")
+        share = e["decode_flops"] / plain_flops
+        if rank == 0 and share > SV_SPLIT_FLOPS:
+            raise AssertionError(f"rank 0's decode forward takes {share:.4f} "
+                                 f"of the unsharded forward's dot FLOPs "
+                                 f"(limit {SV_SPLIT_FLOPS})")
         launches += e["launches"]
         max_err = max(max_err, e["max_err"])
-        log(f"  [rank {rank}] engine: {e['tokens']} tokens in "
-            f"{e['seconds']:.2f} s, {e['tokens'] / e['seconds']:.1f} "
-            f"tokens/s, {e['steps']} steps; {e['launches']} kernel launches "
-            f"(layers x forwards = {e['expected']}); streams and "
-            f"planes_used_mean equal to the unsharded engine's; peak memory "
-            f"{e['peak_gb']:.2f} GB [{card}]")
+        log(f"  [rank {rank}] gate run (f32, dense ReLU MLP): {g['tokens']} "
+            f"tokens in {g['seconds']:.2f} s under the collective clock, "
+            f"{g['steps']} steps; {len(specs) - g['parted']} of "
+            f"{len(specs)} streams and their planes_used_mean equal to the "
+            f"unsharded f32 engine's, each sampled row's two largest logits "
+            f"within {drift:.3g} of its largest |logit| (limit "
+            f"{SV_LOGIT_REL:.3g}); model-axis collectives: " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in sorted(g["model_s"].items())
+                if k.startswith("model"))
+            + f" of {g['seconds']:.2f} s [{card}]")
+        log(f"  [rank {rank}] engine (bf16, timed without the clock): "
+            f"{e['tokens']} tokens in {e['seconds']:.2f} s, "
+            f"{e['tokens'] / e['seconds']:.1f} tokens/s, {e['steps']} steps; "
+            f"{e['launches']} kernel launches (layers x forwards = "
+            f"{e['expected']}); {len(specs) - e['parted']} of {len(specs)} "
+            f"streams equal to the unsharded bf16 engine's ({e['planes']} of "
+            f"those with another planes_used_mean; one device in "
+            f"{SV_WITNESS_CHUNK}-key chunks: {len(specs) - len(witness)}); "
+            f"peak memory {e['peak_gb']:.2f} GB [{card}]")
+        log(f"  [rank {rank}] split: {len(e['rings'])} KV rings of "
+            f"{slots} slots each (KVShard, of {ENGINE_MAX_LEN}); decode "
+            f"forward {e['decode_flops']:.6e} dot FLOPs, {share:.4f} of the "
+            f"unsharded forward's {plain_flops:.6e} [{card}]")
         for label, key in (("decode forward", "decode_walls"),
                            ("admission forward", "admission_walls")):
             log_forward(f"[rank {rank}] {label} [{card}]", e[key],

@@ -18,8 +18,16 @@ point-to-point ring of ``overlap.py`` copies through the host.
 autograd operators around a column- and row-parallel pair of products over
 the model axis (the sharded train step's split, ``models/pspec.py``
 ``model_shard``); ``all_reduce_max`` is the vocab-parallel cross-entropy's
-max.  Their ``timer`` is an optional ``timer("model")`` context manager
-around each collective (``train.step.CollectiveClock``).
+max.  Serving under the split adds ``gather_from_model`` (the new tokens'
+heads, a prefill's kv heads, vocab-parallel logits) and
+``combine_softmax``, which joins the ranks' partial attention over a KV
+ring split along its slots (context parallelism): ``all_reduce_max`` of
+their running maxima, then one sum of their rescaled softmax sums.  Their
+``timer`` is an optional ``timer(kind)`` context manager around each
+collective
+(``train.step.CollectiveClock``): kind ``model`` for "f", "g" and the
+cross-entropy's max, ``model_gather`` for the gathers, ``model_combine``
+for the split attention's max and sum.
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ import torch.distributed as dist
 
 __all__ = ["all_gather", "all_to_all", "all_reduce_max", "all_reduce_mean",
            "all_reduce_mean_grad", "all_reduce_sum_", "axis_rank",
-           "axis_size", "copy_to_model", "mesh_barrier", "reduce_from_model"]
+           "axis_size", "combine_softmax", "copy_to_model",
+           "gather_from_model", "mesh_barrier", "reduce_from_model"]
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -120,13 +129,18 @@ def all_reduce_sum_(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return t
 
 
+def _timed(timer, kind: str):
+    """``timer(kind)``, or no context without a timer."""
+    return timer(kind) if timer is not None else contextlib.nullcontext()
+
+
 def _sum_f32(t: torch.Tensor, mesh, axis: str, dtype, timer
              ) -> torch.Tensor:
     """The sum of ``t`` over the ranks of ``axis``, taken in f32 and rounded
     once to ``dtype``; a new tensor.  ``timer(kind)``, when given, is a
     context manager around the collective."""
     flat = t.to(torch.float32, copy=True).contiguous()
-    with timer("model") if timer is not None else contextlib.nullcontext():
+    with _timed(timer, "model"):
         all_reduce_sum_(flat, mesh, axis)
     return flat.to(dtype)
 
@@ -185,19 +199,51 @@ def reduce_from_model(x: torch.Tensor, mesh, dtype, axis: str = "model",
 
 
 def all_reduce_max(t: torch.Tensor, mesh, axis: str = "model",
-                   timer=None) -> torch.Tensor:
+                   timer=None, kind: str = "model") -> torch.Tensor:
     """The elementwise max of ``t`` over the ranks of ``axis``, detached
     (no gradient flows through it); a new tensor."""
     if axis_size(mesh, axis) == 1:
         return t.detach().clone()
     out = t.detach().to(torch.float32, copy=True).contiguous()   # exact
     try:
-        with timer("model") if timer is not None else contextlib.nullcontext():
+        with _timed(timer, kind):
             dist.all_reduce(out, op=dist.ReduceOp.MAX,
                             group=mesh.get_group(axis))
     except RuntimeError as e:
         raise _failed("all_reduce", axis, e) from e
     return out.to(t.dtype)
+
+
+def gather_from_model(t: torch.Tensor, mesh, dim: int, axis: str = "model",
+                      timer=None) -> torch.Tensor:
+    """``all_gather`` of ``t`` over ``axis`` along ``dim`` (every rank's
+    block in axis order), inside ``timer("model_gather")``; no autograd."""
+    with _timed(timer, "model_gather"):
+        return all_gather(t, mesh, axis, dim)
+
+
+def combine_softmax(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                    mesh, dtype, axis: str = "model", timer=None
+                    ) -> torch.Tensor:
+    """Attention over keys split among the ranks of ``axis``, from each
+    rank's online-softmax state over its own keys: ``m`` its largest score
+    (``(...,)``, f32; -1e30 where it sees no key), ``l`` the sum of its
+    probabilities exp(s - m) and ``acc`` their weighted sum of the values
+    (``(..., D)``, f32).  The ranks' largest ``m`` (``all_reduce_max``)
+    rescales each rank's ``l`` and ``acc`` by exp(m - max); both are summed
+    over the ranks in f32 (one collective), then ``acc / l`` is rounded
+    once to ``dtype``.  One device differs in the order of those sums and
+    in rounding each probability against the rank's own max."""
+    if axis_size(mesh, axis) > 1:
+        scale = torch.exp(m - all_reduce_max(m, mesh, axis, timer,
+                                             "model_combine"))
+        flat = torch.cat([(l * scale).reshape(-1),
+                          (acc * scale[..., None]).reshape(-1)])
+        with _timed(timer, "model_combine"):
+            all_reduce_sum_(flat, mesh, axis)
+        l, acc = flat[:l.numel()].view(l.shape), \
+            flat[l.numel():].view(acc.shape)
+    return (acc / torch.clamp_min(l[..., None], 1e-30)).to(dtype)
 
 
 def mesh_barrier(mesh) -> None:

@@ -28,10 +28,14 @@ axes only where the split reads the rank's slice; the record's
 ``peak_breakdown`` divides a rank's peak into its stored state, the
 gathered parameters, their f32 gradient sum and the rest); prefill --
 ``Model.prefill`` on rank 0's batch slice (``batch_pspec``); decode --
-``init_decode_state`` and ``decode_step`` on that slice.  The port keeps
-parameters whole on a rank while serving and decode state sharded over
-the batch alone: the record lists the state leaves whose reference layout
-(``decode_state_shardings``) also splits them over ``model``.
+``init_decode_state`` and ``decode_step`` on that slice.  Both run on rank
+0's model slice of the parameters (``train.sharding.model_slice``) inside
+``pspec.model_shard``, as a serving engine over the mesh does: heads,
+``d_ff`` and the vocab split over ``model``, and the KV rings split along
+their slots where ``model`` divides them.  The record lists the state
+leaves the port splits over ``model`` and those the reference's layout
+(``decode_state_shardings``) splits that the port keeps whole (the
+recurrent states).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k \\
@@ -227,20 +231,40 @@ def _rank_rows(mesh, global_batch: int) -> int:
     return global_batch // _fsdp_size(mesh)
 
 
-def _model_split(mesh, state) -> tuple[list, int]:
-    """The decode-state leaves whose reference spec splits them over
-    ``model``, and their bytes on this rank."""
+def _model_split(mesh, state) -> dict:
+    """The decode-state leaves this rank holds split over ``model`` (those
+    of a ``KVShard``), and the leaves the reference's layout
+    (``decode_state_shardings``) splits over ``model`` that the port keeps
+    whole, each list with its bytes on this rank."""
+    from repro_torch.models.attention import KVShard
+
+    out = {"state_split_over_model": [], "state_split_over_model_bytes": 0,
+           "state_whole_over_model": [], "state_whole_over_model_bytes": 0}
     if mesh is None:
-        return [], 0
+        return out
+    split: set = set()
+
+    def walk(node):
+        if isinstance(node, KVShard):
+            split.update(id(t) for t in node)
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(state)
     specs = []
     tree_map(lambda t, s: specs.append(s), state,
              decode_state_shardings(mesh, state))
-    paths, nbytes = [], 0
     for (path, leaf), spec in zip(flatten_with_path(state), specs):
-        if "model" in spec:
-            paths.append(path)
-            nbytes += leaf.numel() * leaf.element_size()
-    return paths, nbytes
+        key = "state_split_over_model" if id(leaf) in split else \
+            "state_whole_over_model" if "model" in spec else None
+        if key is not None:
+            out[key].append(path)
+            out[key + "_bytes"] += leaf.numel() * leaf.element_size()
+    return out
 
 
 def _batch(specs: dict, lead: tuple) -> dict:
@@ -359,7 +383,9 @@ def trace_cell(arch: ModelConfig, shape: ShapeConfig, mesh=None, *,
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models import pspec
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.sharding import model_slice
 
     model = build_model(arch)
     specs = input_specs(arch, shape, mesh)
@@ -391,26 +417,29 @@ def trace_cell(arch: ModelConfig, shape: ShapeConfig, mesh=None, *,
             enc_len = arch.frontend_len if arch.family == "encdec" else 0
             params = model.init(torch.Generator().manual_seed(0),
                                 device="cpu")
+            split = contextlib.nullcontext()
+            if mesh is not None and _axis_sizes(mesh).get("model", 1) > 1:
+                params = model_slice(mesh, arch, params)
+                split = pspec.model_shard(mesh, parts_cut=True)
             batch = _batch(specs, (rows,))
             mem, cost = LiveBytes(), OpCost()
-            if shape.kind == "decode":
-                state = model.init_decode_state(rows, shape.seq_len, enc_len,
-                                                device="cpu")
-                mem.add((params, batch, state))
-                with mem, cost:
-                    argument = mem.live
-                    _, state = model.decode_step(params, state,
-                                                 batch["tokens"])
-            else:
-                mem.add((params, batch))
-                with mem, cost:
-                    argument = mem.live
-                    _, state = model.prefill(params, batch,
-                                             max_len=shape.seq_len)
+            with split:
+                if shape.kind == "decode":
+                    state = model.init_decode_state(rows, shape.seq_len,
+                                                    enc_len, device="cpu")
+                    mem.add((params, batch, state))
+                    with mem, cost:
+                        argument = mem.live
+                        _, state = model.decode_step(params, state,
+                                                     batch["tokens"])
+                else:
+                    mem.add((params, batch))
+                    with mem, cost:
+                        argument = mem.live
+                        _, state = model.prefill(params, batch,
+                                                 max_len=shape.seq_len)
             totals, peak = cost.totals(), mem.peak
-            paths, nbytes = _model_split(mesh, state)
-            extra["state_split_over_model"] = paths
-            extra["state_split_over_model_bytes"] = nbytes
+            extra.update(_model_split(mesh, state))
     seconds = round(time.perf_counter() - t0, 2)
     return {**extra, "lower_s": seconds, "compile_s": seconds,
             "memory": {"argument_size_in_bytes": argument,

@@ -7,7 +7,12 @@ cells whose record exists are skipped, so the sweep resumes where it
 stopped.
 
     python -m repro_torch.launch.sweep [--out build/dryrun] [--timeout S]
-        [--meshes single,multi]
+        [--meshes single,multi] [--shapes prefill_32k,decode_32k]
+        [--jobs N]
+
+``--shapes`` keeps the cells of those shapes; ``--jobs`` runs that many
+cells at once (each its own process), in the order they are listed, each
+cell on every mesh before the next.
 """
 
 from __future__ import annotations
@@ -17,6 +22,30 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+
+def run_one(arch: str, shape: str, mesh: str, out_dir: str,
+            timeout: int) -> tuple[str, list, float]:
+    """One cell in its own process: (status, the output's last lines,
+    seconds)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", arch, "--shape", shape, "--out", out_dir]
+    if mesh == "multi":
+        cmd.append("--multi-pod")
+    t0 = time.time()
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=timeout)
+        out = r.stdout + r.stderr
+        tail = out.strip().splitlines()[-3:]
+        fname_path = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")
+        status = "ok" if r.returncode == 0 and (
+            any(ln.startswith("OK") for ln in out.splitlines())
+            and os.path.exists(fname_path)) else "FAIL"
+    except subprocess.TimeoutExpired:
+        tail, status = ["timeout"], "TIMEOUT"
+    return status, tail, time.time() - t0
 
 
 def main(argv=None):
@@ -24,15 +53,20 @@ def main(argv=None):
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--timeout", type=int, default=2400)
     ap.add_argument("--meshes", default="single,multi")
+    ap.add_argument("--shapes", default=None)
+    ap.add_argument("--jobs", type=int, default=1)
     args = ap.parse_args(argv)
 
     from repro_torch.configs.registry import live_cells
 
     cells = live_cells()
+    if args.shapes:
+        keep = args.shapes.split(",")
+        cells = [(a, s) for a, s in cells if s in keep]
     meshes = args.meshes.split(",")
     todo = []
-    for mesh in meshes:
-        for arch, shape in cells:
+    for arch, shape in cells:
+        for mesh in meshes:
             fname = f"{arch}__{shape}__{mesh}.json"
             if os.path.exists(os.path.join(args.out, fname)):
                 continue
@@ -40,30 +74,18 @@ def main(argv=None):
     print(f"{len(todo)} cells to run ({len(cells)} live x {meshes})",
           flush=True)
 
-    for i, (arch, shape, mesh) in enumerate(todo):
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-               "--arch", arch, "--shape", shape, "--out", args.out]
-        if mesh == "multi":
-            cmd.append("--multi-pod")
-        t0 = time.time()
-        try:
-            r = subprocess.run(cmd, capture_output=True, text=True,
-                               timeout=args.timeout)
-            out = r.stdout + r.stderr
-            tail = out.strip().splitlines()[-3:]
-            fname_path = os.path.join(args.out,
-                                      f"{arch}__{shape}__{mesh}.json")
-            status = "ok" if r.returncode == 0 and (
-                any(ln.startswith("OK") for ln in out.splitlines())
-                and os.path.exists(fname_path)) else "FAIL"
-        except subprocess.TimeoutExpired:
-            tail, status = ["timeout"], "TIMEOUT"
-        dt = time.time() - t0
-        print(f"[{i+1}/{len(todo)}] {status} {arch} {shape} {mesh} "
-              f"({dt:.0f}s)", flush=True)
+    def one(i_cell):
+        i, (arch, shape, mesh) = i_cell
+        status, tail, dt = run_one(arch, shape, mesh, args.out,
+                                   args.timeout)
+        lines = [f"[{i+1}/{len(todo)}] {status} {arch} {shape} {mesh} "
+                 f"({dt:.0f}s)"]
         if status != "ok":
-            for ln in tail:
-                print("   ", ln[:200], flush=True)
+            lines += ["    " + ln[:200] for ln in tail]
+        print("\n".join(lines), flush=True)
+
+    with ThreadPoolExecutor(max(1, args.jobs)) as pool:
+        list(pool.map(one, enumerate(todo)))
 
 
 if __name__ == "__main__":

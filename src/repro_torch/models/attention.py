@@ -9,11 +9,25 @@ the query axis and slices only the in-window KV span of each chunk.  No
 library attention kernel is used, so CPU results keep the reference's
 rounding.
 
-Inside ``pspec.model_shard`` (the sharded train step) attention is split by
-heads where ``pspec.splits`` allows: the rank's block of q heads comes
-from its column slice of ``wq``; k and v from its kv heads (the "kv"
-scheme) or, under "group" and "repeat", from the kv heads its q heads
-read, cut from the whole ``wk``/``wv``; ``wo`` is row-parallel.
+Inside ``pspec.model_shard`` attention is split by heads where
+``pspec.splits`` allows: the rank's block of q heads comes from its column
+slice of ``wq``; k and v from its kv heads (the "kv" scheme) or, under
+"group" and "repeat", from the kv heads its q heads read (cut from the
+whole ``wk``/``wv`` in training; a serving rank stores only those,
+``train.sharding.model_slice``); ``wo`` is row-parallel.
+
+Serving inside ``model_shard`` also splits a KV ring along its slots where
+``pspec.ring_splits`` says the ranks divide its capacity C (context
+parallelism, the reference's decode layout): rank r holds a ``KVShard``,
+slots ``r * C/tp .. (r + 1) * C/tp - 1`` of every kv head, with its own
+positions.  Decode and ``extend`` gather the new tokens' q, k and v heads
+over the model axis; each rank writes the tokens whose slots it holds and
+attends every head against its own slots, ``pspec.model_combine`` joins
+the ranks' online-softmax states (their max, then their rescaled sums),
+and the rank keeps its heads' rows for the row-parallel ``wo``.  A prefill builds each rank's block from the
+kv heads gathered over the ranks.  A ring the ranks do not divide stays
+whole on every rank (every slot of every kv head), and each rank attends
+its own q heads against it.
 
 Decode uses a ring-buffer KV cache: slot = position % capacity, with an
 explicit per-row position array (-1 = empty) for exact masking.  Full
@@ -62,13 +76,33 @@ def cache_capacity(cfg, seq_len: int) -> int:
     return seq_len
 
 
+class KVShard(KVCache):
+    """One model rank's block of a KV ring split along its slots inside
+    ``pspec.model_shard``: slots ``tp_rank * n .. tp_rank * n + n - 1`` (n =
+    ``k.shape[1]``) of a ring of ``n * tp_size`` slots, every kv head, and
+    the positions those slots hold (-1 = empty)."""
+    __slots__ = ()
+
+
+def ring_block(capacity: int) -> tuple[type, int, int]:
+    """This rank's part of a ring of ``capacity`` slots: ``(KVShard, first
+    slot, slots)`` where ``pspec.ring_splits``, else ``(KVCache, 0,
+    capacity)``."""
+    if pspec.ring_splits(capacity):
+        n = capacity // pspec.model_split()
+        return KVShard, pspec.tp_rank() * n, n
+    return KVCache, 0, capacity
+
+
 def init_kv_cache(cfg, batch: int, seq_len: int, dtype, device) -> KVCache:
-    C = cache_capacity(cfg, seq_len)
-    shape = (batch, C, cfg.n_kv_heads, cfg.head_dim_)
-    return KVCache(
+    """An empty ring for ``seq_len`` positions (inside ``pspec.model_shard``
+    this rank's ``ring_block`` of it)."""
+    cls, _, n = ring_block(cache_capacity(cfg, seq_len))
+    shape = (batch, n, cfg.n_kv_heads, cfg.head_dim_)
+    return cls(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        positions=torch.full((batch, C), -1, dtype=torch.int32,
+        positions=torch.full((batch, n), -1, dtype=torch.int32,
                              device=device))
 
 
@@ -94,7 +128,7 @@ def _attend_block(q, k, v, mask, m, l, acc):
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
-                    chunk: int) -> torch.Tensor:
+                    chunk: int, partial: bool = False):
     """Chunked-KV online-softmax attention.
 
     q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D); positions int32 (q_pos: (Sq,)
@@ -102,7 +136,12 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     token per row (Sq == 1) takes the un-chunked decode fast path; longer
     queries walk KV in ``chunk``-sized blocks.  Shared 1-D positions keep a
     (Sq, ck) mask per chunk; per-row positions mask each row against its own
-    ring.  GQA folds Hq into (Hkv, G).  Returns (B, Sq, Hq, D) in q.dtype.
+    ring.  GQA folds Hq into (Hkv, G).  Returns (B, Sq, Hq, D) in q.dtype;
+    with ``partial`` the un-normalised online-softmax state ``(m, l, acc)``
+    instead, f32 of shapes (B, Sq, Hkv, G) and (B, Sq, Hkv, G, D): every
+    query's largest masked score (-1e30 where it sees no key), the sum of
+    its probabilities and their weighted sum of the values
+    (``pspec.model_combine`` joins the ranks' states).
     """
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -125,6 +164,8 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
         if mask.shape[0] == 1:
             mask = mask[0]                                   # shared (Sq, Sk)
         m, l, acc = _attend_block(qg, k, v, mask, m, l, acc)
+        if partial:
+            return m, l, acc
         out = acc / torch.clamp_min(l[..., None], 1e-30)
         return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
@@ -157,6 +198,8 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
             if window:
                 mask = mask & (pb[:, None, :] > q_pos[:, :, None] - window)
         m, l, acc = _attend_block(qg, k[:, sl], v[:, sl], mask, m, l, acc)
+    if partial:
+        return m, l, acc
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
@@ -207,18 +250,22 @@ def swa_attention(q, k, v, q_pos, k_pos, *, window: int, q_chunk: int
 
 # ------------------------------------------------------------------ module API
 
-def _ring_write(cache: KVCache, k, v, pos_b, q_valid, copy: bool = False
-                ) -> KVCache:
+def _ring_write(cache: KVCache, k, v, pos_b, q_valid, copy: bool = False,
+                lo: int = 0, capacity: int | None = None) -> KVCache:
     """Write a chunk's KV into each row's slots ``pos % C``, in place; rows
     where ``q_valid`` is False write back what the ring already holds.
-    Returns ``cache``, or with ``copy`` a written copy (``cache`` stays as
-    it was)."""
+    ``cache`` may be one block of a larger ring (a ``KVShard``): slots ``lo
+    .. lo + n - 1`` of a ring of ``capacity`` slots, where a token whose
+    slot lies outside the block writes nothing.  Returns ``cache``, or with
+    ``copy`` a written copy (``cache`` stays as it was)."""
     if copy:
-        cache = KVCache(*(a.clone() for a in cache))
-    B = k.shape[0]
-    C = cache.k.shape[1]
-    slots = pos_b % C                                       # (B, S)
+        cache = type(cache)(*(a.clone() for a in cache))
+    B, S = k.shape[:2]
+    n = cache.k.shape[1]
     bidx = torch.arange(B, device=k.device)[:, None]
+    if capacity is not None and capacity != n:
+        return _block_write(cache, k, v, pos_b, q_valid, lo, capacity, bidx)
+    slots = pos_b % n                                       # (B, S)
     if q_valid is not None:
         keep = q_valid[..., None, None]
         k = torch.where(keep, k, cache.k[bidx, slots])
@@ -230,24 +277,60 @@ def _ring_write(cache: KVCache, k, v, pos_b, q_valid, copy: bool = False
     return cache
 
 
-def _build_ring(k, v, kv_pos, C: int, q_valid) -> KVCache:
+def _block_write(cache: KVCache, k, v, pos_b, q_valid, lo: int, C: int,
+                 bidx) -> KVCache:
+    """``_ring_write`` into slots ``lo .. lo + n - 1`` of a ring of ``C``.
+    A token that writes nothing repeats its row's first writing token (its
+    slot and values); in a row where none writes, every token writes back
+    what the block's first slot holds.  So no two writes to one slot
+    differ, and no shape depends on the data."""
+    n = cache.k.shape[1]
+    local = pos_b % C - lo                                  # (B, S)
+    own = (local >= 0) & (local < n)
+    if q_valid is not None:
+        own = own & q_valid
+    some = own.any(dim=1, keepdim=True)                     # (B, 1)
+    first = torch.argmax(own.to(torch.int32), dim=1, keepdim=True)
+    tok = torch.arange(k.shape[1], device=k.device)[None]
+    src = torch.where(own, tok, first)
+    slots = torch.where(own, local,
+                        torch.where(some, local.gather(1, first), 0))
+    keep = some[..., None, None]
+    cache.k[bidx, slots] = torch.where(keep, k[bidx, src].to(cache.k.dtype),
+                                       cache.k[bidx, slots])
+    cache.v[bidx, slots] = torch.where(keep, v[bidx, src].to(cache.v.dtype),
+                                       cache.v[bidx, slots])
+    cache.positions[bidx, slots] = torch.where(
+        some, pos_b.gather(1, src).to(torch.int32),
+        cache.positions[bidx, slots])
+    return cache
+
+
+def _build_ring(k, v, kv_pos, C: int, q_valid, cls=KVCache, lo: int = 0,
+                n: int | None = None) -> KVCache:
     """The decode ring from a prefill pass's KV: each row keeps its last
     min(C, length) valid positions at slots ``pos % C``.
 
     Without ``q_valid`` every row keeps the pass's last C columns.  With it
     (ragged right-padded rows), slot s of row b holds the largest valid
-    position congruent to s mod C, gathered per (row, slot)."""
+    position congruent to s mod C, gathered per (row, slot).  ``n`` builds
+    only slots ``lo .. lo + n - 1`` (a ``KVShard``, of class ``cls``), by the
+    same gather; the pass's positions are then its columns, as a prefill's
+    are."""
     B, Skv = k.shape[:2]
-    if q_valid is not None:
-        lengths = q_valid.to(torch.int32).sum(dim=1)                  # (B,)
-        s_idx = torch.arange(C, dtype=torch.int32, device=k.device)[None]
+    n = C if n is None else n
+    if q_valid is not None or n != C:
+        lengths = q_valid.to(torch.int32).sum(dim=1) if q_valid is not None \
+            else torch.full((B,), Skv, dtype=torch.int32, device=k.device)
+        s_idx = torch.arange(lo, lo + n, dtype=torch.int32,
+                             device=k.device)[None]
         last = lengths[:, None] - 1                                   # (B, 1)
-        owner = last - torch.remainder(last - s_idx, C)               # (B, C)
+        owner = last - torch.remainder(last - s_idx, C)               # (B, n)
         valid = (owner >= 0) & (lengths[:, None] > 0)
         col = owner.clamp(0, Skv - 1).long()[..., None, None]
-        col = col.expand(B, C, *k.shape[2:])
+        col = col.expand(B, n, *k.shape[2:])
         keep = valid[..., None, None]
-        return KVCache(
+        return cls(
             k=torch.where(keep, torch.gather(k, 1, col), 0).to(k.dtype),
             v=torch.where(keep, torch.gather(v, 1, col), 0).to(v.dtype),
             positions=torch.where(valid, owner, -1).to(torch.int32))
@@ -284,7 +367,8 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
     into a sliding-window ring writes a copy and attends against the
     pre-write ring beside its own keys.  ``return_cache`` on a pass without
     a cache (prefill) builds the ring, sized for ``cache_len`` (at most the
-    window).
+    window).  Inside ``pspec.model_shard`` a ring may be a ``KVShard``
+    (see the module docstring).
     kv_x: encoder output for cross-attention (keys/values from there, no
     causal mask, rope at the encoder positions).  A cross-attention call
     with a cache and no ``kv_x`` attends to that static cache.
@@ -295,13 +379,12 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
     hd = cfg.head_dim_
     cross = is_cross or kv_x is not None
     sp = pspec.active_splits(cfg)
-    hq = cfg.n_heads
+    tp = pspec.model_split()
+    if isinstance(cache, KVShard) and tp == 1:
+        raise ValueError("a KV ring split over the model axis (KVShard) is "
+                         "read only inside pspec.model_shard")
+    hq = cfg.n_heads // tp if sp.heads else cfg.n_heads
     if sp.heads:
-        if cache is not None or return_cache:
-            raise NotImplementedError(
-                "the model-axis split covers the train forward; decode "
-                "caches over the model axis are not ported")
-        hq //= pspec.tp_size()
         x = pspec.copy_to_model(x)
         if kv_x is not None:
             kv_x = pspec.copy_to_model(kv_x)
@@ -310,18 +393,20 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
 
     if cross and cache is not None and kv_x is None:
         # decode against the static (encoder) cross cache: no writes
-        out = flash_attention(q, cache.k, cache.v, positions,
-                              cache.positions, causal=False, window=0,
-                              chunk=cfg.attn_chunk)
-        y = apply_dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd))
-        return y, cache
+        shard = isinstance(cache, KVShard)
+        qa = pspec.model_gather(q, dim=2) if shard and sp.heads else q
+        out = _ring_attention(q, qa, cache.k, cache.v, positions,
+                              cache.positions, cfg, hq, sp, shard,
+                              causal=False, window=0)
+        return _out_proj(p, out, sp), cache
 
     src = kv_x if kv_x is not None else x
     Skv = src.shape[1]
+    index = None
     if sp.heads and not sp.kv:
-        k, v = _kv_read(p, src, cfg, pspec.tp_rank() * hq, hq)
+        k, v, index = _kv_read(p, src, cfg, pspec.tp_rank() * hq, hq)
     else:       # every kv head, or under "kv" the rank's (its wk/wv slices)
-        hk = cfg.n_kv_heads // (pspec.tp_size() if sp.kv else 1)
+        hk = cfg.n_kv_heads // (tp if sp.kv else 1)
         k = apply_dense(p["wk"], src).reshape(B, Skv, hk, hd)
         v = apply_dense(p["wv"], src).reshape(B, Skv, hk, hd)
     if not cross:
@@ -332,7 +417,9 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
 
     new_cache = None
     if cache is not None and not cross:
-        C = cache.k.shape[1]
+        shard = isinstance(cache, KVShard)
+        n = cache.k.shape[1]
+        C = n * tp if shard else n
         if S > C:
             # consecutive positions are slot-distinct only modulo the ring
             # capacity: a wider chunk would write two rows into one slot
@@ -343,48 +430,126 @@ def attention_forward(p: Params, x: torch.Tensor, cfg, *,
         pos_b = positions if positions.ndim == 2 \
             else positions[None].expand(B, S)
         carry = S > 1 and window > 0
+        qa = q
+        if sp.heads:
+            # the ring holds every kv head: gather the chunk's heads (and,
+            # for a split ring, every q head) from the ranks
+            qa, k, v = _gather_heads(q if shard else None, k, v, cfg, hq)
+            qa = q if qa is None else qa
         # A multi-token chunk into a sliding-window ring writes a copy: its
         # attention reads the pre-write ring, and a forward that raises
         # after this layer must leave that ring as it was for the retry.
-        new_cache = _ring_write(cache, k, v, pos_b, q_valid, copy=carry)
-        if carry:
+        new_cache = _ring_write(cache, k, v, pos_b, q_valid, copy=carry,
+                                lo=pspec.tp_rank() * n if shard else 0,
+                                capacity=C)
+        if carry and not (shard and pspec.tp_rank() > 0):
             # SWA carry-window extension: the chunk recycles ring slots
             # (capacity = window) that still hold in-window keys its own
             # earliest queries need.  Attend against the pre-write ring
             # (positions o-C..o-1) beside the chunk's own keys (o..o+S-1):
             # the two position sets are disjoint, so the window mask picks
             # exactly the right keys.  Pad rows' chunk keys are masked (-1).
+            # Over a split ring the chunk's keys join rank 0's slots only,
+            # so they count once in the combine.
             kp_chunk = pos_b if q_valid is None \
                 else torch.where(q_valid, pos_b, -1)
             ka = torch.cat([cache.k, k.to(cache.k.dtype)], dim=1)
             va = torch.cat([cache.v, v.to(cache.v.dtype)], dim=1)
             pa = torch.cat([cache.positions, kp_chunk.to(torch.int32)],
                            dim=1)
+        elif carry:
+            ka, va, pa = cache
         else:
             ka, va, pa = new_cache
-        out = flash_attention(q, ka, va, pos_b, pa, causal=causal,
-                              window=window, chunk=cfg.attn_chunk)
+        out = _ring_attention(q, qa, ka, va, pos_b, pa, cfg, hq, sp, shard,
+                              causal=causal, window=window)
     else:
+        ka, va = (k, v) if index is None else (k[:, :, index], v[:, :, index])
         window = cfg.window if (cfg.attn_type == "swa" and not cross) else 0
         if window and S > 1:
-            out = swa_attention(q, k, v, positions, kv_pos, window=window,
+            out = swa_attention(q, ka, va, positions, kv_pos, window=window,
                                 q_chunk=cfg.attn_chunk)
         elif causal and not cross and S > 2 * cfg.attn_chunk:
-            out = chunked_causal_attention(q, k, v, positions, kv_pos,
+            out = chunked_causal_attention(q, ka, va, positions, kv_pos,
                                            chunk=cfg.attn_chunk)
         else:
-            out = flash_attention(q, k, v, positions, kv_pos,
+            out = flash_attention(q, ka, va, positions, kv_pos,
                                   causal=causal and not cross, window=0,
                                   chunk=cfg.attn_chunk)
         if return_cache:
             C = Skv if cross else cache_capacity(cfg, cache_len or Skv)
+            if sp.heads:
+                _, k, v = _gather_heads(None, k, v, cfg, hq)
+            cls, lo, n = ring_block(C)
             new_cache = _build_ring(k, v, kv_pos, C,
-                                    None if cross else q_valid)
+                                    None if cross else q_valid, cls, lo, n)
+    return _out_proj(p, out, sp), new_cache
 
-    out = out.reshape(B, S, hq * hd)
+
+def _out_proj(p: Params, out: torch.Tensor, sp) -> torch.Tensor:
+    """``wo`` over the heads' outputs (B, S, heads, hd): row-parallel
+    where the heads split."""
+    out = out.reshape(*out.shape[:2], -1)
     if sp.heads:
-        return row_parallel(p["wo"], out), new_cache
-    return apply_dense(p["wo"], out), new_cache
+        return row_parallel(p["wo"], out)
+    return apply_dense(p["wo"], out)
+
+
+def _ring_attention(q, qa, ka, va, q_pos, k_pos, cfg, hq: int, sp,
+                    shard: bool, *, causal: bool, window: int
+                    ) -> torch.Tensor:
+    """The rank's q heads' attention against a ring.  ``shard``: ``ka`` /
+    ``va`` / ``k_pos`` are the rank's slots of every kv head and ``qa``
+    every q head; the ranks' partial softmax states are combined and the
+    rank's heads kept.  Otherwise the ring is whole and the rank's q heads
+    ``q`` attend against the kv heads they read."""
+    B, S, _, hd = q.shape
+    if shard:
+        m, l, acc = flash_attention(qa, ka, va, q_pos, k_pos, causal=causal,
+                                    window=window, chunk=cfg.attn_chunk,
+                                    partial=True)
+        out = pspec.model_combine(m, l, acc, q.dtype).reshape(B, S, -1, hd)
+        if sp.heads:
+            h0 = pspec.tp_rank() * hq
+            out = out[:, :, h0:h0 + hq]
+        return out
+    if sp.heads:
+        lo, hi, index = _kv_heads_read(cfg.n_heads, cfg.n_kv_heads,
+                                       pspec.tp_rank() * hq, hq)
+        ka, va = ka[:, :, lo:hi], va[:, :, lo:hi]
+        if index is not None:
+            ka, va = ka[:, :, index], va[:, :, index]
+    return flash_attention(q, ka, va, q_pos, k_pos, causal=causal,
+                           window=window, chunk=cfg.attn_chunk)
+
+
+def _gather_heads(q, k, v, cfg, hq: int):
+    """Every model rank's heads of a chunk in one ``all_gather``: q (B, S,
+    n_heads, hd) in head order (None for a ``q`` of None), and k and v
+    (B, S, n_kv_heads, hd), each kv head taken from the first rank whose q
+    heads read it (each rank's ``k``/``v`` hold the kv heads its q heads
+    ``tp_rank * hq ..`` read, as ``_kv_heads_read`` gives them)."""
+    tp = pspec.model_split()
+    B, S, _, hd = k.shape
+    blocks = [_kv_heads_read(cfg.n_heads, cfg.n_kv_heads, r * hq, hq)[:2]
+              for r in range(tp)]
+    nk = max(hi - lo for lo, hi in blocks)
+
+    def pad(t):
+        return F.pad(t, (0, 0, 0, nk - t.shape[2]))
+    parts = ([] if q is None else [q]) + [pad(k), pad(v)]
+    every = pspec.model_gather(torch.cat(parts, dim=2)[None], dim=0)
+    owner = [next(r for r, (lo, hi) in enumerate(blocks) if lo <= j < hi)
+             for j in range(cfg.n_kv_heads)]
+    ranks = torch.tensor(owner, device=k.device)
+    heads = torch.tensor([j - blocks[r][0] for j, r in enumerate(owner)],
+                         device=k.device)
+    off = 0 if q is None else hq
+    kk = every[ranks, :, :, off + heads].permute(1, 2, 0, 3)
+    vv = every[ranks, :, :, off + nk + heads].permute(1, 2, 0, 3)
+    qa = None if q is None else every[:, :, :, :hq].permute(
+        1, 2, 0, 3, 4).reshape(B, S, tp * hq, hd)
+    return qa, kk, vv
 
 
 def _kv_heads_read(n_heads: int, n_kv: int, h0: int, hl: int
@@ -403,20 +568,37 @@ def _kv_heads_read(n_heads: int, n_kv: int, h0: int, hl: int
     return lo, hi, [i - lo for i in idx]
 
 
+def kv_part(w: torch.Tensor, cfg, h0: int, hl: int) -> torch.Tensor:
+    """The PART cut of a whole ``wk`` / ``wv`` leaf (a weight or a bias,
+    its columns last): the columns of the kv heads that q heads ``h0 .. h0
+    + hl - 1`` read under the "group" and "repeat" schemes
+    (``_kv_heads_read``).  The train step's forward cuts it from the
+    gathered leaf (``_kv_read``); a serving rank stores only it
+    (``train.sharding.model_slice``, read under ``pspec.model_shard(...,
+    parts_cut=True)``)."""
+    lo, hi, _ = _kv_heads_read(cfg.n_heads, cfg.n_kv_heads, h0, hl)
+    return w[..., lo * cfg.head_dim_:hi * cfg.head_dim_]
+
+
 def _kv_read(p: Params, src: torch.Tensor, cfg, h0: int, hl: int):
-    """k and v (B, Skv, heads, hd) for the rank's q heads ``h0 .. h0 + hl -
-    1`` under the "group" and "repeat" schemes: the kv heads those q heads
-    read, cut from the whole ``wk``/``wv``, repeated to the q heads where
-    they do not fold as GQA groups of one size."""
+    """k and v (B, Skv, hi - lo, hd) of the kv heads ``lo .. hi - 1`` that
+    the rank's q heads ``h0 .. h0 + hl - 1`` read under the "group" and
+    "repeat" schemes, and the index that repeats them to the q heads (None
+    where they fold as GQA groups of one size).  ``wk``/``wv`` are whole
+    (the train step gathers them) and cut here, or already cut where
+    ``pspec.parts_cut`` (a serving rank's ``model_slice``)."""
     B, Skv, _ = src.shape
     hd = cfg.head_dim_
     lo, hi, index = _kv_heads_read(cfg.n_heads, cfg.n_kv_heads, h0, hl)
-    cols = slice(lo * hd, hi * hd)
+    cut = pspec.parts_cut()
     out = []
     for name in ("wk", "wv"):
-        part = {key: w[..., cols] for key, w in p[name].items()}
-        t = apply_dense(part, src).reshape(B, Skv, hi - lo, hd)
-        out.append(t if index is None else t[:, :, index])
-    return tuple(out)
-
-
+        part = p[name] if cut else {key: kv_part(w, cfg, h0, hl)
+                                    for key, w in p[name].items()}
+        width = part["w"].shape[-1]
+        if width != (hi - lo) * hd:
+            raise ValueError(
+                f"{name} holds {width} columns where the kv heads "
+                f"{lo}..{hi - 1} take {(hi - lo) * hd} (parts_cut={cut})")
+        out.append(apply_dense(part, src).reshape(B, Skv, hi - lo, hd))
+    return out[0], out[1], index

@@ -111,15 +111,18 @@ def init_lm_head(cfg, gen, device) -> Params:
                         cfg.d_model ** -0.5, device, _dtype(cfg))}
 
 
-def lm_logits(head: Params, embed: Params, x: torch.Tensor, cfg
-              ) -> torch.Tensor:
+def lm_logits(head: Params, embed: Params, x: torch.Tensor, cfg,
+              gather: bool = False) -> torch.Tensor:
     """Logits in the residual dtype (f32 accumulation inside the product);
     inside ``pspec.model_shard`` with the vocab split, this rank's slice of
-    them (a column-parallel product)."""
+    them (a column-parallel product), or with ``gather`` (serving) every
+    rank's slices gathered to the full vocab (exact: no sum), so every rank
+    samples the same token."""
     w = embed["embedding"].t() if cfg.tie_embeddings else head["w"]
-    if pspec.active_splits(cfg).vocab:
-        x = pspec.copy_to_model(x)
-    return _matmul(x, w, x.dtype)
+    if not pspec.active_splits(cfg).vocab:
+        return _matmul(x, w, x.dtype)
+    logits = _matmul(pspec.copy_to_model(x), w, x.dtype)
+    return pspec.model_gather(logits, dim=-1) if gather else logits
 
 
 # ---------------------------------------------------------------- dense

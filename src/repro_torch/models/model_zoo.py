@@ -18,6 +18,13 @@ Decode state: {"caches": [one per decoder layer], "pos": (B,) int32}; decode
 writes the attention rings in place and returns the recurrent states as new
 tensors (see ``transformer``).
 
+Inside ``pspec.model_shard`` (serving over a mesh's model axis) the entry
+points run on a rank's model slice of the parameters
+(``train.sharding.model_slice``): attention by heads over KV rings split
+along their slots (``attention``), the MLP and the experts by ``d_ff``,
+the embedding and head by the vocab, with the logits gathered to the full
+vocab; ``init_decode_state`` builds the rank's part of the state.
+
 ``loss_fn`` is the reference's training loss; ``repro_torch.train.step``
 differentiates it with ``torch.autograd.grad``.
 """
@@ -170,7 +177,8 @@ class Model:
         if mode == "prefill":
             # serving needs only the next-token distribution
             x = x[:, -1:] if lengths is None else _last(x, lengths)
-        logits = lm_logits(params["head"], params["embed"], x, cfg)
+        logits = lm_logits(params["head"], params["embed"], x, cfg,
+                           gather=mode == "prefill")
         return logits, aux, caches if mode == "prefill" else None
 
     # ------------------------------------------------------------- serving
@@ -212,7 +220,8 @@ class Model:
             params["decoder"], x, positions=pos2d, caches=state["caches"],
             mode="decode")
         x = apply_norm(params["final_norm"], x, cfg)
-        logits = lm_logits(params["head"], params["embed"], x, cfg)
+        logits = lm_logits(params["head"], params["embed"], x, cfg,
+                           gather=True)
         return logits[:, 0], {"caches": caches, "pos": state["pos"] + 1}
 
     @_full_f32
@@ -252,13 +261,15 @@ class Model:
             last, new_pos = x[:, -1:], pos0 + S
         else:
             last, new_pos = _last(x, lengths), pos0 + lengths
-        logits = lm_logits(params["head"], params["embed"], last, cfg)
+        logits = lm_logits(params["head"], params["embed"], last, cfg,
+                           gather=True)
         return logits[:, 0], {"caches": caches, "pos": new_pos}
 
     def init_decode_state(self, batch_size: int, seq_len: int,
                           enc_len: int = 0, device=None) -> dict:
         """Empty caches for ``batch_size`` rows of up to ``seq_len``
-        positions, on ``device`` (default ``cuda``)."""
+        positions, on ``device`` (default ``cuda``); inside
+        ``pspec.model_shard`` this rank's part of them."""
         dev = resolve_device(device)
         dtype = getattr(torch, self.cfg.dtype)
         caches = self.decoder.init_cache(batch_size, seq_len, enc_len, dtype,

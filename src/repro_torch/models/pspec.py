@@ -16,13 +16,17 @@ geometry, as the reference does:
 The registry is process state, as in the reference: one mesh per process.
 
 ``model_shard`` is where the model axis splits compute: inside it (the
-sharded train step's forward and backward) ``tp_size`` and ``tp_rank``
-report the step's model axis, ``splits`` says which products split, and
-the model code runs Megatron's column- and row-parallel products on the
-rank's slices of the parameters, with ``copy_to_model`` /
-``reduce_from_model`` ("f" / "g") around them.  Outside it nothing splits,
-whatever mesh is installed: serving with ``ServeConfig.mesh`` splits only
-its DSLOT MLPs (``dslot_prepare(mesh=...)``).
+sharded train step's forward and backward, and serving with
+``ServeConfig.mesh`` or the dry run's serving cells) ``tp_size`` and
+``tp_rank`` report its model axis, ``splits`` says which products split,
+and the model code runs Megatron's column- and row-parallel products on
+the rank's slices of the parameters (``train.sharding.model_slice`` cuts
+them for serving), with ``copy_to_model`` / ``reduce_from_model`` ("f" /
+"g") around them.  Serving splits its KV rings along their slots as well
+(context parallelism, ``ring_splits``): each rank attends every head
+against its own slots and ``model_combine`` joins the ranks' online-softmax
+states.  Outside ``model_shard`` nothing splits, whatever mesh is
+installed, but a DSLOT MLP prepared with one (``dslot_prepare(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -34,15 +38,16 @@ from repro_torch import distributed
 from repro_torch.distributed import axis_size
 
 __all__ = ["Splits", "active_splits", "constrain", "copy_to_model",
-           "data_shard", "fsdp_size", "head_scheme", "model_max",
-           "model_shard", "model_split", "reduce_from_model", "set_mesh",
+           "data_shard", "fsdp_size", "head_scheme", "model_combine",
+           "model_gather", "model_max", "model_shard", "model_split",
+           "parts_cut", "reduce_from_model", "ring_splits", "set_mesh",
            "shard_mean", "splits", "tp_rank", "tp_size"]
 
 _MESH = None
 _FSDP: tuple = ()
 _TP: str | None = None
 _SHARD = None        # (mesh, batch axes) inside ``data_shard``
-_SPLIT = None        # (mesh, model axis, timer) inside ``model_shard``
+_SPLIT = None        # (mesh, model axis, timer, parts_cut) in ``model_shard``
 
 
 def set_mesh(mesh) -> None:
@@ -107,19 +112,31 @@ def data_shard(mesh, axes: tuple):
 
 
 @contextlib.contextmanager
-def model_shard(mesh, axis: str = "model", timer=None):
+def model_shard(mesh, axis: str = "model", timer=None,
+                parts_cut: bool = False):
     """Code inside splits its compute over mesh axis ``axis`` (the sharded
-    train step's forward and backward): attention heads, MLP and expert
-    ``d_ff`` columns and the vocab, where ``splits`` says they divide.  The
-    parameters it reads are the rank's ``model`` slices of those leaves
-    (``train.sharding.model_reads``).  ``timer(kind)``: an optional context
-    manager around every model-axis collective."""
+    train step's forward and backward; serving's prefill, extend and
+    decode): attention heads, MLP and expert ``d_ff`` columns and the
+    vocab, where ``splits`` says they divide, and serving's KV rings where
+    ``ring_splits`` does.  The parameters it reads are the rank's ``model``
+    slices of those leaves (``train.sharding.model_reads``).  A PART leaf
+    (``wk``/``wv`` under "group" and "repeat") is whole, as the train step
+    gathers it, or with ``parts_cut`` already cut to the kv heads the rank
+    reads, as a serving rank stores it (``train.sharding.model_slice``).
+    ``timer(kind)``: an optional context manager around every model-axis
+    collective (``repro_torch.distributed``'s kinds)."""
     global _SPLIT
-    prev, _SPLIT = _SPLIT, (mesh, axis, timer)
+    prev, _SPLIT = _SPLIT, (mesh, axis, timer, parts_cut)
     try:
         yield
     finally:
         _SPLIT = prev
+
+
+def parts_cut() -> bool:
+    """Whether the PART leaves read inside ``model_shard`` are stored cut
+    to the rank's kv heads (its ``parts_cut``)."""
+    return _SPLIT is not None and _SPLIT[3]
 
 
 class Splits(NamedTuple):
@@ -158,23 +175,48 @@ def active_splits(cfg) -> Splits:
     return splits(cfg, model_split())
 
 
+def ring_splits(capacity: int) -> bool:
+    """Whether a KV ring of ``capacity`` slots splits its slots over the
+    model ranks (context parallelism): inside ``model_shard`` over more
+    than one rank, where the ranks divide it -- the reference's
+    divisibility rule for the cache's sequence axis (``spec_for`` in its
+    ``decode_state_shardings``).  A ring that does not split stays whole on
+    every rank."""
+    n = model_split()
+    return n > 1 and capacity % n == 0
+
+
 def copy_to_model(x):
     """Megatron's "f" over the ``model_shard`` axis."""
-    mesh, axis, timer = _SPLIT
+    mesh, axis, timer, _ = _SPLIT
     return distributed.copy_to_model(x, mesh, axis, timer)
 
 
 def reduce_from_model(x, dtype):
     """Megatron's "g" over the ``model_shard`` axis: the ranks' partial
     ``x`` summed in f32, rounded once to ``dtype``."""
-    mesh, axis, timer = _SPLIT
+    mesh, axis, timer, _ = _SPLIT
     return distributed.reduce_from_model(x, mesh, dtype, axis, timer)
 
 
 def model_max(x):
     """The max of ``x`` over the ``model_shard`` axis, detached."""
-    mesh, axis, timer = _SPLIT
+    mesh, axis, timer, _ = _SPLIT
     return distributed.all_reduce_max(x, mesh, axis, timer)
+
+
+def model_gather(x, dim: int):
+    """Every model rank's ``x`` concatenated along ``dim`` in rank order
+    (no autograd: serving)."""
+    mesh, axis, timer, _ = _SPLIT
+    return distributed.gather_from_model(x, mesh, dim, axis, timer)
+
+
+def model_combine(m, l, acc, dtype):
+    """Attention from the model ranks' online-softmax states over their
+    own keys (``distributed.combine_softmax``)."""
+    mesh, axis, timer, _ = _SPLIT
+    return distributed.combine_softmax(m, l, acc, mesh, dtype, axis, timer)
 
 
 def shard_mean(t):

@@ -32,8 +32,8 @@ import torch
 import torch.utils.checkpoint
 
 from . import stats as model_stats
-from .attention import (KVCache, attention_forward, init_attention,
-                        init_kv_cache)
+from .attention import (attention_forward, init_attention, init_kv_cache,
+                        ring_block)
 from .layers import Params, apply_norm, init_norm
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
@@ -72,6 +72,9 @@ def init_layer(cfg, gen, device, kind: str) -> Params:
 
 def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, enc_len: int,
                      dtype, device) -> Any:
+    """One layer's empty decode state.  Inside ``pspec.model_shard`` its KV
+    rings (self and cross) are this rank's ``KVShard`` where
+    ``pspec.ring_splits``; recurrent states stay whole."""
     if kind == "ssm":
         d_inner, H, P, N, G = _dims(cfg)
         conv_ch = d_inner + 2 * G * N
@@ -87,12 +90,13 @@ def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, enc_len: int,
             h=torch.zeros((batch, w), dtype=torch.float32, device=device))
     self_cache = init_kv_cache(cfg, batch, seq_len, dtype, device)
     if kind == "attn_cross":
-        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim_)
-        pos = torch.arange(enc_len, dtype=torch.int32, device=device)
-        cross = KVCache(
+        cls, lo, n = ring_block(enc_len)
+        shape = (batch, n, cfg.n_kv_heads, cfg.head_dim_)
+        pos = torch.arange(lo, lo + n, dtype=torch.int32, device=device)
+        cross = cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
-            positions=pos[None].expand(batch, enc_len).contiguous())
+            positions=pos[None].expand(batch, n).contiguous())
         return (self_cache, cross)
     return self_cache
 
@@ -229,7 +233,8 @@ class Stack:
 
     def init_cache(self, batch: int, seq_len: int, enc_len: int, dtype,
                    device) -> list:
-        """Empty caches, one per layer in layer order."""
+        """Empty caches, one per layer in layer order (split as
+        ``init_layer_cache`` says)."""
         return [init_layer_cache(self.cfg, kind, batch, seq_len, enc_len,
                                  dtype, device) for kind in self.kinds]
 

@@ -68,10 +68,16 @@ class ServeConfig:
         engine's fault hook points; ``None`` injects nothing.
     mesh: tensor-parallel mesh (a ``DeviceMesh``, e.g. from
         ``repro_torch.launch.mesh.make_test_mesh``).  The engine installs it
-        in ``models/pspec.py`` and prepares the DSLOT weights N-sharded over
-        ``mesh[tp_axis]``.  Every rank runs the same engine on the same
-        traffic; token streams equal ``mesh=None``'s.
-    tp_axis: the mesh axis the DSLOT N tiles shard over.
+        in ``models/pspec.py``, keeps the rank's model slice of the
+        parameters (``train.sharding.model_slice``), prepares the DSLOT
+        weights N-sharded over ``mesh[tp_axis]`` and runs every forward
+        split over that axis (``pspec.model_shard``: heads over KV rings
+        split along their slots, ``d_ff``, the vocab).  Every rank runs the
+        same engine on the same traffic; token streams equal
+        ``mesh=None``'s.
+    tp_axis: the mesh axis the DSLOT N tiles and the forward split over;
+        with a mesh it must be "model", the axis the parameters are cut
+        over (``train.sharding.mesh_axes``), or the engine raises.
     """
     n_slots: int = 4
     max_len: int = 512

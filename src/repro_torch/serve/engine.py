@@ -59,15 +59,24 @@ clamps every slot's budget to its QoS tier's current level each step —
 shedding planes under a burst, restoring them under slack.
 
 Tensor-parallel serving (``ServeConfig.mesh``): every rank of the mesh runs
-this engine on the same traffic, in lockstep (SPMD).  Activations are
-replicated; each DSLOT MLP up-projection runs the kernel on the rank's own
-output columns and gathers the rest.  Every host decision (sampling, the SLO
-loop on its step clock, fault plans keyed by step) must come out the same on
-every rank, so a ``sample`` with a generator must be seeded alike on all.
+this engine on the same traffic, in lockstep (SPMD), with the forward split
+over the mesh's model axis as the reference's mesh splits it.  The engine
+keeps the rank's model slice of the parameters
+(``train.sharding.model_slice``) and runs every pooled decode and admission
+lane inside ``pspec.model_shard``: attention by heads over KV rings split
+along their slots (context parallelism), the dense MLP and the experts by
+``d_ff``, the embedding and head by the vocab (the logits gathered whole,
+so every rank samples alike); each DSLOT MLP up-projection runs the kernel
+on the rank's own output columns and gathers the rest.  Row moves act on
+the batch axis, which the split leaves whole.  Every host decision
+(sampling, the SLO loop on its step clock, fault plans keyed by step) must
+come out the same on every rank, so a ``sample`` with a generator must be
+seeded alike on all.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -333,12 +342,29 @@ class ServeEngine:
         self.cfg = cfg or ServeConfig()
         self.model = model
         self.dslot = mlp_uses_dslot(model.cfg)
-        if self.cfg.mesh is not None:
+        mesh = self.cfg.mesh
+        # clock(kind): an optional context manager around each model-axis
+        # collective of the split forward (repro_torch.distributed's kinds)
+        self.clock = None
+        self._split = contextlib.nullcontext
+        if mesh is not None:
             # tensor-parallel serving: every rank runs this engine on the
-            # same traffic; the DSLOT layers shard through the mesh baked
-            # into their prepared state, and model code reads the mesh's
-            # sizes from the pspec registry
-            pspec.set_mesh(self.cfg.mesh)
+            # same traffic on its model slice of the parameters; every
+            # forward and state runs split over the model axis, and the
+            # DSLOT layers shard through the mesh baked into their
+            # prepared state
+            from repro_torch.train.sharding import model_slice
+            if self.cfg.tp_axis != "model":
+                # the parameter layout (train.sharding.mesh_axes) cuts
+                # over the axis named "model"; another split axis would
+                # read whole leaves as slices
+                raise ValueError(f"tp_axis {self.cfg.tp_axis!r}: serving "
+                                 f"over a mesh splits over its 'model' "
+                                 f"axis")
+            pspec.set_mesh(mesh)
+            params = model_slice(mesh, model.cfg, params)
+            self._split = lambda: pspec.model_shard(
+                mesh, "model", self.clock, parts_cut=True)
         # one-time weight-stationary lowering: every decode step executes
         # against the prepared digit-plane tables (no per-call re-encode)
         self.params = model.prepare_dslot(
@@ -353,8 +379,9 @@ class ServeEngine:
         self.calibrated = (not self.dslot) or _dslot_calibrated(self.params)
         self.slo: SloController | None = None if self.cfg.slo is None \
             else SloController(self.n_bits, self.cfg.slo)
-        self.state = model.init_decode_state(self.n_slots, self.max_len,
-                                             device=self.device)
+        with self._split():
+            self.state = model.init_decode_state(self.n_slots, self.max_len,
+                                                 device=self.device)
         self.slot_req: list[Request | None] = [None] * self.n_slots
         self.next_tok = np.zeros(self.n_slots, np.int32)
         self.last_budget: np.ndarray | None = None  # budgets of last decode
@@ -380,13 +407,14 @@ class ServeEngine:
             chunks_per_step=self.cfg.chunks_per_step,
             max_queue=self.cfg.max_queue,
             dslot=self.dslot, calibrated=self.calibrated,
-            injector=self.injector)
+            injector=self.injector, split=self._split)
 
     def _decode(self, tokens: torch.Tensor, budgets: torch.Tensor):
         """The pooled decode forward at per-slot budgets, with its DSLOT
         statistics and a per-slot finite-logits flag.  Writes the KV rings
         in place; returns the new ``pos`` in the state, uncommitted."""
-        with stats_channel.collect() as sink, precision_scope(budgets):
+        with stats_channel.collect() as sink, precision_scope(budgets), \
+                self._split():
             lg, st2 = self.model.decode_step(self.params, self.state, tokens)
         rows = _collapse_rows(sink, self.n_slots)
         bnd = _collapse_bounded(sink)
@@ -645,7 +673,8 @@ class ServeEngine:
         is a bad value, not broken indexing; the quarantine guard catches
         the NaN logits on the next decode step."""
         if self._state_axes is None:
-            self._state_axes = _batch_axes(self.model, self.max_len)
+            with self._split():
+                self._state_axes = _batch_axes(self.model, self.max_len)
 
         def scribble(leaf, ax):
             if ax >= 0 and leaf.is_floating_point():

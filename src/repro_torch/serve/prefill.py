@@ -56,6 +56,7 @@ claimed task completes in the tick it was claimed.
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Any, Callable
@@ -161,6 +162,9 @@ class PrefillPipeline:
     injector: Any = None         # repro_torch.serve.faults.FaultInjector —
                                  # the engine installs its own; consulted
                                  # just before every lane forward
+    split: Callable = contextlib.nullcontext   # the context every lane
+                                 # state and forward runs in (the engine's
+                                 # ``pspec.model_shard`` under a mesh)
 
     def __post_init__(self):
         cap = cache_capacity(self.model.cfg, self.max_len)
@@ -171,14 +175,15 @@ class PrefillPipeline:
             # max_len (try_add validates), so clamping loses nothing.
             self.chunk = cap
         self.lanes = max(1, self.chunks_per_step)
-        self._axes = _batch_axes(self.model, self.max_len)
-        self._lane_state = self.model.init_decode_state(
-            self.lanes, self.max_len, device=self.device)
-        self._fresh = self.model.init_decode_state(1, self.max_len,
-                                                   device=self.device)
+        with self.split():
+            self._axes = _batch_axes(self.model, self.max_len)
+            self._lane_state = self.model.init_decode_state(
+                self.lanes, self.max_len, device=self.device)
+            self._fresh = self.model.init_decode_state(1, self.max_len,
+                                                       device=self.device)
 
     def _extend_lanes(self, tokens, lengths, npl):
-        with precision_scope(npl):
+        with precision_scope(npl), self.split():
             return self.model.extend(self.params, self._lane_state, tokens,
                                      lengths=lengths)
 

@@ -24,7 +24,8 @@ rebuilds full leaves with ``all_gather`` over each sharded axis, a few
 bucketed collectives for the whole tree.  ``model_reads`` is the table of
 how the sharded train step's split compute (``models/pspec.py``
 ``model_shard``) reads each leaf: a leaf it reads only as the rank's
-``model`` slice is gathered over the batch axes alone (``gather_specs``).
+``model`` slice is gathered over the batch axes alone (``gather_specs``),
+and a serving rank stores only what it reads (``model_slice``).
 The rule functions take any mesh with the reference's surface
 (``axis_names`` and ``shape`` by axis name) or a ``DeviceMesh``
 (``mesh_dim_names``), so the rules need no world.
@@ -41,6 +42,7 @@ from repro_torch.tree import map_with_path, tree_map
 
 __all__ = ["PART", "SPLIT", "Shardings", "WHOLE", "batch_pspec", "buckets",
            "gather_specs", "gather_tree", "local_slice", "model_reads",
+           "model_slice",
            "make_batch_shardings", "make_param_shardings",
            "make_state_shardings", "mesh_axes", "param_pspec", "replicated",
            "sanitize_spec", "shard_tree"]
@@ -146,6 +148,38 @@ def gather_specs(specs, reads, mesh):
     return tree_map(
         lambda r, s: P(*(None if e == tp else e for e in s))
         if r == SPLIT else s, reads, specs)
+
+
+def model_slice(mesh, cfg, params):
+    """A serving rank's parameters: what the split compute inside
+    ``pspec.model_shard`` over ``mesh``'s model axis reads of each leaf of
+    a whole ``params`` tree (``model_reads``), each a copy of its own.  A
+    SPLIT leaf is cut to the rank's ``model`` slice, a PART leaf
+    (``wk``/``wv`` under "group" and "repeat") to the columns of the kv
+    heads its q heads read (``attention.kv_part``; the forward reads it
+    under ``pspec.model_shard(..., parts_cut=True)``), a WHOLE leaf is kept
+    as it is.  Nothing is split over the batch axes: every rank of a model
+    slice holds it whole, so a forward gathers no parameter."""
+    from repro_torch.models.attention import kv_part
+
+    _, tp = mesh_axes(mesh)
+    if tp is None or _axis_sizes(mesh)[tp] == 1:
+        return params
+    n, r = _axis_sizes(mesh)[tp], _coords(mesh)[tp]
+    hq = cfg.n_heads // n                     # a PART leaf's rank's q heads
+    reads = model_reads(mesh, cfg, params)
+    specs = make_param_shardings(mesh, params)
+
+    def one(leaf, read, spec):
+        if read == SPLIT:
+            only = P(*(tp if e == tp else None for e in spec))
+            assert tp in only, (spec, leaf.shape)
+            return local_slice(leaf, only, mesh).clone()
+        if read == PART:
+            return kv_part(leaf, cfg, r * hq, hq).clone()
+        return leaf
+
+    return tree_map(one, params, reads, specs)
 
 
 def _path_str(path) -> str:

@@ -149,7 +149,8 @@ class CollectiveClock:
     forward and backward, and the model-axis sums of gradients and of the
     gradient norm).  Pass one to ``make_sharded_train_step`` to time a
     step's collectives inside its own wall; ``None`` times nothing and adds
-    no synchronization."""
+    no synchronization.  A kind it has not seen (a split serving forward's
+    ``model_gather`` and ``model_combine``) gets its own entry."""
 
     def __init__(self):
         self.seconds = {"gather": 0.0, "reduce": 0.0, "model": 0.0}
@@ -164,7 +165,8 @@ class CollectiveClock:
         finally:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-            self.seconds[kind] += time.perf_counter() - t0
+            self.seconds[kind] = self.seconds.get(kind, 0.0) \
+                + time.perf_counter() - t0
 
 
 def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, shardings,

@@ -351,7 +351,11 @@ def test_fake_trace_counts_what_a_cpu_run_does():
     assert ext["memory"]["argument_size_in_bytes"] + \
         ext["memory"]["temp_size_in_bytes"] == whole["peak"]
     mam = res["mamba2-780m decode_32k"][0]
-    assert mam["state_split_over_model"], "the SSM state splits over model"
+    assert mam["state_whole_over_model"], "the SSM state stays whole"
+    assert not mam["state_split_over_model"]
+    olmo = res["olmo-1b decode_32k"][0]
+    assert olmo["state_split_over_model"], "the KV rings split over model"
+    assert not olmo["state_whole_over_model"]
 
 
 # ------------------------------------------------------------ summarize, sweep
