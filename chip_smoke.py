@@ -243,7 +243,22 @@ Phases (any failure exits non-zero and prints no result line):
    "g" sums, head and logit gathers, the attention's max and sum), peak
    memory, the decode forward's dot FLOPs, the EP and collective-matmul
    times; rank 0's kernel time at the shard shapes (16, 2048) and (128,
-   2048) @ (2048, 4096) as in phase 4.
+   2048) @ (2048, 4096) as in phase 4.  Gate (e): the hybrid split engine,
+   phase 8's recurrentgemma-2b with ReLU, non-GLU DSLOT MLPs over the same
+   (1, 2): its RG-LRU mixers split by width (1280 of 2560 channels a rank,
+   ``h`` and conv tail halved), its 10 heads by 5 under "group" over a
+   2048-slot local-attention ring of 1024 slots a rank, its vocab and its
+   DSLOT up-projection's N tiles, on ``HS_REQUESTS`` seeded requests (one
+   prompt of ``HS_LONG_PROMPT`` tokens, past the window) through phase 8's
+   slots, chunk and lanes at ``max_len`` ``HS_MAX_LEN``, with gate (b)'s
+   three runs and rules: the dense f32 copy's streams,
+   ``planes_used_mean`` and logits held to the unsharded f32 engine's, the
+   bf16 DSLOT run's partings counted beside one device's reordering, the
+   DSLOT launches = 26 x forwards; rank 0's decode forward at most
+   ``HS_SPLIT_FLOPS`` of the unsharded forward's dot FLOPs; every rank's
+   recurrent-state bytes exactly half of one device's; the kernel held and
+   timed by rank 0 at the hybrid's shard shapes (16, 2560) and (256, 2560)
+   @ (2560, 3840), ``block_m`` 16.
 
 11. Sharded training (``repro_torch.train.sharding``,
    ``make_sharded_train_step``, ``distributed.compression``,
@@ -273,10 +288,12 @@ Phases (any failure exits non-zero and prints no result line):
    device taking the same batches in M = 4 one-row microbatches: reason at
    ``SH_ELASTIC``).  Over (1, 2) the step splits its compute over the
    model axis (heads, MLP columns and the vocab; ``pspec.model_shard``), so
-   gate (a) there holds the split.  The timed runs: full-width olmo-1b
-   (phase 9's config and data: seq 2048, global batch 8, M = 2) over
-   (2, 1) and over (1, 2), 1 untimed and ``SH_TIMED`` timed steps each, a
-   sharded ``save_async`` after the second timed step of the (2, 1) run;
+   gate (a) there holds the split.  The timed runs: olmo-1b at full width,
+   its first ``SH_TIMED_LAYERS`` of 16 layers (the depth cut that keeps
+   the script within its time limit; phase 9's config and data: seq 2048,
+   global batch 8, M = 2) over (2, 1) and over (1, 2), 1 untimed and
+   ``SH_TIMED`` timed steps each, a
+   sharded ``save_async`` after the first timed step of the (2, 1) run;
    printed per rank: every step's loss, grad_norm, lr, wall and the
    seconds of its own collectives by kind (parameter gather and gradient
    reduce over the batch axis, the split's collectives over the model
@@ -285,8 +302,15 @@ Phases (any failure exits non-zero and prints no result line):
    collective shares, the stored state and the peak memory over the steps,
    and the checkpoint's snapshot and write times.  Gate (d): the untimed
    first (1, 2) step counted by ``op_cost`` on rank 0, its dot FLOPs at most
-   ``SH_SPLIT_FLOPS`` of phase 9's one-device step at the same global
-   batch.  Phase 11 launches no DSLOT kernel (GLU MLPs), and says so.
+   ``SH_SPLIT_FLOPS`` of the same model's step on the card alone at the
+   same global batch (``timed_yardstick``).  Gate (e): mamba2-780m at
+   full width, its first ``MX_LAYERS`` layers in f32, one step over (1,
+   2) with its Mamba2 mixers split by SSD head (24 of 48 a rank; ``w_in``,
+   the conv and the per-head leaves gathered whole and read in part) on
+   ``MX_SMALL`` batches, against the same step on one device on the card
+   by gate (a)'s bounds, rank 0's dot
+   FLOPs (``op_cost``) at most ``SH_SPLIT_FLOPS`` of the one device's.
+   Phase 11 launches no DSLOT kernel (GLU MLPs), and says so.
 12. The launch tools (``repro_torch.launch.op_cost``, ``dryrun``,
    ``roofline``, ``summarize``): (a) one more step of phase 9's program
    after its timed steps, counted by ``op_cost`` on the card: dot FLOPs
@@ -300,19 +324,20 @@ Phases (any failure exits non-zero and prints no result line):
    world through the dry run's CLI in a subprocess: its record (with the
    peak's breakdown), roofline and summarize rows, gate: MODEL/op at least
    ``MODEL_OP_MIN`` (the step's compute split over the model axis).  (b)
-   and (d) run side by side.
+   and (d) need no card: they start side by side as phase 11 starts and
+   run beside it on the host's cores.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
 printed just before that.  The record's ``launches`` counts the kernel
 launches of the driven paths (phase 3's CNN, phase 5's two ``generate``
 runs, phase 6's timed engine run, phase 7's calibrate, sweep and B = 1024
-forward, phase 8's hybrid engine run, and both ranks' timed engine runs in
-phase 10); its times and bound are sums over the fifteen main-path
-launches timed in phases 4-8 and 10 (CNN conv and head; LM encoder,
-prefill and decode; engine decode and admission; trained conv and head at
-B = 80 and B = 1024; hybrid decode and admission; the tensor-parallel
-engine's decode and admission shard launches).
+forward, phase 8's hybrid engine run, and both ranks' timed runs of the
+two split engines in phase 10); its times and bound are sums over the
+seventeen main-path launches timed in phases 4-8 and 10 (CNN conv and
+head; LM encoder, prefill and decode; engine decode and admission; trained
+conv and head at B = 80 and B = 1024; hybrid decode and admission; the
+two split engines' decode and admission shard launches).
 """
 
 from __future__ import annotations
@@ -2597,6 +2622,23 @@ SV_SPLIT_FLOPS = 0.705
 # same function in another order).
 SV_LOGIT_REL = 1e-5
 SV_WITNESS_CHUNK = 128
+# The hybrid split engine: phase 8's recurrentgemma-2b with ReLU, non-GLU
+# DSLOT MLPs over (1, 2): its RG-LRU width 2560 and its 10 heads split in
+# two ("group": one kv head), its 2048-slot local-attention ring 1024
+# slots a rank.  HS_REQUESTS seeded requests, one prompt longer than the
+# window (the split ring's carry window).  Rank 0's decode forward against
+# the unsharded one in op_cost's dot FLOPs, a row a token at 16 rows: the
+# RG-LRU mixers' products (5 x 2560^2 x 2 a layer), the attention's and
+# the tied head (2 x 2560 x 256000) halve; the DSLOT up-projection is
+# opaque and its down-projection (7680 x 2560 x 2) stays whole: ~0.64,
+# where mixers left whole give ~0.79.
+HS_REQUESTS, HS_PROMPT, HS_LONG_PROMPT = 8, 512, 2348
+HS_MAX_LEN = 2560
+HS_KERNEL_ROWS = {"hybrid tp2 decode shard launch": HYBRID_SLOTS,
+                  "hybrid tp2 admission shard launch":
+                  HYBRID_LANES * HYBRID_CHUNK}
+HS_SPLIT_FLOPS = 0.70
+TP_ENGINES = ("olmo", "hybrid")
 CM_SHAPE = (4096, 2048, 8192)   # olmo's up-projection width: (S, K) @ (K, N)
 CM_RTOL = 1e-5                  # of the largest |y|
 
@@ -2772,13 +2814,27 @@ class GatheredIn:
         return out
 
 
-def tp_traffic(vocab: int) -> list[dict]:
-    """Phase 6's traffic rule for ``TP_REQUESTS`` requests (its own seed),
-    with a plane budget from ``TP_BUDGETS`` on every request outside the
-    reserved tier."""
+def tp_traffic(which: str, cfg) -> list[dict]:
+    """The split engine ``which``'s traffic, a plane budget from
+    ``TP_BUDGETS`` on every request outside the reserved tier: for
+    "olmo", phase 6's rule for ``TP_REQUESTS`` requests (its own seed); for
+    "hybrid", ``HS_REQUESTS`` requests with prompts of 16 to ``HS_PROMPT``
+    tokens, one of ``HS_LONG_PROMPT`` (past the window), and 8-16 new
+    tokens, tiers 1 : 2 : 1."""
     import numpy as np
 
-    specs = engine_traffic(TP_REQUESTS, vocab, seed=10)
+    if which == "olmo":
+        specs = engine_traffic(TP_REQUESTS, cfg.vocab_size, seed=10)
+    else:
+        rng = np.random.default_rng(12)
+        tiers = rng.permutation(["reserved", "standard", "standard",
+                                 "degradable"] * (HS_REQUESTS // 4))
+        lens = rng.integers(16, HS_PROMPT + 1, HS_REQUESTS)
+        lens[1] = HS_LONG_PROMPT
+        specs = [dict(uid=i, tier=str(tiers[i]),
+                      prompt=rng.integers(0, cfg.vocab_size, int(lens[i]))
+                      .astype(np.int32), max_new=int(rng.integers(8, 17)))
+                 for i in range(HS_REQUESTS)]
     rng = np.random.default_rng(11)
     for s in specs:
         if s["tier"] != "reserved":
@@ -2786,33 +2842,49 @@ def tp_traffic(vocab: int) -> list[dict]:
     return specs
 
 
-def tp_olmo(dev):
-    """Phase 6's model (olmo-1b with a ReLU, non-GLU MLP) without DSLOT:
-    its config, the dense model and its weights from seed 0."""
+def tp_base(which: str, dev):
+    """The split engine ``which``'s model without DSLOT -- "olmo": phase
+    6's olmo-1b, "hybrid": phase 8's recurrentgemma-2b, each with a ReLU,
+    non-GLU MLP: its config, the dense model and its weights from seed
+    0."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model_zoo import build_model
 
-    base = dataclasses.replace(get_arch(ENGINE_ARCH), act="relu", glu=False)
+    arch = ENGINE_ARCH if which == "olmo" else HYBRID_ARCH
+    base = dataclasses.replace(get_arch(arch), act="relu", glu=False)
     dense = build_model(base)
     return base, dense, dense.init(torch.Generator(dev).manual_seed(0),
                                    device=dev)
 
 
-def tp_engine_model(base, scale):
-    """Phase 6's DSLOT model (the kernel at ``block_m`` 16, act_scale
-    ``scale``) and serving config."""
+def tp_engine_model(which: str, base, scale):
+    """The split engine ``which``'s DSLOT model (the kernel at ``block_m``
+    16, act_scale ``scale``) and serving config: phase 6's for "olmo",
+    phase 8's slots, chunk and lanes at ``HS_MAX_LEN`` for "hybrid"."""
     from repro_torch.configs.base import DslotConfig
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serve import ServeConfig, SloConfig
 
+    if which == "olmo":
+        geo = (ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_CHUNK, ENGINE_LANES)
+    else:
+        geo = (HYBRID_SLOTS, HS_MAX_LEN, HYBRID_CHUNK, HYBRID_LANES)
     cfg = dataclasses.replace(base, dslot=DslotConfig(
-        enabled=True, block_m=ENGINE_SLOTS, block_n=128, block_k=None,
+        enabled=True, block_m=geo[0], block_n=128, block_k=None,
         act_scale=scale))
-    scfg = ServeConfig(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
-                       prefill_chunk=ENGINE_CHUNK,
-                       chunks_per_step=ENGINE_LANES,
-                       slo=SloConfig(**ENGINE_SLO))
+    scfg = ServeConfig(n_slots=geo[0], max_len=geo[1], prefill_chunk=geo[2],
+                       chunks_per_step=geo[3], slo=SloConfig(**ENGINE_SLO))
     return cfg, build_model(cfg), scfg
+
+
+def recurrent_bytes(state) -> int:
+    """The bytes of a decode state's recurrent states (``SSMState``,
+    ``RGLRUState``)."""
+    from repro_torch.models.rglru import RGLRUState
+    from repro_torch.models.ssm import SSMState
+
+    return sum(t.numel() * t.element_size() for node in state["caches"]
+               if isinstance(node, (SSMState, RGLRUState)) for t in node)
 
 
 def streams(run) -> list:
@@ -2953,12 +3025,15 @@ def split_run(eng, specs, dev) -> dict:
                 done=all(r.phase == "done" for r in run["reqs"]),
                 faults=(eng.errors, eng.quarantined, eng.timeouts),
                 tokens=run["tokens"], seconds=run["seconds"],
-                steps=run["run_steps"], rings=ring_slots(eng.state))
+                steps=run["run_steps"], rings=ring_slots(eng.state),
+                state_bytes=recurrent_bytes(eng.state))
 
 
-def tp_engine(rank, mesh, dev, spec) -> dict:
-    """Gate (b) on this rank: the tensor-parallel ``ServeEngine``.  A
-    warm-up on 6 requests traces one forward of each kind; the gate run, on
+def tp_engine(rank, mesh, dev, spec, which: str) -> dict:
+    """Gate (b) (``which`` "olmo") or (e) ("hybrid") on this rank: the
+    tensor-parallel ``ServeEngine``.  A warm-up on 6 requests of at most
+    4 new tokens (none of ``HS_LONG_PROMPT`` tokens) traces one forward of
+    each kind; the gate run, on
     ``gate_copy``, times the model-axis collectives by kind
     (``CollectiveClock``, which synchronizes the card around each); the
     timed bf16 run, without that clock, counts this rank's launches and
@@ -2972,15 +3047,19 @@ def tp_engine(rank, mesh, dev, spec) -> dict:
     from repro_torch.serve import ServeEngine
     from repro_torch.train.step import CollectiveClock
 
-    base, _, params = tp_olmo(dev)
-    cfg, model, scfg = tp_engine_model(base, spec["act_scale"])
+    base, _, params = tp_base(which, dev)
+    cfg, model, scfg = tp_engine_model(which, base,
+                                       spec[which]["act_scale"])
     scfg = dataclasses.replace(scfg, mesh=mesh)
-    specs = spec["traffic"]
+    specs = spec[which]["traffic"]
+    kernel_rows = TP_KERNEL_ROWS if which == "olmo" else HS_KERNEL_ROWS
     warm = ServeEngine(model, params, scfg)
     warm._decode = Timed(warm._decode, dev, trace_at=3)
     warm.pipeline._extend_lanes = Timed(warm.pipeline._extend_lanes, dev,
                                         trace_at=3)
-    drive_engine(warm, specs[:6], dev, n_first=6, idle_max=0)
+    short = [dict(s, max_new=min(s["max_new"], 4)) for s in specs
+             if len(s["prompt"]) < HS_LONG_PROMPT][:6]
+    drive_engine(warm, short, dev, n_first=len(short), idle_max=0)
     traces = {"decode forward": warm._decode.trace,
               "admission forward": warm.pipeline._extend_lanes.trace}
     del warm
@@ -3012,7 +3091,7 @@ def tp_engine(rank, mesh, dev, spec) -> dict:
 
     def capture(*args):
         rows = args[0].shape[0]
-        if rows in TP_KERNEL_ROWS.values() and rows not in captured:
+        if rows in kernel_rows.values() and rows not in captured:
             captured[rows] = args
         return orig_run(*args)
 
@@ -3037,7 +3116,7 @@ def tp_engine(rank, mesh, dev, spec) -> dict:
     if rank == 0:
         shard = dataclasses.replace(cfg, d_ff=cfg.d_ff // TP_RANKS)
         out["max_err"], out["times"] = hold_engine_shapes(
-            captured, TP_KERNEL_ROWS, shard, dev, spec["card"])
+            captured, kernel_rows, shard, dev, spec["card"])
     dist.barrier()
     return out
 
@@ -3131,7 +3210,7 @@ def tp_matmul(rank, mesh, dev) -> dict:
 
 
 def phase10_rank(rank, spec) -> dict:
-    """One rank of phase 10 (gates (a)-(d)); every rank runs the same
+    """One rank of phase 10 (gates (a)-(e)); every rank runs the same
     program on the shared card."""
     from repro_torch.launch.mesh import make_test_mesh
 
@@ -3144,9 +3223,12 @@ def phase10_rank(rank, spec) -> dict:
     t0 = time.perf_counter()
     out = {"execute_err": tp_execute(rank, mesh, dev)}
     out["execute_s"] = time.perf_counter() - t0
-    out["engine"] = tp_engine(rank, mesh, dev, spec)
-    gc.collect()
-    torch.cuda.empty_cache()
+    for which in TP_ENGINES:
+        t0 = time.perf_counter()
+        out[which] = tp_engine(rank, mesh, dev, spec, which)
+        out[which]["world_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
     out["moe"] = tp_moe(rank, mesh, dev, spec["card"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -3154,32 +3236,25 @@ def phase10_rank(rank, spec) -> dict:
     return out
 
 
-def phase10(card, dev):
-    """Tensor- and expert-parallel serving over ``TP_RANKS`` ranks on this
-    one card.  Returns (the ranks' kernel launches on the engine run, max
-    abs error, rank 0's shard-shape times)."""
-    from repro_torch.kernels import _build
-    from repro_torch.launch.mesh import run_world
+def split_plain(which: str, dev, card) -> tuple[dict, dict]:
+    """The unsharded engine ``which`` on this card with the split run's
+    weights, act_scale and traffic: in bf16, again walking the admission's
+    keys in ``SV_WITNESS_CHUNK`` chunks, and on gate (b)'s f32 copy, each
+    sampled token's top-2 margin kept; the bf16 engine's decode dot FLOPs
+    and recurrent-state bytes.  Returns (those runs, what the ranks need:
+    the act_scale and the traffic)."""
     from repro_torch.serve import ServeEngine
 
-    _build.build("dslot_matmul")     # built once here; every rank loads it
-    log(f"  world: {TP_RANKS} ranks sharing {TP_DEVICE} over {TP_BACKEND} (one "
-        f"card, and NCCL needs a device per rank), collective timeout "
-        f"{TP_TIMEOUT} s")
-    # the unsharded engine on this card: same weights, scale and traffic,
-    # in bf16, again walking the admission's keys in SV_WITNESS_CHUNK
-    # chunks, and on gate (b)'s f32 copy; each sampled token's top-2
-    # margin kept
-    base, dense, params = tp_olmo(dev)
+    base, dense, params = tp_base(which, dev)
     scale = calibrated_act_scale(dense, params, base.vocab_size, dev)
-    cfg, model, scfg = tp_engine_model(base, scale)
-    specs = tp_traffic(cfg.vocab_size)
+    cfg, model, scfg = tp_engine_model(which, base, scale)
+    specs = tp_traffic(which, cfg)
     plain = {}
     for kind in ("bf16", "witness", "f32"):
         if kind == "bf16":
             eng = ServeEngine(model, params, scfg)
         elif kind == "witness":
-            eng = ServeEngine(tp_engine_model(dataclasses.replace(
+            eng = ServeEngine(tp_engine_model(which, dataclasses.replace(
                 base, attn_chunk=SV_WITNESS_CHUNK), scale)[1], params, scfg)
         else:
             model32, params32 = gate_copy(base, params)
@@ -3189,8 +3264,10 @@ def phase10(card, dev):
         run = drive_engine(eng, specs, dev, n_first=len(specs))
         plain[kind] = dict(streams=streams(run), margins=margins.by_uid())
         if kind == "bf16":
-            plain_flops = decode_dot_flops(eng, dev)
-        log(f"  unsharded engine ({kind}), {TP_REQUESTS} requests (budgets "
+            plain["flops"] = decode_dot_flops(eng, dev)
+            plain["state_bytes"] = recurrent_bytes(eng.state)
+        log(f"  [{which}] unsharded engine ({kind}), {len(specs)} requests "
+            f"(prompts {sorted(len(s['prompt']) for s in specs)}, budgets "
             f"{[s.get('n_planes', 8) for s in specs]}): {run['tokens']} "
             f"tokens in {run['seconds']:.2f} s, "
             f"{run['tokens'] / run['seconds']:.1f} tokens/s, "
@@ -3199,115 +3276,172 @@ def phase10(card, dev):
         gc.collect()
         torch.cuda.empty_cache()
     del params, model, dense
-    witness, _ = split_partings(specs, plain["witness"]["streams"],
-                                plain["bf16"])
-    log(f"  one device, the admission's keys in {SV_WITNESS_CHUNK}-key "
-        f"chunks: {len(specs) - len(witness)} of {len(specs)} bf16 streams "
-        f"equal to the first run's; parted (uid, token, margin): "
-        f"{[(u, j, round(m, 6)) for u, j, m in witness]} [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain["witness_parted"], _ = split_partings(
+        specs, plain["witness"]["streams"], plain["bf16"])
+    log(f"  [{which}] one device, the admission's keys in "
+        f"{SV_WITNESS_CHUNK}-key chunks: "
+        f"{len(specs) - len(plain['witness_parted'])} of {len(specs)} bf16 "
+        f"streams equal to the first run's; parted (uid, token, margin): "
+        f"{[(u, j, round(m, 6)) for u, j, m in plain['witness_parted']]} "
+        f"[{card}]")
+    return plain, dict(act_scale=scale, traffic=specs)
 
-    t0 = time.perf_counter()
-    res = run_world(phase10_rank, TP_RANKS, backend=TP_BACKEND,
-                    device=TP_DEVICE, timeout=TP_TIMEOUT, deadline=TP_DEADLINE,
-                    args=(dict(card=card, act_scale=scale, traffic=specs),))
-    log(f"  the world of {TP_RANKS} ranks ran in "
-        f"{time.perf_counter() - t0:.1f} s (gate (a) "
-        f"{res[0]['execute_s']:.1f} s of it)")
-    max_err = max(r["execute_err"] for r in res)
+
+def hold_split_engine(which: str, res: list, plain: dict, specs: list,
+                      card) -> int:
+    """Gates (b) ("olmo") or (e) ("hybrid") on the ranks' runs of the split
+    engine ``which`` against ``split_plain``'s, and its log.  Returns the
+    ranks' kernel launches in the timed runs."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.attention import cache_capacity
+
+    gate = "(b)" if which == "olmo" else "(e)"
+    limit = SV_SPLIT_FLOPS if which == "olmo" else HS_SPLIT_FLOPS
+    max_len = ENGINE_MAX_LEN if which == "olmo" else HS_MAX_LEN
+    arch = get_arch(ENGINE_ARCH if which == "olmo" else HYBRID_ARCH)
+    ring = cache_capacity(arch, max_len)
+    slots = ring // TP_RANKS
     launches = 0
-    slots = ENGINE_MAX_LEN // TP_RANKS
+    log(f"  [{which}] the split engine ran {res[0][which]['world_s']:.1f} s "
+        f"on rank 0 (warm-up, gate run, timed run, kernel holds)")
     for rank, r in enumerate(res):
-        e = r["engine"]
+        e = r[which]
         for kind, run in (("f32", e["gate"]), ("bf16", e)):
             # f32: gate_copy, held; bf16: the DSLOT model, counted
             if not run["done"] or any(run["faults"]):
-                raise AssertionError(f"rank {rank} ({kind}): requests not "
-                                     f"done or faults {run['faults']}")
+                raise AssertionError(f"[{which}] rank {rank} ({kind}): "
+                                     f"requests not done or faults "
+                                     f"{run['faults']}")
             if run["launches"] != run["expected"]:
-                raise AssertionError(f"rank {rank} ({kind}): "
+                raise AssertionError(f"[{which}] rank {rank} ({kind}): "
                                      f"{run['launches']} kernel launches, "
                                      f"expected {run['expected']}")
-            if not run["rings"] or any(ring != ("KVShard", slots)
-                                       for ring in run["rings"]):
-                raise AssertionError(f"rank {rank} ({kind}): KV rings "
-                                     f"{run['rings']}, expected KVShard of "
-                                     f"{slots} slots each")
+            if not run["rings"] or any(rg != ("KVShard", slots)
+                                       for rg in run["rings"]):
+                raise AssertionError(f"[{which}] rank {rank} ({kind}): KV "
+                                     f"rings {run['rings']}, expected "
+                                     f"KVShard of {slots} slots each")
             parted, planes = split_partings(specs, run["streams"],
                                             plain[kind])
             if kind == "f32" and planes:
-                raise AssertionError(f"rank {rank}: requests {planes}' "
-                                     f"planes_used_mean differ from the "
-                                     f"unsharded f32 engine's")
+                raise AssertionError(f"[{which}] rank {rank}: requests "
+                                     f"{planes}' planes_used_mean differ "
+                                     f"from the unsharded f32 engine's")
             for uid, j, margin in parted:
-                log(f"  [rank {rank}] {kind} request {uid}: stream differs "
-                    f"from the unsharded engine's at token {j}, where the "
-                    f"unsharded run's top-2 logit margin is {margin:.4g} of "
-                    f"the row's largest |logit|"
+                log(f"  [{which}] [rank {rank}] {kind} request {uid}: "
+                    f"stream differs from the unsharded engine's at token "
+                    f"{j}, where the unsharded run's top-2 logit margin is "
+                    f"{margin:.4g} of the row's largest |logit|"
                     + (f" (accepted only within {SV_LOGIT_REL:.4g})"
                        if kind == "f32" else " (counted, not held)"))
                 if kind == "f32" and not margin <= SV_LOGIT_REL:
                     raise AssertionError(
-                        f"rank {rank}: request {uid}'s f32 token stream "
-                        f"differs from the unsharded engine's at a margin "
-                        f"of {margin:.4g}, past {SV_LOGIT_REL:.4g}")
+                        f"[{which}] rank {rank}: request {uid}'s f32 token "
+                        f"stream differs from the unsharded engine's at a "
+                        f"margin of {margin:.4g}, past {SV_LOGIT_REL:.4g}")
             run["parted"], run["planes"] = len(parted), len(planes)
         g = e["gate"]
         drift, at = logit_drift(specs, g, plain["f32"])
         if not drift <= SV_LOGIT_REL:
-            raise AssertionError(f"rank {rank}: request {at}'s f32 logits "
-                                 f"differ from the unsharded engine's by "
-                                 f"{drift:.4g} of the row's largest, past "
+            raise AssertionError(f"[{which}] rank {rank}: request {at}'s f32 "
+                                 f"logits differ from the unsharded engine's "
+                                 f"by {drift:.4g} of the row's largest, past "
                                  f"{SV_LOGIT_REL:.4g}")
-        share = e["decode_flops"] / plain_flops
-        if rank == 0 and share > SV_SPLIT_FLOPS:
-            raise AssertionError(f"rank 0's decode forward takes {share:.4f} "
-                                 f"of the unsharded forward's dot FLOPs "
-                                 f"(limit {SV_SPLIT_FLOPS})")
+        share = e["decode_flops"] / plain["flops"]
+        if rank == 0 and share > limit:
+            raise AssertionError(f"[{which}] rank 0's decode forward takes "
+                                 f"{share:.4f} of the unsharded forward's dot "
+                                 f"FLOPs (limit {limit})")
+        # a rank's recurrent states: its half of the RG-LRU's width (the
+        # hybrid's mixers carry no B/C conv tail)
+        if e["state_bytes"] * TP_RANKS != plain["state_bytes"]:
+            raise AssertionError(f"[{which}] rank {rank} holds "
+                                 f"{e['state_bytes']} recurrent-state bytes, "
+                                 f"one device {plain['state_bytes']}")
         launches += e["launches"]
-        max_err = max(max_err, e["max_err"])
-        log(f"  [rank {rank}] gate run (f32, dense ReLU MLP): {g['tokens']} "
-            f"tokens in {g['seconds']:.2f} s under the collective clock, "
-            f"{g['steps']} steps; {len(specs) - g['parted']} of "
-            f"{len(specs)} streams and their planes_used_mean equal to the "
-            f"unsharded f32 engine's, each sampled row's two largest logits "
-            f"within {drift:.3g} of its largest |logit| (limit "
-            f"{SV_LOGIT_REL:.3g}); model-axis collectives: " + ", ".join(
+        log(f"  [{which}] [rank {rank}] gate {gate} run (f32, dense ReLU "
+            f"MLP): {g['tokens']} tokens in {g['seconds']:.2f} s under the "
+            f"collective clock, {g['steps']} steps; "
+            f"{len(specs) - g['parted']} of {len(specs)} streams and their "
+            f"planes_used_mean equal to the unsharded f32 engine's, each "
+            f"sampled row's two largest logits within {drift:.3g} of its "
+            f"largest |logit| (limit {SV_LOGIT_REL:.3g}); model-axis "
+            f"collectives: " + ", ".join(
                 f"{k} {v:.3f} s" for k, v in sorted(g["model_s"].items())
                 if k.startswith("model"))
             + f" of {g['seconds']:.2f} s [{card}]")
-        log(f"  [rank {rank}] engine (bf16, timed without the clock): "
-            f"{e['tokens']} tokens in {e['seconds']:.2f} s, "
+        log(f"  [{which}] [rank {rank}] engine (bf16, timed without the "
+            f"clock): {e['tokens']} tokens in {e['seconds']:.2f} s, "
             f"{e['tokens'] / e['seconds']:.1f} tokens/s, {e['steps']} steps; "
             f"{e['launches']} kernel launches (layers x forwards = "
             f"{e['expected']}); {len(specs) - e['parted']} of {len(specs)} "
             f"streams equal to the unsharded bf16 engine's ({e['planes']} of "
             f"those with another planes_used_mean; one device in "
-            f"{SV_WITNESS_CHUNK}-key chunks: {len(specs) - len(witness)}); "
-            f"peak memory {e['peak_gb']:.2f} GB [{card}]")
-        log(f"  [rank {rank}] split: {len(e['rings'])} KV rings of "
-            f"{slots} slots each (KVShard, of {ENGINE_MAX_LEN}); decode "
-            f"forward {e['decode_flops']:.6e} dot FLOPs, {share:.4f} of the "
-            f"unsharded forward's {plain_flops:.6e} [{card}]")
+            f"{SV_WITNESS_CHUNK}-key chunks: "
+            f"{len(specs) - len(plain['witness_parted'])}); peak memory "
+            f"{e['peak_gb']:.2f} GB [{card}]")
+        log(f"  [{which}] [rank {rank}] split: {len(e['rings'])} KV rings of "
+            f"{slots} slots each (KVShard, of {ring}); recurrent states "
+            f"{e['state_bytes']} bytes, one device's {plain['state_bytes']}; "
+            f"decode forward {e['decode_flops']:.6e} dot FLOPs, {share:.4f} "
+            f"of the unsharded forward's {plain['flops']:.6e} (limit "
+            f"{limit}) [{card}]")
         for label, key in (("decode forward", "decode_walls"),
                            ("admission forward", "admission_walls")):
-            log_forward(f"[rank {rank}] {label} [{card}]", e[key],
+            log_forward(f"[{which}] [rank {rank}] {label} [{card}]", e[key],
                         e["traces"][label], "the warm-up's third call")
         for (rows, dt), ms in sorted(e["gathers"].items()):
             ms = sorted(ms)
-            log(f"  [rank {rank}] all_gather of ({rows}, ...) {dt}: median "
-                f"{ms[len(ms) // 2]:.3f} ms (min {ms[0]:.3f}, max "
-                f"{ms[-1]:.3f}, {len(ms)} calls in the timed run) [{card}]")
+            log(f"  [{which}] [rank {rank}] all_gather of ({rows}, ...) "
+                f"{dt}: median {ms[len(ms) // 2]:.3f} ms (min {ms[0]:.3f}, "
+                f"max {ms[-1]:.3f}, {len(ms)} calls in the timed run) "
+                f"[{card}]")
         for label in ("decode", "admission"):
             # each forward's gathers against that forward's own wall
             walls, ms = e[f"{label}_walls"], e[f"{label}_gathers"]
             share = sorted(g / w for g, w in zip(ms, walls))
             ms = sorted(ms)
-            log(f"  [rank {rank}] all_gather per {label} forward "
-                f"({e['layers']} layers x 2 gathers, in the timed run): "
-                f"median {ms[len(ms) // 2]:.2f} ms, share of the same "
-                f"forward's wall median {share[len(share) // 2]:.3f} (min "
+            log(f"  [{which}] [rank {rank}] DSLOT all_gather per {label} "
+                f"forward ({e['layers']} layers, in the timed run): median "
+                f"{ms[len(ms) // 2]:.2f} ms, share of the same forward's "
+                f"wall median {share[len(share) // 2]:.3f} (min "
                 f"{share[0]:.3f}, max {share[-1]:.3f}, {len(share)} "
                 f"forwards) [{card}]")
+    return launches
+
+
+def phase10(card, dev):
+    """Tensor- and expert-parallel serving over ``TP_RANKS`` ranks on this
+    one card.  Returns (the ranks' kernel launches on the engine runs, max
+    abs error, rank 0's shard-shape times)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_world
+
+    _build.build("dslot_matmul")     # built once here; every rank loads it
+    log(f"  world: {TP_RANKS} ranks sharing {TP_DEVICE} over {TP_BACKEND} (one "
+        f"card, and NCCL needs a device per rank), collective timeout "
+        f"{TP_TIMEOUT} s")
+    spec, plain = {"card": card}, {}
+    for which in TP_ENGINES:
+        plain[which], spec[which] = split_plain(which, dev, card)
+
+    t0 = time.perf_counter()
+    res = run_world(phase10_rank, TP_RANKS, backend=TP_BACKEND,
+                    device=TP_DEVICE, timeout=TP_TIMEOUT, deadline=TP_DEADLINE,
+                    args=(spec,))
+    log(f"  the world of {TP_RANKS} ranks ran in "
+        f"{time.perf_counter() - t0:.1f} s (gate (a) "
+        f"{res[0]['execute_s']:.1f} s of it)")
+    max_err = max(max(r["execute_err"], *(r[w]["max_err"]
+                                          for w in TP_ENGINES)) for r in res)
+    launches, times = 0, []
+    for which in TP_ENGINES:
+        launches += hold_split_engine(which, res, plain[which],
+                                      spec[which]["traffic"], card)
+        times += res[0][which]["times"]
+    for rank, r in enumerate(res):
         m, c = r["moe"], r["matmul"]
         log(f"  [rank {rank}] expert parallel {EP_ARCH} ({EP_BATCH} x "
             f"{EP_SEQ} tokens): max |y - dense| {m['err']:.3g} (|y| up to "
@@ -3321,7 +3455,7 @@ def phase10(card, dev):
             f"{c['err_plain']:.3g}); ring {c['ring_ms']:.3f} ms, all-gather "
             f"lowering {c['plain_ms']:.3f} ms, the rank's product alone "
             f"{c['local_ms']:.3f} ms [{card}]")
-    return launches, max_err, res[0]["engine"]["times"]
+    return launches, max_err, times
 
 
 # ------------------------------------------------------------ phase 11
@@ -3333,10 +3467,11 @@ SH_TIMEOUT = 600                # seconds a collective may wait for a peer
 SH_DEADLINE = 900               # seconds the whole world may take
 SH_MESHES = ((2, 1), (1, 2))    # gate (a): (data, model)
 SH_AXES = ("data", "model")
-SH_TIMED = 3                    # timed steps after one untimed step
+SH_TIMED = 2                    # timed steps after one untimed step
+SH_TIMED_LAYERS = 8             # the timed runs' depth: olmo-1b's first 8 of 16
 SH_TIMED_MESHES = ((2, 1), (1, 2))
 SH_SPLIT_FLOPS = 0.6            # gate (d): (1, 2) rank 0 / one device
-SH_CKPT_AFTER = 2               # sharded save_async after this timed step
+SH_CKPT_AFTER = 1               # sharded save_async after this timed step
 SH_ELASTIC = dict(n_steps=8, fail_at=4, lost_nodes=1, ckpt_every=3)
 # Gate (b) holds the restart apart from the reordering.  The run's first
 # steps take each rank's rows one at a time (one row a microbatch on a
@@ -3351,6 +3486,13 @@ SH_ELASTIC = dict(n_steps=8, fail_at=4, lost_nodes=1, ckpt_every=3)
 # losses before the failure within TRAIN_LOSS_RTOL and its final parameters
 # within 2 lr anywhere, with the firm difference and the M = 4 drift
 # printed beside each other.
+# Gate (e): mamba2-780m at full width, 8 of its 48 layers (two remat
+# groups of 4), f32, one step over (1, 2) against one device by gate (a)'s
+# bounds.  Over (1, 2) its 48 SSD heads and its vocab of 50280 split in
+# two; the B/C and dt columns of w_in (304 of 6448) stay on both ranks:
+# rank 0's dot FLOPs ~0.51 of one device's, within SH_SPLIT_FLOPS.
+MX_ARCH, MX_LAYERS = "mamba2-780m", 8
+MX_SMALL = (4, 512)             # global batch, sequence: 2 SSD chunks of 256
 SH_EF_REL = 1e-6                # gate (c): error feedback, of a leaf's largest
 SH_INT8_RATIO = 0.3             # gate (c): the reference test's bound
 
@@ -3376,6 +3518,67 @@ def small_train_setup(dev):
     batches = [pipe.next_host_batch()
                for _ in range(SH_ELASTIC["n_steps"])]
     return cfg, model, state, batches
+
+
+def mixer_setup(dev):
+    """Gate (e)'s model: ``MX_ARCH`` at full width with ``MX_LAYERS``
+    layers in f32, its state from a seeded generator on ``dev`` (each
+    process draws the same one) and one batch (``MX_SMALL``, M = 2)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.step import init_train_state
+
+    cfg = dataclasses.replace(get_arch(MX_ARCH), n_layers=MX_LAYERS,
+                              dtype="float32")
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator(dev).manual_seed(2),
+                             device=dev)
+    B, S = MX_SMALL
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=S, global_batch=B,
+                         microbatches=2, seed=4)
+    return model, state, pipe.next_host_batch()
+
+
+def sh_mixer(rank, dev) -> dict:
+    """Gate (e) in a rank: one step of ``mixer_setup``'s model over (1,
+    ``SH_RANKS``), its mixers split over the model axis; rank 0 counts it
+    with ``op_cost`` and returns the gathered parameters."""
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models import pspec
+    from repro_torch.train.sharding import gather_tree, shard_tree
+    from repro_torch.train.step import make_sharded_train_step
+
+    model, full, batch = mixer_setup(dev)
+    mesh = make_mesh((1, SH_RANKS), SH_AXES)
+    pspec.set_mesh(mesh)
+    try:
+        ssh, bsh = sharded_setup(mesh, full, batch)
+        state = shard_tree(full, ssh.specs, mesh)
+        del full
+        step = make_sharded_train_step(model, train_opt(TRAIN_TIMED + 2),
+                                       ssh)
+        local = to_device(make_global_batch(mesh, batch, bsh), dev)
+        cost = OpCost() if rank == 0 else contextlib.nullcontext()
+        sync(dev)
+        t0 = time.perf_counter()
+        with cost:
+            state, m = step(state, local)
+        sync(dev)
+        out = {"metrics": {k: float(v) for k, v in m.items()},
+               "seconds": time.perf_counter() - t0}
+        params = gather_tree(state.params, ssh.specs.params, mesh)
+        if rank == 0:
+            out["dot_flops"] = cost.totals()["dot_flops"]
+            out["params"] = host_params(state._replace(params=params))
+    finally:
+        pspec.set_mesh(None)
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def clone_state(state):
@@ -3521,28 +3724,36 @@ def sh_elastic(rank, dev, model, state0, batches, lr) -> dict:
     return out
 
 
+def timed_model():
+    """The timed runs' model: olmo-1b at full width, its first
+    ``SH_TIMED_LAYERS`` layers."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model_zoo import build_model
+
+    return build_model(dataclasses.replace(get_arch(TRAIN_ARCH),
+                                           n_layers=SH_TIMED_LAYERS))
+
+
 def sh_timed(rank, dev, card, shape) -> dict:
-    """A timed run in a rank: full-width olmo-1b over ``shape``, phase 9's
+    """A timed run in a rank: ``timed_model`` over ``shape``, phase 9's
     data; per step its wall and the seconds of its own collectives by kind;
     over (2, 1) one sharded save_async; over a split model axis the
     untimed first step counted by ``op_cost`` on rank 0 (its dot FLOPs)."""
     import shutil
 
     from repro_torch.checkpoint.checkpointer import Checkpointer
-    from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import TokenPipeline, make_global_batch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.op_cost import OpCost
     from repro_torch.models import pspec
-    from repro_torch.models.model_zoo import build_model
     from repro_torch.optim.adamw import schedule
     from repro_torch.train.sharding import shard_tree
     from repro_torch.train.step import (CollectiveClock, init_train_state,
                                         make_sharded_train_step)
     from repro_torch.tree import leaves
 
-    cfg = get_arch(TRAIN_ARCH)
-    model = build_model(cfg)
+    model = timed_model()
+    cfg = model.cfg
     mesh = make_mesh(shape, SH_AXES)
     pspec.set_mesh(mesh)
     total = SH_TIMED + 1
@@ -3635,7 +3846,7 @@ def sh_timed(rank, dev, card, shape) -> dict:
 
 
 def phase11_rank(rank, spec) -> dict:
-    """One rank of phase 11: gates (a) and (b), then the timed run."""
+    """One rank of phase 11: gates (a), (b) and (e), then the timed run."""
     from repro_torch.kernels import dslot_matmul as dm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3651,6 +3862,7 @@ def phase11_rank(rank, spec) -> dict:
     del state0
     gc.collect()
     torch.cuda.empty_cache()
+    out["gate_e"] = sh_mixer(rank, dev)
     out["timed"], out["timed_s"] = {}, {}
     for shape in SH_TIMED_MESHES:
         t0 = time.perf_counter()
@@ -3676,13 +3888,14 @@ def log_timed(rank, shape, t, base, tokens, single_tps, card) -> None:
             f"{x['wall_ms']:.1f} ms, collectives {x['coll_ms']:.1f} ms "
             f"(gather {x['gather_ms']:.1f}, reduce {x['reduce_ms']:.1f}, "
             f"model {x['model_ms']:.1f})" + (" untimed" if k == 1 else ""))
-    log(f"  [rank {rank}] {TRAIN_ARCH} full width ({t['n_params'] / 1e9:.4f}"
-        f" B parameters, {base.dtype}, remat {base.remat}, scan_unroll "
-        f"{base.scan_unroll}) over {shape}, {tokens} tokens a step: step "
-        f"wall median {med:.1f} ms, min {walls[0]:.1f}, max {walls[-1]:.1f} "
-        f"over {len(walls)} steps; {tokens / (med / 1e3):.0f} tokens/s of "
-        f"the world (phase 9, one rank alone on this card: "
-        f"{single_tps:.0f}); collectives {share('coll_ms'):.3f} of the "
+    log(f"  [rank {rank}] {TRAIN_ARCH} full width, {base.n_layers} layers "
+        f"({t['n_params'] / 1e9:.4f} B parameters, {base.dtype}, remat "
+        f"{base.remat}, scan_unroll {base.scan_unroll}) over {shape}, "
+        f"{tokens} tokens a step: step wall median {med:.1f} ms, min "
+        f"{walls[0]:.1f}, max {walls[-1]:.1f} over {len(walls)} steps; "
+        f"{tokens / (med / 1e3):.0f} tokens/s of the world (phase 9, one "
+        f"rank alone on this card at all 16 layers: {single_tps:.0f}); "
+        f"collectives {share('coll_ms'):.3f} of the "
         f"step's own wall (median; gather {share('gather_ms'):.3f}, reduce "
         f"{share('reduce_ms'):.3f}, model {share('model_ms'):.3f}); stored "
         f"state {t['stored_gb']:.2f} GB, peak memory over the steps "
@@ -3758,12 +3971,34 @@ def tree_scale(tree, s):
     return tree_map(lambda a: a * s, tree)
 
 
-def phase11(card, dev, single_tps: float, single_flops: float) -> None:
+def timed_yardstick(dev) -> float:
+    """Gate (d)'s yardstick: the dot FLOPs ``op_cost`` counts in one step
+    of ``timed_model`` on this card alone, at the timed runs' global batch
+    (phase 9's data)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    model = timed_model()
+    state = init_train_state(model, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    pipe = TokenPipeline(vocab=model.cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, microbatches=TRAIN_MICRO)
+    cost = OpCost()
+    with cost:
+        make_train_step(model, train_opt(SH_TIMED + 1))(
+            state, to_device(pipe.next_host_batch(), dev))
+    sync(dev)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cost.totals()["dot_flops"]
+
+
+def phase11(card, dev, single_tps: float) -> None:
     """Sharded training over ``SH_RANKS`` ranks on this one card (see the
     module docstring): the single-device yardsticks and gate (c) here, then
-    the world.  ``single_tps``: phase 9's tokens/s, for the log;
-    ``single_flops``: the dot FLOPs of phase 9's counted step (gate (d))."""
-    from repro_torch.configs.registry import get_arch
+    the world.  ``single_tps``: phase 9's tokens/s, for the log."""
     from repro_torch.launch.mesh import run_world
     from repro_torch.train.step import make_train_step, microbatch_grads
     from repro_torch.tree import leaves
@@ -3800,6 +4035,29 @@ def phase11(card, dev, single_tps: float, single_flops: float) -> None:
     del state, state0, first
     gc.collect()
     torch.cuda.empty_cache()
+    # gate (e)'s yardstick: the mixer model's step on one device, counted
+    from repro_torch.launch.op_cost import OpCost
+
+    mx_model, mx_state, mx_batch = mixer_setup(dev)
+    mx_first = to_device(mx_batch, dev)
+    g0, _, _ = microbatch_grads(mx_model, mx_state.params, mx_first)
+    mx_firm = [a.abs().cpu().numpy() for a in leaves(g0)]
+    del g0
+    cost = OpCost()
+    sync(dev)
+    t0 = time.perf_counter()
+    with cost:
+        one, m1 = make_train_step(mx_model, train_opt(TRAIN_TIMED + 2))(
+            mx_state, mx_first)
+    sync(dev)
+    want_e = dict(params=host_params(one), seconds=time.perf_counter() - t0,
+                  metrics={k: float(v) for k, v in m1.items()},
+                  dot_flops=cost.totals()["dot_flops"],
+                  n_params=mx_model.param_count(one.params))
+    del one, mx_state, mx_first, cost
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_flops = timed_yardstick(dev)
 
     log(f"  world: {SH_RANKS} ranks sharing {SH_DEVICE} over {SH_BACKEND}, "
         f"collective timeout {SH_TIMEOUT} s (yardsticks and gate (c) "
@@ -3888,7 +4146,7 @@ def phase11(card, dev, single_tps: float, single_flops: float) -> None:
                       f"uninterrupted {all_d} lr")
 
     # the timed runs
-    base = get_arch(TRAIN_ARCH)
+    base = timed_model().cfg
     tokens = TRAIN_BATCH * TRAIN_SEQ
     for shape in SH_TIMED_MESHES:
         for rank, r in enumerate(res):
@@ -3899,11 +4157,38 @@ def phase11(card, dev, single_tps: float, single_flops: float) -> None:
     flops = res[0]["timed"][(1, SH_RANKS)]["dot_flops"]
     ratio = flops / single_flops
     log(f"  gate (d) rank 0's dot_flops of one (1, {SH_RANKS}) step under "
-        f"op_cost: {flops:.6e} against phase 9's one-device step at the same "
-        f"global batch {single_flops:.6e}: ratio {ratio:.4f} (limit "
+        f"op_cost: {flops:.6e} against one device's step of the same model "
+        f"and global batch {single_flops:.6e}: ratio {ratio:.4f} (limit "
         f"{SH_SPLIT_FLOPS})")
     if ratio > SH_SPLIT_FLOPS:
         failed.append(f"gate (d): (1, {SH_RANKS}) dot FLOPs ratio {ratio}")
+
+    # gate (e): the recurrent mixers split, against one device
+    es = [r["gate_e"] for r in res]
+    if any(e["metrics"] != es[0]["metrics"] for e in es):
+        raise AssertionError("gate (e): ranks' metrics differ")
+    e = es[0]
+    lr_e = want_e["metrics"]["lr"]
+    errs = {k: abs(e["metrics"][k] - want_e["metrics"][k])
+            / abs(want_e["metrics"][k]) for k in ("loss", "grad_norm")}
+    firm_d, all_d = hold_train(e["params"], want_e["params"], mx_firm, lr_e)
+    ratio = e["dot_flops"] / want_e["dot_flops"]
+    log(f"  gate (e) {MX_ARCH} at full width, {MX_LAYERS} layers, f32 "
+        f"({want_e['n_params'] / 1e9:.4f} B parameters), global batch "
+        f"{MX_SMALL[0]} x {MX_SMALL[1]} tokens, M = 2: one (1, {SH_RANKS}) "
+        f"step with the mixers split over the model axis vs one device: "
+        f"loss rel {errs['loss']:.3g}, grad_norm rel {errs['grad_norm']:.3g} "
+        f"(limit {TRAIN_LOSS_RTOL}); params {firm_d:.3g} lr where |g| is "
+        f"firm (limit 1e-3), {all_d:.3g} lr anywhere (limit 2); rank 0's "
+        f"dot FLOPs {e['dot_flops']:.6e} against one device's "
+        f"{want_e['dot_flops']:.6e}: ratio {ratio:.4f} (limit "
+        f"{SH_SPLIT_FLOPS}); step {e['seconds'] * 1e3:.1f} ms on rank 0 "
+        f"under op_cost (one device {want_e['seconds'] * 1e3:.1f} ms, "
+        f"counted too) [{card}]")
+    if max(errs.values()) > TRAIN_LOSS_RTOL or firm_d > 1e-3 or all_d > 2 \
+            or ratio > SH_SPLIT_FLOPS:
+        failed.append(f"gate (e): {errs}, params {firm_d}, {all_d} lr, dot "
+                      f"FLOPs ratio {ratio}")
     launched = sum(r["dslot_launches"] for r in res)
     log(f"  dslot kernel launches in phase 11: {launched} (the model's MLPs "
         f"are GLU; sharded training launches no hand-written kernel)")
@@ -3968,7 +4253,28 @@ print(json.dumps(trace_cell(get_arch("{TRAIN_ARCH}"), shape, None)))
 """
 
 
-def phase12(card, trained: dict, lm_counted: dict) -> None:
+PHASE12_OUT = ROOT / "build" / "phase12_dryrun"
+
+
+def phase12_start() -> tuple:
+    """Phase 12's two dry runs, (b) and (d), started as subprocesses on the
+    host's cores (they need no card and nothing phase 9 measures), so that
+    they run beside phase 11; the caller stops them (``stop``)."""
+    return (dryrun_proc(["-c", P9_DRYRUN]),
+            dryrun_proc(["-m", "repro_torch.launch.dryrun", "--arch",
+                         TRAIN_ARCH, "--shape", "train_4k", "--out",
+                         str(PHASE12_OUT)]))
+
+
+def stop(procs) -> None:
+    """Kill every subprocess of ``procs`` still running."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def phase12(card, trained: dict, lm_counted: dict, procs: tuple) -> None:
     """The launch tools against the card: (a) phase 9's step counted by
     ``op_cost`` and put through the roofline; (b) the dry run of that same
     one-device program on fake CPU tensors, whose dot FLOPs must equal
@@ -3976,15 +4282,12 @@ def phase12(card, trained: dict, lm_counted: dict) -> None:
     ``max_memory_allocated``; (c) phase 5's generate counted by ``op_cost``,
     whose opaque DSLOT launches must equal the launch counter; (d) the
     olmo-1b ``train_4k`` cell on the 16 x 16 fake world through the CLI,
-    its roofline and summarize rows.  (b) and (d) run as subprocesses on
-    the host's cores, side by side."""
+    its roofline and summarize rows.  (b) and (d) are ``procs``
+    (``phase12_start``), side by side."""
     from repro_torch.launch import roofline, summarize
 
-    out_dir = ROOT / "build" / "phase12_dryrun"
-    p9 = dryrun_proc(["-c", P9_DRYRUN])
-    cell = dryrun_proc(["-m", "repro_torch.launch.dryrun", "--arch",
-                        TRAIN_ARCH, "--shape", "train_4k", "--out",
-                        str(out_dir)])
+    out_dir = PHASE12_OUT
+    p9, cell = procs
     try:
         # (a)
         c = trained["counted"]["totals"]
@@ -4070,10 +4373,7 @@ def phase12(card, trained: dict, lm_counted: dict) -> None:
             raise AssertionError(f"gate (d): MODEL/op "
                                  f"{row['useful_ratio']} < {MODEL_OP_MIN}")
     finally:   # neither subprocess outlives the phase
-        for proc in (p9, cell):
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+        stop(procs)
 
 
 def cpu_copy(prep):
@@ -4100,6 +4400,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import dslot_matmul as dm
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4265,17 +4566,22 @@ def main() -> int:
     main_times += tp_times
 
     # -------------------------------------------------- 11. sharded training
-    log(f"phase 11: sharded training over {SH_RANKS} ranks [{card}]")
+    log(f"phase 11: sharded training over {SH_RANKS} ranks [{card}] (phase "
+        f"12's two dry runs start beside it, on the host's cores)")
     t0 = time.perf_counter()
-    phase11(card, dev, trained["tps"],
-            trained["counted"]["totals"]["dot_flops"])
-    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    procs = phase12_start()
+    try:
+        phase11(card, dev, trained["tps"])
+        log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------- 12. launch tools
-    log(f"phase 12: the op counter, the dry run and the roofline [{card}]")
-    t0 = time.perf_counter()
-    phase12(card, trained, lm_counted)
-    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+        # ---------------------------------------------- 12. launch tools
+        log(f"phase 12: the op counter, the dry run and the roofline "
+            f"[{card}]")
+        t0 = time.perf_counter()
+        phase12(card, trained, lm_counted, procs)
+        log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    finally:
+        stop(procs)
 
     t_bytes = sum(t["t_bytes"] for t in main_times)
     t_ops = sum(t["t_ops"] for t in main_times)
@@ -4292,6 +4598,7 @@ def main() -> int:
         "library_ms": sum(t["library_ms"] for t in main_times),
         "graph_ms": sum(t["graph_ms"] for t in main_times),
         "library_graph_ms": sum(t["library_graph_ms"] for t in main_times)}]}
+    log(f"phases 1-12 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -18,15 +18,20 @@ point-to-point ring of ``overlap.py`` copies through the host.
 autograd operators around a column- and row-parallel pair of products over
 the model axis (the sharded train step's split, ``models/pspec.py``
 ``model_shard``); ``all_reduce_max`` is the vocab-parallel cross-entropy's
-max.  Serving under the split adds ``gather_from_model`` (the new tokens'
+max.  The split recurrent mixers add two more: ``sum_over_model``, a sum
+whose backward sums as well (Mamba2's gated RMSNorm, whose statistic runs
+over every rank's channels and is read by every rank's channels), and
+``gather_over_model``, an ``all_gather`` whose backward is a
+reduce-scatter (the RG-LRU's gate input, whose whole width every rank's
+gate columns read).  Serving under the split adds ``gather_from_model`` (the new tokens'
 heads, a prefill's kv heads, vocab-parallel logits) and
 ``combine_softmax``, which joins the ranks' partial attention over a KV
 ring split along its slots (context parallelism): ``all_reduce_max`` of
 their running maxima, then one sum of their rescaled softmax sums.  Their
 ``timer`` is an optional ``timer(kind)`` context manager around each
 collective
-(``train.step.CollectiveClock``): kind ``model`` for "f", "g" and the
-cross-entropy's max, ``model_gather`` for the gathers, ``model_combine``
+(``train.step.CollectiveClock``): kind ``model`` for "f", "g", the
+cross-entropy's max and the mixers' two, ``model_gather`` for the gathers, ``model_combine``
 for the split attention's max and sum.
 """
 
@@ -40,7 +45,8 @@ import torch.distributed as dist
 __all__ = ["all_gather", "all_to_all", "all_reduce_max", "all_reduce_mean",
            "all_reduce_mean_grad", "all_reduce_sum_", "axis_rank",
            "axis_size", "combine_softmax", "copy_to_model",
-           "gather_from_model", "mesh_barrier", "reduce_from_model"]
+           "gather_from_model", "gather_over_model", "mesh_barrier",
+           "reduce_from_model", "sum_over_model"]
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -196,6 +202,64 @@ def reduce_from_model(x: torch.Tensor, mesh, dtype, axis: str = "model",
     if axis_size(mesh, axis) == 1:
         return x.to(dtype)
     return _ReduceFromModel.apply(x, mesh, axis, dtype, timer)
+
+
+class _SumOverModel(torch.autograd.Function):
+    """A sum over the axis whose backward sums the ranks' gradients too:
+    every rank reads the summed value, so each one's gradient of it holds
+    only its own readers' share."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, timer):
+        ctx.mesh, ctx.axis, ctx.timer = mesh, axis, timer
+        return _sum_f32(x, mesh, axis, x.dtype, timer)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.mesh, ctx.axis, g.dtype, ctx.timer), None, \
+            None, None
+
+
+class _GatherOverModel(torch.autograd.Function):
+    """``all_gather`` along a dim over the axis; the backward sums the
+    ranks' gradients of the gathered tensor and hands each rank its own
+    block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis, timer):
+        ctx.mesh, ctx.dim, ctx.axis, ctx.timer = mesh, dim, axis, timer
+        ctx.size = x.shape[dim]
+        with _timed(timer, "model"):
+            return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = _sum_f32(g, ctx.mesh, ctx.axis, g.dtype, ctx.timer)
+        lo = axis_rank(ctx.mesh, ctx.axis) * ctx.size
+        return whole.narrow(ctx.dim, lo, ctx.size).contiguous(), None, \
+            None, None, None
+
+
+def sum_over_model(x: torch.Tensor, mesh, axis: str = "model",
+                   timer=None) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``axis``, taken in f32 and
+    rounded once to ``x``'s dtype, where every rank reads the sum: the
+    backward sums the ranks' gradients of it as well (unlike "g", whose
+    readers after it compute alike on every rank)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _SumOverModel.apply(x, mesh, axis, timer)
+
+
+def gather_over_model(x: torch.Tensor, mesh, dim: int, axis: str = "model",
+                      timer=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in axis order, where
+    each rank reads the whole in its own way: the backward sums the ranks'
+    gradients of the whole in f32 and keeps this rank's block (a
+    reduce-scatter; ``gather_from_model`` has no backward)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _GatherOverModel.apply(x, mesh, dim, axis, timer)
 
 
 def all_reduce_max(t: torch.Tensor, mesh, axis: str = "model",

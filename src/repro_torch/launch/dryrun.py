@@ -23,19 +23,23 @@ without a card,
 Rank 0's program, by shape kind: train -- ``init_train_state``, its
 ``shard_tree`` slice, one ``make_sharded_train_step`` step at
 ``microbatches_for``'s depth, whose compute is split over ``model``
-(heads, ``d_ff`` and the vocab, with parameters gathered over the batch
-axes only where the split reads the rank's slice; the record's
+(heads, ``d_ff``, the vocab, the Mamba2 mixer's heads and the RG-LRU's
+width, with parameters gathered over the batch axes only where the split
+reads the rank's slice; the record's
 ``peak_breakdown`` divides a rank's peak into its stored state, the
 gathered parameters, their f32 gradient sum and the rest); prefill --
 ``Model.prefill`` on rank 0's batch slice (``batch_pspec``); decode --
 ``init_decode_state`` and ``decode_step`` on that slice.  Both run on rank
 0's model slice of the parameters (``train.sharding.model_slice``) inside
 ``pspec.model_shard``, as a serving engine over the mesh does: heads,
-``d_ff`` and the vocab split over ``model``, and the KV rings split along
-their slots where ``model`` divides them.  The record lists the state
-leaves the port splits over ``model`` and those the reference's layout
-(``decode_state_shardings``) splits that the port keeps whole (the
-recurrent states).
+``d_ff``, the vocab and the recurrent mixers split over ``model``, the KV
+rings along their slots and the recurrent states by head or width where
+``model`` divides them.  The record lists the state leaves the port
+splits over ``model`` and those the reference's layout
+(``decode_state_shardings``) splits that the port keeps whole (a mixer
+the axis does not divide), each with its bytes, and apart from both the
+bytes of the Mamba2 conv tails' B/C channels, which every rank of a split
+mixer holds whole.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k \\
@@ -231,22 +235,37 @@ def _rank_rows(mesh, global_batch: int) -> int:
     return global_batch // _fsdp_size(mesh)
 
 
-def _model_split(mesh, state) -> dict:
+def _model_split(mesh, arch, state) -> dict:
     """The decode-state leaves this rank holds split over ``model`` (those
-    of a ``KVShard``), and the leaves the reference's layout
+    of a ``KVShard``, and the recurrent states of a mixer ``pspec.splits``
+    splits), and the leaves the reference's layout
     (``decode_state_shardings``) splits over ``model`` that the port keeps
-    whole, each list with its bytes on this rank."""
+    whole, each list with its bytes on this rank; the B/C channels of a
+    split Mamba2 mixer's conv tail, whole on every rank, count in
+    ``state_bc_tail_bytes`` and not in the split bytes."""
     from repro_torch.models.attention import KVShard
+    from repro_torch.models.pspec import splits
+    from repro_torch.models.rglru import RGLRUState
+    from repro_torch.models.ssm import SSMState
 
     out = {"state_split_over_model": [], "state_split_over_model_bytes": 0,
-           "state_whole_over_model": [], "state_whole_over_model_bytes": 0}
+           "state_whole_over_model": [], "state_whole_over_model_bytes": 0,
+           "state_bc_tail_bytes": 0}
     if mesh is None:
         return out
+    sp = splits(arch, _axis_sizes(mesh).get("model", 1))
     split: set = set()
+    bc = 2 * arch.ssm_state                  # a conv tail's B/C channels
 
     def walk(node):
-        if isinstance(node, KVShard):
+        if isinstance(node, KVShard) or (isinstance(node, SSMState)
+                                         and sp.ssm) or \
+                (isinstance(node, RGLRUState) and sp.rglru):
             split.update(id(t) for t in node)
+            if isinstance(node, SSMState):
+                c = node.conv
+                out["state_bc_tail_bytes"] += \
+                    math.prod(c.shape[:-1]) * bc * c.element_size()
         elif isinstance(node, dict):
             for v in node.values():
                 walk(v)
@@ -264,6 +283,7 @@ def _model_split(mesh, state) -> dict:
         if key is not None:
             out[key].append(path)
             out[key + "_bytes"] += leaf.numel() * leaf.element_size()
+    out["state_split_over_model_bytes"] -= out["state_bc_tail_bytes"]
     return out
 
 
@@ -439,7 +459,7 @@ def trace_cell(arch: ModelConfig, shape: ShapeConfig, mesh=None, *,
                         _, state = model.prefill(params, batch,
                                                  max_len=shape.seq_len)
             totals, peak = cost.totals(), mem.peak
-            extra.update(_model_split(mesh, state))
+            extra.update(_model_split(mesh, arch, state))
     seconds = round(time.perf_counter() - t0, 2)
     return {**extra, "lower_s": seconds, "compile_s": seconds,
             "memory": {"argument_size_in_bytes": argument,

@@ -8,11 +8,12 @@ stopped.
 
     python -m repro_torch.launch.sweep [--out build/dryrun] [--timeout S]
         [--meshes single,multi] [--shapes prefill_32k,decode_32k]
-        [--jobs N]
+        [--archs mamba2-780m,recurrentgemma-2b] [--jobs N]
 
-``--shapes`` keeps the cells of those shapes; ``--jobs`` runs that many
-cells at once (each its own process), in the order they are listed, each
-cell on every mesh before the next.
+``--shapes`` keeps the cells of those shapes and ``--archs`` those of
+those architectures; ``--jobs`` runs that many cells at once (each its
+own process), in the order they are listed, each cell on every mesh
+before the next.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ def main(argv=None):
     ap.add_argument("--timeout", type=int, default=2400)
     ap.add_argument("--meshes", default="single,multi")
     ap.add_argument("--shapes", default=None)
+    ap.add_argument("--archs", default=None)
     ap.add_argument("--jobs", type=int, default=1)
     args = ap.parse_args(argv)
 
@@ -63,6 +65,9 @@ def main(argv=None):
     if args.shapes:
         keep = args.shapes.split(",")
         cells = [(a, s) for a, s in cells if s in keep]
+    if args.archs:
+        keep = args.archs.split(",")
+        cells = [(a, s) for a, s in cells if a in keep]
     meshes = args.meshes.split(",")
     todo = []
     for arch, shape in cells:

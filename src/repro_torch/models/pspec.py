@@ -38,10 +38,11 @@ from repro_torch import distributed
 from repro_torch.distributed import axis_size
 
 __all__ = ["Splits", "active_splits", "constrain", "copy_to_model",
-           "data_shard", "fsdp_size", "head_scheme", "model_combine",
-           "model_gather", "model_max", "model_shard", "model_split",
-           "parts_cut", "reduce_from_model", "ring_splits", "set_mesh",
-           "shard_mean", "splits", "tp_rank", "tp_size"]
+           "data_shard", "fsdp_size", "gather_over_model", "head_scheme",
+           "model_combine", "model_gather", "model_max", "model_shard",
+           "model_split", "parts_cut", "reduce_from_model", "ring_splits",
+           "set_mesh", "shard_mean", "splits", "sum_over_model", "tp_rank",
+           "tp_size"]
 
 _MESH = None
 _FSDP: tuple = ()
@@ -116,13 +117,15 @@ def model_shard(mesh, axis: str = "model", timer=None,
                 parts_cut: bool = False):
     """Code inside splits its compute over mesh axis ``axis`` (the sharded
     train step's forward and backward; serving's prefill, extend and
-    decode): attention heads, MLP and expert ``d_ff`` columns and the
-    vocab, where ``splits`` says they divide, and serving's KV rings where
+    decode): attention heads, MLP and expert ``d_ff`` columns, the vocab,
+    the Mamba2 mixer's heads and the RG-LRU's width, where ``splits`` says
+    they divide, and serving's KV rings where
     ``ring_splits`` does.  The parameters it reads are the rank's ``model``
     slices of those leaves (``train.sharding.model_reads``).  A PART leaf
-    (``wk``/``wv`` under "group" and "repeat") is whole, as the train step
-    gathers it, or with ``parts_cut`` already cut to the kv heads the rank
-    reads, as a serving rank stores it (``train.sharding.model_slice``).
+    (``wk``/``wv`` under "group" and "repeat"; the Mamba2 mixer's ``w_in``,
+    conv and per-head leaves) is whole, as the train step gathers it, or
+    with ``parts_cut`` already cut to what the rank reads, as a serving
+    rank stores it (``train.sharding.model_slice``).
     ``timer(kind)``: an optional context manager around every model-axis
     collective (``repro_torch.distributed``'s kinds)."""
     global _SPLIT
@@ -135,7 +138,7 @@ def model_shard(mesh, axis: str = "model", timer=None,
 
 def parts_cut() -> bool:
     """Whether the PART leaves read inside ``model_shard`` are stored cut
-    to the rank's kv heads (its ``parts_cut``)."""
+    to what the rank reads (its ``parts_cut``)."""
     return _SPLIT is not None and _SPLIT[3]
 
 
@@ -145,28 +148,39 @@ class Splits(NamedTuple):
     (``head_scheme``'s "kv"; under "group" and "repeat" each rank reads the
     kv heads its q heads read);
     mlp / moe: the dense MLP's and the experts' ``d_ff`` columns (not a
-    DSLOT MLP); vocab: embedding rows, head columns and the logits."""
+    DSLOT MLP); vocab: embedding rows, head columns and the logits; ssm:
+    the Mamba2 mixer's heads (its z/x/dt columns, conv channels, SSD heads
+    and ``w_out``'s rows; B and C stay whole); rglru: the RG-LRU's width
+    (every mixer leaf, the scan and ``w_out``'s rows)."""
     heads: bool
     kv: bool
     mlp: bool
     moe: bool
     vocab: bool
+    ssm: bool
+    rglru: bool
 
 
 def splits(cfg, n: int) -> Splits:
     """The split of ``cfg``'s products over ``n`` model ranks: each axis
     only where ``n`` divides it, where ``train.sharding.sanitize_spec``
-    stores it split (the heads, whose columns divide whenever they do)."""
+    stores it split (the heads, whose columns divide whenever they do; the
+    SSD heads, whose ``d_inner`` channels do)."""
     from .mlp import mlp_uses_dslot
 
     if n <= 1:
-        return Splits(False, False, False, False, False)
+        return Splits(*(False,) * len(Splits._fields))
     heads = cfg.n_heads > 0 and cfg.n_heads % n == 0
     ff = cfg.d_ff > 0 and cfg.d_ff % n == 0
+    kinds = set(cfg.block_pattern)
+    ssd_heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
     return Splits(heads=heads, kv=heads and cfg.n_kv_heads % n == 0,
                   mlp=ff and not mlp_uses_dslot(cfg),
                   moe=ff and cfg.n_experts > 0,
-                  vocab=cfg.vocab_size % n == 0)
+                  vocab=cfg.vocab_size % n == 0,
+                  ssm="ssm" in kinds and ssd_heads % n == 0,
+                  rglru="rglru" in kinds
+                  and (cfg.rnn_width or cfg.d_model) % n == 0)
 
 
 def active_splits(cfg) -> Splits:
@@ -197,6 +211,22 @@ def reduce_from_model(x, dtype):
     ``x`` summed in f32, rounded once to ``dtype``."""
     mesh, axis, timer, _ = _SPLIT
     return distributed.reduce_from_model(x, mesh, dtype, axis, timer)
+
+
+def sum_over_model(x):
+    """The ranks' partial ``x`` summed over the ``model_shard`` axis, read
+    by every rank: the backward sums as well
+    (``distributed.sum_over_model``)."""
+    mesh, axis, timer, _ = _SPLIT
+    return distributed.sum_over_model(x, mesh, axis, timer)
+
+
+def gather_over_model(x, dim: int):
+    """Every model rank's ``x`` along ``dim`` in rank order, read whole by
+    each rank: the backward is a reduce-scatter
+    (``distributed.gather_over_model``)."""
+    mesh, axis, timer, _ = _SPLIT
+    return distributed.gather_over_model(x, mesh, dim, axis, timer)
 
 
 def model_max(x):
@@ -238,8 +268,10 @@ def constrain(x, *axes):
     an activation across the mesh.  The port runs eager SPMD: only code
     written against the mesh splits work and calls a collective: the
     model code inside ``model_shard`` (heads, ``d_ff`` columns and the vocab
-    over ``model``, where the reference's ``constrain`` puts "tp"), the
-    sharded DSLOT execute, expert parallelism and the collective matmul.
+    over ``model``, where the reference's ``constrain`` puts "tp"; the
+    recurrent mixers by head and width, where its parameter rules and
+    decode-state layout put ``model``), the sharded DSLOT execute, expert
+    parallelism and the collective matmul.
     There is no layout to hint, so the activation comes back unchanged."""
     return x
 

@@ -15,6 +15,14 @@ sequence (``linear_scan``): ceil(log2 S) steps of whole-tensor ops, not S
 small launches.  Both compose the same pairs, but in another tree, so f32
 results differ from the reference's by rounding (about 1e-6 relative).
 Decode is the O(1) per-token update.
+
+Inside ``pspec.model_shard``, where the model ranks divide the width W
+(``pspec.splits``), each rank computes W/n of it: its columns of
+``w_in``, ``w_gate``, ``wa`` and ``wx``, its conv channels and biases,
+the scan over its width and ``w_out``'s rows ("g").  The gates' dense
+(W, W) products read the whole conv output ``u``, gathered over the ranks
+(``pspec.gather_over_model``).  The decode state is the rank's: ``h`` (B,
+W/n) and ``conv`` (B, 3, W/n).
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-from .layers import Params, _matmul, normal
+from . import pspec
+from .layers import Params, _matmul, matmul_f32, normal
 from .mlp import _gelu
 from .ssm import _causal_conv, softplus
 
@@ -61,10 +70,14 @@ def init_rglru(cfg, gen, device) -> Params:
     }
 
 
-def _gates(p: Params, u: torch.Tensor):
+def _gates(p: Params, u: torch.Tensor, u_all: torch.Tensor):
+    """(a, b) of the recurrence over ``u``'s width, the gates' products
+    reading ``u_all``: ``u`` itself, or every rank's ``u`` under the
+    split."""
     uf = u.to(torch.float32)
-    r = torch.sigmoid(torch.matmul(uf, p["wa"].to(torch.float32)) + p["ba"])
-    i = torch.sigmoid(torch.matmul(uf, p["wx"].to(torch.float32)) + p["bx"])
+    ua = u_all.to(torch.float32)
+    r = torch.sigmoid(torch.matmul(ua, p["wa"].to(torch.float32)) + p["ba"])
+    i = torch.sigmoid(torch.matmul(ua, p["wx"].to(torch.float32)) + p["bx"])
     a = torch.exp(-_C * softplus(p["lam"]) * r)          # (B, S, W)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
     return a, b
@@ -95,8 +108,13 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg,
     (1, 0)``, so carried state passes through them unchanged.  The gates
     are masked, not ``r`` alone: ``r = 0`` gives ``a = 1`` but ``b =
     sqrt(max(1 - a², 1e-12)) · (i ⊙ u) ≠ 0``.  The conv tail gathers each
-    row's last valid inputs.  Pad rows' outputs are garbage.
+    row's last valid inputs.  Pad rows' outputs are garbage.  Inside
+    ``pspec.model_shard`` where the ranks divide the width, the rank's
+    width (module docstring).
     """
+    split = pspec.active_splits(cfg).rglru
+    if split:
+        x = pspec.copy_to_model(x)
     gate = _gelu(_matmul(x, p["w_gate"], x.dtype))
     u = _matmul(x, p["w_in"], x.dtype)
     lengths = None if q_valid is None \
@@ -104,7 +122,7 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg,
     u, new_tail = _causal_conv(u, p["conv_w"], p["conv_b"],
                                state.conv if state is not None else None,
                                lengths=lengths)
-    a, b = _gates(p, u)
+    a, b = _gates(p, u, pspec.gather_over_model(u, -1) if split else u)
     if q_valid is not None:
         valid = q_valid[..., None]
         a = torch.where(valid, a, 1.0)
@@ -121,7 +139,10 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg,
         hs = linear_scan(a, b)
         h = hs[:, -1]
 
-    y = hs * gate.to(hs.dtype)
-    out = _matmul(y.to(x.dtype), p["w_out"], x.dtype)
+    y = (hs * gate.to(hs.dtype)).to(x.dtype)
+    if split:
+        out = pspec.reduce_from_model(matmul_f32(y, p["w_out"]), x.dtype)
+    else:
+        out = _matmul(y, p["w_out"], x.dtype)
     new_state = RGLRUState(conv=new_tail, h=h) if return_state else None
     return out, new_state

@@ -13,6 +13,18 @@ persistent (H, P, N) state.  Every product is f32, as in the reference.
 
 The chunked and sequential paths agree to about 1e-4 (f32 sums in other
 orders).
+
+Inside ``pspec.model_shard``, where the model ranks divide the H heads
+(``pspec.splits``), each rank computes H/n of them: its columns of z, x
+and dt from ``w_in`` with the whole B/C columns (one group: every head
+reads all of B and C), the causal conv over its x channels and B/C, the
+SSD over its heads, and the gated RMSNorm, whose mean over all of
+``d_inner`` sums the ranks' parts (``pspec.sum_over_model``); ``w_out`` is
+row-parallel ("g").  ``w_in``, the conv and the per-head leaves are read
+in part (``ssm_part``): whole as the train step gathers them, or cut, as
+a serving rank stores them.  The decode state is the rank's: ``ssm`` (B,
+H/n, P, N) and ``conv`` (B, k-1, d_inner/n + 2N), its x channels and the
+whole B/C tail.
 """
 
 from __future__ import annotations
@@ -21,8 +33,12 @@ from typing import NamedTuple
 
 import torch
 
-from .layers import Params, _matmul, normal
+from . import pspec
+from .layers import Params, _matmul, matmul_f32, normal
 from .mlp import _silu
+
+# the leaves a split rank reads in part (``ssm_part``)
+PART_LEAVES = ("w_in", "conv_w", "conv_b", "A_log", "D_skip", "dt_bias")
 
 
 class SSMState(NamedTuple):
@@ -61,6 +77,45 @@ def init_ssm(cfg, gen, device) -> Params:
         "w_out": normal(gen, (d_inner, cfg.d_model), d_inner ** -0.5,
                         device, dt),
     }
+
+
+def ssm_part(name: str, w: torch.Tensor, cfg, h0: int, hl: int
+             ) -> torch.Tensor:
+    """The PART cut of a whole mixer leaf ``name`` (one of
+    ``PART_LEAVES``, its columns last) for SSD heads ``h0 .. h0 + hl - 1``:
+    ``w_in``'s z, x, B/C and dt columns of those heads (B/C whole),
+    ``conv_w`` / ``conv_b``'s x channels of those heads and the B/C
+    channels, the per-head leaves' entries.  The train step's forward cuts
+    it from the gathered leaf; a serving rank stores only it
+    (``train.sharding.model_slice``, read under ``pspec.model_shard(...,
+    parts_cut=True)``)."""
+    d_inner, _, P, N, G = _dims(cfg)
+    c0, cl, bc = h0 * P, hl * P, 2 * G * N
+    if name in ("A_log", "D_skip", "dt_bias"):
+        return w[..., h0:h0 + hl]
+    if name in ("conv_w", "conv_b"):
+        return torch.cat([w[..., c0:c0 + cl], w[..., d_inner:]], dim=-1)
+    dt0 = 2 * d_inner + bc + h0
+    return torch.cat([w[..., c0:c0 + cl],
+                      w[..., d_inner + c0:d_inner + c0 + cl],
+                      w[..., 2 * d_inner:2 * d_inner + bc],
+                      w[..., dt0:dt0 + hl]], dim=-1)
+
+
+def _rank_part(p: Params, cfg, h0: int, hl: int) -> Params:
+    """``p`` with its PART leaves cut to heads ``h0 .. h0 + hl - 1``, or as
+    they are where ``pspec.parts_cut`` (a serving rank's
+    ``model_slice``); raises where a stored cut has the wrong width."""
+    cut = pspec.parts_cut()
+    out = {**p, **{k: p[k] if cut else ssm_part(k, p[k], cfg, h0, hl)
+                   for k in PART_LEAVES}}
+    _, _, P, N, G = _dims(cfg)
+    want = 2 * hl * P + 2 * G * N + hl
+    if out["w_in"].shape[-1] != want:
+        raise ValueError(f"w_in holds {out['w_in'].shape[-1]} columns where "
+                         f"heads {h0}..{h0 + hl - 1} take {want} "
+                         f"(parts_cut={cut})")
+    return out
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -198,19 +253,27 @@ def apply_ssm(p: Params, x: torch.Tensor, cfg,
     exp(0) = 1 and a zero update, in the sequential and the chunked path),
     and the conv tail gathers each row's last valid inputs, so carried state
     advances only past real tokens.  Pad rows' outputs are garbage.
+    Inside ``pspec.model_shard`` where the ranks divide the heads, the
+    rank's heads (module docstring).
     """
     B_, S, _ = x.shape
     d_inner, H, P, N, G = _dims(cfg)
+    split = pspec.active_splits(cfg).ssm
+    if split:
+        H //= pspec.model_split()
+        p = _rank_part(p, cfg, pspec.tp_rank() * H, H)
+        x = pspec.copy_to_model(x)
+    di = H * P                                # this rank's channels
     zxbcdt = _matmul(x, p["w_in"], x.dtype)
     z, xBC, dt_raw = torch.split(
-        zxbcdt, [d_inner, d_inner + 2 * G * N, H], dim=-1)
+        zxbcdt, [di, di + 2 * G * N, H], dim=-1)
 
     lengths = None if q_valid is None \
         else q_valid.to(torch.int32).sum(dim=1)
     conv_tail = state.conv if state is not None else None
     xBC, new_tail = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_tail,
                                  lengths=lengths)
-    x_ssm, Bmat, Cmat = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
+    x_ssm, Bmat, Cmat = torch.split(xBC, [di, G * N, G * N], dim=-1)
 
     dtv = softplus(dt_raw.to(torch.float32) + p["dt_bias"])
     if q_valid is not None:
@@ -225,13 +288,21 @@ def apply_ssm(p: Params, x: torch.Tensor, cfg,
         y, hfin = ssd_chunked(xh, dtv, A, Bmat, Cmat, cfg.ssm_chunk,
                               init_state=init)
     y = y + p["D_skip"][None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(B_, S, d_inner)
+    y = y.reshape(B_, S, di)
 
-    # gated RMSNorm (mamba2): norm(y * silu(z)) * scale
+    # gated RMSNorm (mamba2): norm(y * silu(z)) * scale, its mean over all
+    # of d_inner (every rank's channels)
     g = y * _silu(z.to(torch.float32))
-    r = torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + 1e-6)
+    if split:
+        ss = pspec.sum_over_model(torch.sum(g * g, dim=-1, keepdim=True))
+        r = torch.rsqrt(ss / d_inner + 1e-6)
+    else:
+        r = torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + 1e-6)
     g = (g * r * p["norm_scale"]).to(x.dtype)
 
-    out = _matmul(g, p["w_out"], g.dtype)
+    if split:
+        out = pspec.reduce_from_model(matmul_f32(g, p["w_out"]), g.dtype)
+    else:
+        out = _matmul(g, p["w_out"], g.dtype)
     new_state = SSMState(conv=new_tail, ssm=hfin) if return_state else None
     return out, new_state

@@ -31,6 +31,7 @@ from typing import Any
 import torch
 import torch.utils.checkpoint
 
+from . import pspec
 from . import stats as model_stats
 from .attention import (attention_forward, init_attention, init_kv_cache,
                         ring_block)
@@ -74,10 +75,15 @@ def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, enc_len: int,
                      dtype, device) -> Any:
     """One layer's empty decode state.  Inside ``pspec.model_shard`` its KV
     rings (self and cross) are this rank's ``KVShard`` where
-    ``pspec.ring_splits``; recurrent states stay whole."""
+    ``pspec.ring_splits``, and a recurrent state is the rank's part where
+    ``pspec.splits`` splits its mixer: H/n SSD heads with their x conv
+    channels beside the whole B/C tail, or W/n of the RG-LRU's width."""
+    sp = pspec.active_splits(cfg)
     if kind == "ssm":
         d_inner, H, P, N, G = _dims(cfg)
-        conv_ch = d_inner + 2 * G * N
+        if sp.ssm:
+            H //= pspec.model_split()
+        conv_ch = H * P + 2 * G * N
         return SSMState(
             conv=torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
                              device=device),
@@ -85,6 +91,8 @@ def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, enc_len: int,
                             device=device))
     if kind == "rglru":
         w = cfg.rnn_width or cfg.d_model
+        if sp.rglru:
+            w //= pspec.model_split()
         return RGLRUState(
             conv=torch.zeros((batch, 3, w), dtype=dtype, device=device),
             h=torch.zeros((batch, w), dtype=torch.float32, device=device))

@@ -38,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.tree import map_with_path, tree_map
+from repro_torch.tree import flatten_with_path, map_with_path, tree_map
 
 __all__ = ["PART", "SPLIT", "Shardings", "WHOLE", "batch_pspec", "buckets",
            "gather_specs", "gather_tree", "local_slice", "model_reads",
@@ -104,14 +104,27 @@ _RULES: list[tuple[str, object]] = [
 # every model rank alike.
 SPLIT, PART, WHOLE = "split", "part", "whole"
 
-# (regex over the flattened path, the ``pspec.Splits`` field that splits it)
-_READS: list[tuple[str, str]] = [
-    (r"(embed/embedding|head/w)$", "vocab"),
-    (r"(wq/(w|b)|wo/w)$",          "heads"),
-    (r"(wk|wv)/(w|b)$",            "kv"),
-    (r"mlp/(up|gate|down)/w$",     "mlp"),
-    (r"moe/(up|gate|down)$",       "moe"),
+# (regex over the flattened path, the ``pspec.Splits`` field that splits
+# it, what the split reads of it); a mixer's leaves are matched by its kind
+_READS: list[tuple[str, str, str]] = [
+    (r"(embed/embedding|head/w)$", "vocab", SPLIT),
+    (r"(wq/(w|b)|wo/w)$",          "heads", SPLIT),
+    (r"(wk|wv)/(w|b)$",            "kv", SPLIT),
+    (r"mlp/(up|gate|down)/w$",     "mlp", SPLIT),
+    (r"moe/(up|gate|down)$",       "moe", SPLIT),
+    (r"ssm/(w_in|conv_w|conv_b|A_log|D_skip|dt_bias)$", "ssm", PART),
+    (r"ssm/(norm_scale|w_out)$",   "ssm", SPLIT),
+    (r"rglru/\w+$",                "rglru", SPLIT),
 ]
+
+
+def _mixer_path(path: str, ssm_mixers: set) -> str:
+    """``path`` with a mixer leaf's ``mixer`` named by its kind (``ssm``
+    where the mixer holds ``A_log``, else ``rglru``)."""
+    head, sep, name = path.rpartition("mixer/")
+    if not sep or "/" in name:
+        return path
+    return f"{head}{'ssm' if head in ssm_mixers else 'rglru'}/{name}"
 
 
 def model_reads(mesh, cfg, params):
@@ -119,21 +132,27 @@ def model_reads(mesh, cfg, params):
     compute inside ``pspec.model_shard`` over ``mesh``'s model axis reads
     each leaf (``pspec.splits``).  SPLIT: embedding and head where the
     vocab divides, ``wq`` and ``wo`` where the heads do, ``wk``/``wv`` under
-    the "kv" scheme, MLP and expert ``d_ff`` products.  PART: ``wk``/``wv``
-    under "group" and "repeat" (each rank reads the kv heads its q heads
-    read).  WHOLE: the rest -- a vocab or head count that does not divide,
-    the Mamba2 and RG-LRU mixers (the reference's ``constrain`` does not
-    split them), norms, the router, ``wo``'s bias."""
+    the "kv" scheme, MLP and expert ``d_ff`` products, the Mamba2 mixer's
+    ``norm_scale`` and ``w_out`` where its heads divide, every RG-LRU
+    mixer leaf where its width does.  PART: ``wk``/``wv`` under "group"
+    and "repeat" (each rank reads the kv heads its q heads read), and the
+    Mamba2 mixer's ``w_in``, conv and per-head leaves (its z/x/B/C/dt
+    segments do not line up with the storage's blocks; ``ssm.ssm_part``).
+    WHOLE: the rest -- a vocab, head count or mixer width that does not
+    divide, norms, the router, ``wo``'s bias."""
     from repro_torch.models.pspec import splits
 
     _, tp = mesh_axes(mesh)
     sp = splits(cfg, _axis_sizes(mesh)[tp] if tp else 1)
+    ssm_mixers = {path[:-len("mixer/A_log")] for path, _ in
+                  flatten_with_path(params) if path.endswith("mixer/A_log")}
 
     def one(path, leaf):
-        for pat, field in _READS:
+        path = _mixer_path(path, ssm_mixers)
+        for pat, field, read in _READS:
             if re.search(pat, path):
                 if getattr(sp, field):
-                    return SPLIT
+                    return read
                 return PART if field == "kv" and sp.heads else WHOLE
         return WHOLE
 
@@ -154,32 +173,39 @@ def model_slice(mesh, cfg, params):
     """A serving rank's parameters: what the split compute inside
     ``pspec.model_shard`` over ``mesh``'s model axis reads of each leaf of
     a whole ``params`` tree (``model_reads``), each a copy of its own.  A
-    SPLIT leaf is cut to the rank's ``model`` slice, a PART leaf
-    (``wk``/``wv`` under "group" and "repeat") to the columns of the kv
-    heads its q heads read (``attention.kv_part``; the forward reads it
-    under ``pspec.model_shard(..., parts_cut=True)``), a WHOLE leaf is kept
-    as it is.  Nothing is split over the batch axes: every rank of a model
-    slice holds it whole, so a forward gathers no parameter."""
+    SPLIT leaf is cut to the rank's ``model`` slice, a PART leaf to what
+    the rank reads (``wk``/``wv`` under "group" and "repeat": the columns
+    of the kv heads its q heads read, ``attention.kv_part``; a Mamba2
+    mixer leaf: its heads' columns and the whole B/C, ``ssm.ssm_part``),
+    read under ``pspec.model_shard(..., parts_cut=True)``; a WHOLE leaf is
+    kept as it is.  Nothing is split over the batch axes: every rank of a
+    model slice holds it whole, so a forward gathers no parameter."""
     from repro_torch.models.attention import kv_part
+    from repro_torch.models.ssm import _dims, ssm_part
 
     _, tp = mesh_axes(mesh)
     if tp is None or _axis_sizes(mesh)[tp] == 1:
         return params
     n, r = _axis_sizes(mesh)[tp], _coords(mesh)[tp]
     hq = cfg.n_heads // n                     # a PART leaf's rank's q heads
+    hs = _dims(cfg)[1] // n                   # or its SSD heads
     reads = model_reads(mesh, cfg, params)
     specs = make_param_shardings(mesh, params)
 
-    def one(leaf, read, spec):
+    def one(leaf, read, spec, path):
         if read == SPLIT:
             only = P(*(tp if e == tp else None for e in spec))
             assert tp in only, (spec, leaf.shape)
             return local_slice(leaf, only, mesh).clone()
         if read == PART:
+            head, _, name = path.rpartition("/")
+            if head.endswith("mixer"):
+                return ssm_part(name, leaf, cfg, r * hs, hs).clone()
             return kv_part(leaf, cfg, r * hq, hq).clone()
         return leaf
 
-    return tree_map(one, params, reads, specs)
+    paths = map_with_path(lambda path, _: path, params)
+    return tree_map(one, params, reads, specs, paths)
 
 
 def _path_str(path) -> str:

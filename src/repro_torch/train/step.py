@@ -19,9 +19,10 @@ sharded by ``train.sharding.make_state_shardings``, each rank gathers the
 parameters over the batch axes, computes the gradients of its slice of the
 batch with the compute split over ``model`` as the reference's
 ``constrain`` asks (Megatron's column- and row-parallel attention, MLP and
-expert FFN, a vocab-parallel embedding, head and cross-entropy;
-``models/pspec.py`` ``model_shard``), and the gradients are averaged over
-the batch axes before each rank updates its own slices.
+expert FFN, a vocab-parallel embedding, head and cross-entropy) and by the
+Mamba2 mixer's heads and the RG-LRU's width (``models/pspec.py``
+``model_shard``), and the gradients are averaged over the batch axes
+before each rank updates its own slices.
 """
 
 from __future__ import annotations
@@ -185,10 +186,11 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, shardings,
     * ``microbatch_grads`` on the batch slice under ``pspec.data_shard``
       (MoE dispatch takes the slice as one group, the router's load
       statistics are averaged over the data shards) and
-      ``pspec.model_shard`` (heads, ``d_ff`` and the vocab split over
-      ``model``);
+      ``pspec.model_shard`` (heads, ``d_ff``, the vocab and the recurrent
+      mixers split over ``model``);
     * the gradients of leaves gathered whole but read in part (PART:
-      ``wk``/``wv`` under "group" and "repeat") summed over ``model``; every
+      ``wk``/``wv`` under "group" and "repeat", the Mamba2 mixer's
+      ``w_in``, conv and per-head leaves) summed over ``model``; every
       gradient, the loss and aux averaged over the batch axes (``pod``,
       ``data``) in bucketed ``all_reduce``s;
     * ``grad_norm`` of the whole gradient: the squares of SPLIT leaves

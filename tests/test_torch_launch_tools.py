@@ -334,7 +334,9 @@ def test_fake_trace_counts_what_a_cpu_run_does():
     fake trace and a real CPU run of rank 0's program give equal op_cost
     totals and equal tracked peaks, for a train step and a decode step;
     and a 4-microbatch step traced at 1 and 2 and extrapolated equals the
-    whole step."""
+    whole step.  Over the model axis of 2 the decode state splits: olmo's
+    KV rings, and mamba2's SSM states by head, their conv tails' whole B/C
+    channels counted apart."""
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", _WORLD], env=env,
                           capture_output=True, text=True, timeout=300)
@@ -351,8 +353,10 @@ def test_fake_trace_counts_what_a_cpu_run_does():
     assert ext["memory"]["argument_size_in_bytes"] + \
         ext["memory"]["temp_size_in_bytes"] == whole["peak"]
     mam = res["mamba2-780m decode_32k"][0]
-    assert mam["state_whole_over_model"], "the SSM state stays whole"
-    assert not mam["state_split_over_model"]
+    assert mam["state_split_over_model"], "the SSM states split by head"
+    assert not mam["state_whole_over_model"]
+    assert 0 < mam["state_bc_tail_bytes"] < \
+        mam["state_split_over_model_bytes"]
     olmo = res["olmo-1b decode_32k"][0]
     assert olmo["state_split_over_model"], "the KV rings split over model"
     assert not olmo["state_whole_over_model"]
@@ -396,3 +400,21 @@ def test_sweep_skips_cells_whose_record_exists(tmp_path, monkeypatch):
     assert ran[0][ran[0].index("--arch") + 1] == arch
     assert ran[0][ran[0].index("--shape") + 1] == shape
     assert "--multi-pod" not in ran[0]
+
+
+def test_sweep_keeps_the_cells_of_the_named_shapes_and_archs(tmp_path,
+                                                           monkeypatch):
+    ran = []
+
+    def fake_run(cmd, **kw):
+        ran.append((cmd[cmd.index("--arch") + 1],
+                    cmd[cmd.index("--shape") + 1], "--multi-pod" in cmd))
+        return subprocess.CompletedProcess(cmd, 1, "", "")
+
+    monkeypatch.setattr(sweep.subprocess, "run", fake_run)
+    archs = ("mamba2-780m", "recurrentgemma-2b")
+    sweep.main(["--out", str(tmp_path), "--archs", ",".join(archs),
+                "--shapes", "train_4k,long_500k"])
+    want = {(a, s, m) for a, s in live_cells() if a in archs
+            and s in ("train_4k", "long_500k") for m in (False, True)}
+    assert len(ran) == len(want) == 8 and set(ran) == want

@@ -2,14 +2,18 @@
 module, on a ``gloo`` world of 2 ranks over a (1, 2) mesh on the CPU.
 
 Megatron's "f" (``copy_to_model``) and "g" (``reduce_from_model``), the
-detached max (``all_reduce_max``), the vocab-parallel cross-entropy of
-``model_zoo.loss_fn``, and the split attention (the "kv" and "group"
+detached max (``all_reduce_max``), the recurrent mixers' sum whose
+backward sums (``sum_over_model``) and gather whose backward is a
+reduce-scatter (``gather_over_model``), the vocab-parallel cross-entropy
+of ``model_zoo.loss_fn``, and the split attention (the "kv" and "group"
 schemes, a group whose q heads read their kv heads unevenly, cross and
 sliding-window attention), MLP (f32 and bf16), expert FFN, embedding and
-head (tied, untied, and a vocab that does not divide) are run on each
+head (tied, untied, and a vocab that does not divide), the Mamba2 mixer
+(by SSD head, f32 and bf16) and the RG-LRU (by width) are run on each
 rank's slices inside ``pspec.model_shard`` (``torch_split_ranks``, which
 imports no JAX) and held against the port's unsplit functions at the full
-width in one process.  Those are held against the reference by
+width in one process.  The mixers are held over 4 ranks as well, in
+``test_torch_sharded_train.py``'s world of 4.  Those are held against the reference by
 ``test_torch_models.py``, ``test_torch_zoo.py`` and
 ``test_torch_train_lm.py``; the split train step as a whole is held against
 the reference by ``test_torch_sharded_train.py``.  The "repeat" scheme
@@ -19,7 +23,8 @@ Tolerances: the split sums the same products in another order, so f32
 outputs and gradients agree within ``REL`` of the largest |value|; bf16
 ones within ``BF16_REL`` (one or two bf16 roundings of such sums).  What
 involves no reordered sum is exact: "f"'s forward, "g" of two partials
-against their f32 sum rounded once, the max, and an embedding lookup.
+against their f32 sum rounded once, the max, the mixers' sum of two
+partials and their gather, and an embedding lookup.
 """
 
 import dataclasses
@@ -37,6 +42,8 @@ from repro_torch.models.layers import (embed_tokens, init_embedding,
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.model_zoo import loss_fn
 from repro_torch.models.moe import expert_ffn, init_moe
+from repro_torch.models.rglru import apply_rglru, init_rglru
+from repro_torch.models.ssm import apply_ssm, init_ssm
 from repro_torch.train.sharding import PART, SPLIT, WHOLE
 from repro_torch.tree import flatten_with_path, leaves, tree_map
 
@@ -57,7 +64,11 @@ def np_tree(tree):
     return tree_map(lambda a: a.detach().float().numpy().copy(), tree)
 
 
-# name -> (kind, config, what the split reads of each leaf over model 2)
+SSM_READS = {"w_in": PART, "conv_w": PART, "conv_b": PART, "A_log": PART,
+             "D_skip": PART, "dt_bias": PART, "norm_scale": SPLIT,
+             "w_out": SPLIT}
+# name -> (kind, config, what the split reads of each leaf over model 2:
+# by the leaf's parent for attention, the mixer leaf's name for "ssm")
 MODULES = {
     "attn-kv": ("attn", cfg_of("olmo-1b"), {"wq": SPLIT, "wk": SPLIT,
                                             "wv": SPLIT, "wo": SPLIT}),
@@ -81,8 +92,15 @@ MODULES = {
                      {"embed": SPLIT, "head": SPLIT}),
     "embed-v251": ("embed", cfg_of("olmo-1b", vocab_size=251),
                    {"embed": WHOLE}),
+    # 8 SSD heads of 16 channels, 16 states; a 64-wide RG-LRU
+    "ssm": ("ssm", cfg_of("mamba2-780m"), SSM_READS),
+    "ssm-bf16": ("ssm", cfg_of("mamba2-780m", dtype="bfloat16"), SSM_READS),
+    "rglru": ("rglru", cfg_of("recurrentgemma-2b"), {"mixer": SPLIT}),
 }
 B, S = 2, 40
+MIXERS = {"ssm": (init_ssm, apply_ssm), "rglru": (init_rglru, apply_rglru)}
+MIXER_VECTORS = ("conv_b", "A_log", "D_skip", "dt_bias", "norm_scale",
+                 "ba", "bx", "lam")
 
 
 def module_inputs(i, kind, cfg):
@@ -100,6 +118,15 @@ def module_inputs(i, kind, cfg):
         return p, x, kv, ct
     if kind == "mlp":
         return ({"mlp": init_mlp(cfg, gen, "cpu")}, rng(i, (B, S, D)), None,
+                rng(100 + i, (B, S, D)))
+    if kind in MIXERS:
+        p = MIXERS[kind][0](cfg, gen, "cpu")
+        for k in MIXER_VECTORS:                      # per-channel leaves
+            if k in p:
+                v = rng(50 + i, p[k].shape, 0.3)
+                p[k] = torch.as_tensor(1 + v if k == "norm_scale" else v
+                                       ).to(p[k].dtype)
+        return ({"mixer": p}, rng(i, (B, S, D)), None,
                 rng(100 + i, (B, S, D)))
     if kind == "moe":
         p = init_moe(cfg, gen, "cpu")
@@ -129,6 +156,8 @@ def run_whole(kind, cfg, p, x, kv, ct):
         y = apply_mlp(p["mlp"], xt, cfg)
     elif kind == "moe":
         y = expert_ffn(p["moe"], xt, cfg)
+    elif kind in MIXERS:
+        y, _ = MIXERS[kind][1](p["mixer"], xt, cfg)
     else:
         y = lm_logits(p["head"], p["embed"], embed_tokens(p["embed"], xt,
                                                           cfg), cfg)
@@ -150,7 +179,10 @@ def ops_inputs(i, dtype):
     return dict(x=rng(i, (3, 16)), w=rng(i + 1, (16, 8)),
                 ct=rng(i + 2, (3, 8)), h=rng(i + 3, (3, 32)),
                 wd=rng(i + 4, (32, 16), 0.2), ct2=rng(i + 5, (3, 16)),
-                m=rng(i + 6, (2, 5)), dtype=dtype)
+                m=rng(i + 6, (2, 5)),
+                s=rng(i + 7, (2, 3, 1)), sct=rng(i + 8, (2, 3, 1)),
+                u=rng(i + 9, (3, 16)), uw=rng(i + 10, (2, 16, 4)),
+                uct=rng(i + 11, (2, 3, 4)), dtype=dtype)
 
 
 def ce_inputs(i, dtype):
@@ -238,6 +270,33 @@ def test_reduce_from_model_sums_in_f32_and_rounds_once(world, dt):
               REL if dt == "f32" else BF16_REL)
 
 
+def test_sum_over_model_sums_forward_and_backward(world):
+    """The mixers' sum read by every rank: the two partials summed exactly
+    (one f32 addition), the same bits on both ranks; each rank's partial
+    gets the sum of both ranks' cotangents, as the whole sum's gradient
+    is."""
+    c = world.ops["f32"]
+    want = c["s"][0] + c["s"][1]
+    grad = c["sct"][0] + c["sct"][1]
+    for res in world.res:
+        o = res["ops"]["f32"]
+        np.testing.assert_array_equal(o["sum_y"], want)
+        np.testing.assert_array_equal(o["sum_gs"], grad)
+
+
+def test_gather_over_model_gathers_and_reduce_scatters(world):
+    """The RG-LRU's gate input: every rank's block gathered in rank order
+    exactly; the gradient of each rank's block, where each rank reads the
+    whole through its own columns, equals that block of the whole's
+    gradient (the sum over the ranks' readers) within ``REL``."""
+    c = world.ops["f32"]
+    gu = sum(c["uct"][r] @ c["uw"][r].T for r in range(2))
+    for r, res in enumerate(world.res):
+        o = res["ops"]["f32"]
+        np.testing.assert_array_equal(o["gather_y"], c["u"])
+        close(o["gather_gu"], gu[:, r * 8:(r + 1) * 8], REL)
+
+
 def test_all_reduce_max_is_detached(world):
     m = world.ops["f32"]["m"].max(axis=0)
     for res in world.res:
@@ -294,7 +353,8 @@ def test_split_module_matches_whole(world, name):
         got = res["modules"][name]
         for path, k in flatten_with_path(got["reads"]):
             top = "embed" if path.startswith("embed") else \
-                path.split("/")[-2] if kind == "attn" else path.split("/")[0]
+                path.split("/")[-2] if kind == "attn" else \
+                path.split("/")[-1] if kind == "ssm" else path.split("/")[0]
             if kind == "attn" and path.endswith("wo/b"):
                 top = None
             assert k == want_reads.get(top, WHOLE), (path, k)

@@ -6,23 +6,35 @@ Each rank serves on its model slice of the parameters: attention by heads
 (the "kv", "group" and "repeat" schemes, and heads that do not divide,
 which stay whole) over KV rings split along their slots, where the ranks'
 partial softmax states are combined; the MLP and the experts by ``d_ff``;
-embedding and head by the vocab.  Held here, on reduced configs (rank
-bodies in ``torch_serve_split_ranks``, which imports no JAX):
+embedding and head by the vocab; the Mamba2 mixer by SSD head and the
+RG-LRU by width, each with its recurrent state.  Held here, on reduced
+configs (rank bodies in ``torch_serve_split_ranks``, which imports no
+JAX):
 
 * the combine against ``flash_attention`` over the whole ring (empty
   slots, rows that see no key on a rank, a sliding window);
 * ``prefill`` -> ``decode_step`` -> ``extend`` logits against the unsplit
   port for each scheme, SWA (a carry-window extension), MoE, an enc-dec
-  cross cache, a ring whose capacity the ranks do not divide, and bf16;
-  and against the reference's unsplit model for ``REF_CASES``.  The
+  cross cache, a ring whose capacity the ranks do not divide, bf16,
+  mamba2 (8 SSD heads; and 2 heads, which stay whole on 4 ranks) and the
+  recurrentgemma hybrid (a 64-wide RG-LRU beside "group" attention), the
+  mixers' per-channel leaves drawn from a seed so that a rank reading
+  another's heads shows; and against the reference's unsplit model for
+  ``REF_CASES``.  The
   sequence is ``test_torch_models.py``'s serving case (its seeds, lengths
   and chunks), which holds the unsplit port to the reference on every
   architecture, bf16 included;
 * each rank's rings: a ``KVShard`` of C/n slots where n divides C, the
   whole ring otherwise; the blocks in rank order are the unsplit ring;
+* each rank's recurrent states: its H/n SSD heads and their x conv
+  channels beside the whole B/C tail, or W/n of the RG-LRU's ``h`` and
+  conv tail, where n divides; the blocks in rank order are the unsplit
+  state;
 * ``ServeEngine(mesh=...)``'s greedy streams and ``planes_used_mean``
   against the unsplit port engine's and the reference engine's, and its
-  refusal of a split axis other than "model".
+  refusal of a split axis other than "model"; the hybrid's split engine
+  (ReLU DSLOT MLPs, its RG-LRU and rings split) against the unsplit port
+  engine's.
 
 Tolerances: the split sums the same f32 products in another order (the
 row-parallel "g", the softmax combine), so f32 logits and attention agree
@@ -30,7 +42,9 @@ within ``REL`` of the largest |value|; against the reference within
 ``REF_REL``, ``test_torch_models.py``'s bound; bf16 logits within
 ``BF16_REL`` (a few bf16 roundings of such sums: the combine rescales
 probabilities rounded against each rank's own max).  Ring positions, token
-streams and plane accounts are exact.
+streams and plane accounts are exact.  A rank's recurrent state comes out
+of the same reordered sums in earlier layers, so its blocks rebuild the
+unsplit state within ``REL``; their shapes are exact.
 """
 
 import numpy as np
@@ -65,9 +79,15 @@ CASES = {
     "cross": ("seamless-m4t-medium", {}, 24),   # cross ring of 8 slots
     "whole-ring": ("olmo-1b", {}, 23),          # 23 slots stay whole
     "bf16": ("olmo-1b", dict(dtype="bfloat16"), 24),
+    "ssm": ("mamba2-780m", {}, 24),             # 8 SSD heads
+    "ssm-h2": ("mamba2-780m", dict(ssm_headdim=64), 24),  # whole on 4
+    "hybrid": ("recurrentgemma-2b", {}, 24),    # RG-LRU 64 wide
 }
 F32_CASES = [c for c in CASES if c != "bf16"]
-REF_CASES = ["kv", "swa", "cross"]      # a JAX compile each: a few seconds
+RECURRENT_CASES = ["ssm", "ssm-h2", "hybrid"]
+REF_CASES = ["kv", "swa", "cross", "ssm"]   # a JAX compile each
+MIXER_VECTORS = ("conv_b", "A_log", "D_skip", "dt_bias", "norm_scale",
+                 "ba", "bx", "lam")
 DSLOT = dict(enabled=True, block_m=16, block_n=32, block_k=16,
              act_scale=0.05)
 # (prompt, max_new, planes): five requests through 2 slots, 2 lanes
@@ -109,7 +129,7 @@ class Cases:
         self.models, self.port, self.ref = {}, {}, {}
         for name, (arch, over, max_len) in CASES.items():
             jc, tc = cfg_pair(arch, **over)
-            p_np, _ = ref_params(jc, seed=1)
+            p_np = varied(ref_params(jc, seed=1)[0])
             jb, tb = model_batch(tc, 2, 6, seed=2)
             batch = {k: np.asarray(v) for k, v in jb.items()}
             self.models[name] = dict(cfg=tc, params=p_np, batch=batch,
@@ -117,12 +137,34 @@ class Cases:
             logits, state = ranks.serve_sequence(
                 build_model(tc), ranks.model_params(p_np, device="cpu"),
                 {k: ranks.t(v) for k, v in batch.items()}, max_len)
-            self.port[name] = (logits, ranks.rings(state))
+            self.port[name] = (logits, ranks.rings(state),
+                               ranks.recurrent(state))
             if name in REF_CASES:
                 self.ref[name] = reference_sequence(jc, p_np, jb, max_len)
         self.jc, self.tc = cfg_pair("olmo-1b", dslot=DSLOT, act="relu",
                                     glu=False)
         self.engine_params, _ = ref_params(self.jc, seed=0)
+        jh, self.hybrid_cfg = cfg_pair("recurrentgemma-2b", dslot=DSLOT,
+                                       act="relu", glu=False)
+        self.hybrid_params = varied(ref_params(jh, seed=0)[0])
+
+
+def varied(p_np):
+    """``p_np`` with the recurrent mixers' per-channel leaves drawn from a
+    seed (the reference's init sets them to constants, which a rank
+    reading another rank's heads or channels would not change)."""
+    rng = np.random.default_rng(7)
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if key in MIXER_VECTORS:
+            v = rng.normal(size=node.shape).astype(node.dtype) * 0.3
+            return 1 + v if key == "norm_scale" else v
+        return node
+    return walk(p_np)
 
 
 def reference_sequence(jc, p_np, jb, max_len) -> list:
@@ -180,7 +222,8 @@ def worlds(cases):
                 ranks.split_world, n, backend="gloo", device="cpu",
                 timeout=60, deadline=240,
                 args=(n, combine_cases(), cases.models,
-                      (cases.tc, cases.engine_params, TRAFFIC)))
+                      (cases.tc, cases.engine_params, TRAFFIC),
+                      (cases.hybrid_cfg, cases.hybrid_params, TRAFFIC)))
         return done[n]
     return get
 
@@ -212,7 +255,7 @@ def test_combine_matches_attention_over_the_whole_ring(worlds, n):
 def test_split_serving_matches_the_unsplit_port(worlds, cases, n, name):
     """Every rank's prefill, decode and extend logits."""
     rel = BF16_REL if name == "bf16" else REL
-    want, _ = cases.port[name]
+    want = cases.port[name][0]
     for res in worlds(n):
         for got, ref in zip(res["models"][name]["logits"], want):
             close(got, ref, rel)
@@ -232,7 +275,7 @@ def test_rings_split_along_their_slots(worlds, cases, n, name):
     """A ring of C slots is a ``KVShard`` of C/n on every rank where n
     divides C, the whole ring otherwise; the ranks' blocks in rank order
     are the unsplit port's ring, positions exactly."""
-    _, want = cases.port[name]
+    _, want, _ = cases.port[name]
     res = worlds(n)
     for i, (_, k, v, pos) in enumerate(want):
         C = k.shape[1]
@@ -248,6 +291,51 @@ def test_rings_split_along_their_slots(worlds, cases, n, name):
         np.testing.assert_array_equal(got[2], pos)
         close(got[0], k, REL)
         close(got[1], v, REL)
+
+
+@pytest.mark.parametrize("name", RECURRENT_CASES)
+@pytest.mark.parametrize("n", [2, 4])
+def test_recurrent_states_split_by_head_and_width(worlds, cases, n, name):
+    """Where n divides the SSD heads, a rank's ``SSMState`` holds its H/n
+    heads (B, H/n, P, N) and a conv tail of its x channels and the whole
+    B/C (B, k-1, d_inner/n + 2N); where n divides the RG-LRU's width W,
+    its ``RGLRUState`` holds W/n of ``h`` and of the conv tail; otherwise
+    the state is whole.  The ranks' blocks in rank order rebuild the
+    unsplit state, shapes exactly and values within ``REL``, and every
+    rank's B/C tail is the unsplit one."""
+    want = cases.port[name][2]
+    cfg = cases.models[name]["cfg"]
+    N = cfg.ssm_state
+    res = [r["models"][name]["recurrent"] for r in worlds(n)]
+    assert want and all(len(r) == len(want) for r in res)
+    for i, (kind, *whole) in enumerate(want):
+        parts = [r[i] for r in res]
+        assert {p[0] for p in parts} == {kind}
+        if kind == "SSMState":
+            conv, ssm = whole
+            splits = ssm.shape[1] % n == 0
+            for p in parts:
+                assert p[2].shape == (ssm.shape[0], ssm.shape[1] // n
+                                      if splits else ssm.shape[1],
+                                      *ssm.shape[2:])
+            if not splits:
+                for p in parts:
+                    close(p[1], conv, REL)
+                    close(p[2], ssm, REL)
+                continue
+            close(np.concatenate([p[2] for p in parts], axis=1), ssm, REL)
+            xs = np.concatenate([p[1][..., :-2 * N] for p in parts], -1)
+            close(xs, conv[..., :-2 * N], REL)
+            for p in parts:
+                close(p[1][..., -2 * N:], conv[..., -2 * N:], REL)
+        else:
+            conv, h = whole
+            assert h.shape[1] % n == 0
+            for p in parts:
+                assert p[1].shape == (*conv.shape[:2], conv.shape[2] // n)
+                assert p[2].shape == (h.shape[0], h.shape[1] // n)
+            close(np.concatenate([p[1] for p in parts], -1), conv, REL)
+            close(np.concatenate([p[2] for p in parts], -1), h, REL)
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -284,6 +372,23 @@ def test_split_engine_matches_the_unsplit_and_reference_engines(worlds,
             assert pg == pytest.approx(pr, abs=1e-6), res["rank"]
         assert {(kind, k.shape[1]) for kind, k, _, _ in e["rings"]} == \
             {("KVShard", 32 // n)}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_hybrid_engine_matches_the_unsplit_engine(worlds, cases, n):
+    """The hybrid (RG-LRU, RG-LRU, local attention; ReLU DSLOT MLPs) on the
+    same five requests: every rank's streams and plane accounts equal the
+    unsplit port engine's; each rank's pool holds rings of 32/n slots and
+    RG-LRU states of 64/n channels."""
+    plain = ranks.engine_streams(cases.hybrid_cfg, cases.hybrid_params,
+                                 TRAFFIC, None)["streams"]
+    for res in worlds(n):
+        e = res["hybrid"]
+        assert e["streams"] == plain, res["rank"]
+        assert {(kind, k.shape[1]) for kind, k, _, _ in e["rings"]} == \
+            {("KVShard", 32 // n)}
+        assert {(kind, h.shape[-1]) for kind, _, h in e["recurrent"]} == \
+            {("RGLRUState", 64 // n)}
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -22,7 +22,11 @@ the cases cover each way a leaf is read (``train.sharding.model_reads``):
 * granite-moe-1b-a400m (the experts' ``d_ff`` split), at a dropless
   capacity, so that the reference's per-shard dispatch groups and the
   single device's one group drop nothing;
-* mamba2-780m (the ``mixer/`` leaves gathered whole);
+* mamba2-780m (the Mamba2 mixer split by SSD head: its ``w_in``, conv
+  and per-head leaves gathered whole and read in part, ``norm_scale`` and
+  ``w_out`` read as the rank's slice; 8 heads split 4 and 2 ways) and
+  reduced recurrentgemma-2b (the RG-LRU split by width, 64 over 4 and 2;
+  4 q heads over 1 kv head: "repeat" over 4, "group" over 2);
 * reduced olmo-1b with ``vocab_size`` 250, which does not divide 4 (the
   embedding gathered whole, the logits whole).
 
@@ -32,7 +36,10 @@ router's load statistics over the data shards, as the reference's means
 over the whole batch do; at a dropless capacity the groups change nothing,
 so one device is the yardstick.  The spawned ranks
 (``torch_sharded_ranks.train_world``, one world of 4 ranks for the file,
-each on one thread) import only torch and ``repro_torch``.  Tolerances:
+each on one thread) import only torch and ``repro_torch``.  The same world
+runs ``test_torch_model_split.py``'s recurrent mixer cases over (1, 4):
+output, input gradient and every parameter gradient (PART leaves summed)
+against the unsplit mixer at that file's bounds.  Tolerances:
 
 * over every mesh, (1, 4), (2, 2) and (4, 1), the gradient is an f32 sum
   in another order than one device's (the row-parallel products' partial
@@ -64,8 +71,9 @@ from repro_torch.launch.mesh import run_world
 from repro_torch.models.model_zoo import build_model
 from repro_torch.optim.adamw import AdamWConfig, OptState
 from repro_torch.train.step import TrainState, make_train_step
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten_with_path, tree_map
 
+import test_torch_model_split as split_cases
 from test_torch_models import cfg_pair, to_np
 
 GRAD_REL = 1e-5
@@ -80,7 +88,9 @@ CASES = {"olmo-1b": ("olmo-1b", {}),
          "qwen2.5-3b-h8": ("qwen2.5-3b", {"n_heads": 8}),
          "granite-moe-1b-a400m": ("granite-moe-1b-a400m",
                                   {"capacity_factor": 8.0}),
-         "mamba2-780m": ("mamba2-780m", {})}
+         "mamba2-780m": ("mamba2-780m", {}),
+         "recurrentgemma-2b": ("recurrentgemma-2b", {})}
+MIXER_CASES = ("ssm", "ssm-bf16", "rglru")   # test_torch_model_split's
 SPLIT_FLOPS = 0.35      # rank 0's dot FLOPs over (1, 4) against one device's
 ELASTIC = dict(n_steps=6, fail_at=3, lost_nodes=2, ckpt_every=2)
 
@@ -185,6 +195,15 @@ class Cases:
         self.batches = [pipe.next_host_batch()
                         for _ in range(ELASTIC["n_steps"])]
         self.el_dir = str(tmp / "elastic_ckpt")
+        self.mixers, self.mixers_whole = {}, {}
+        for i, name in enumerate(MIXER_CASES):
+            kind, cfg, _ = split_cases.MODULES[name]
+            p, x, kv, ct = split_cases.module_inputs(i, kind, cfg)
+            self.mixers[name] = dict(kind=kind, cfg=cfg,
+                                     params=split_cases.np_tree(p), x=x,
+                                     kv_x=kv, ct=ct)
+            self.mixers_whole[name] = split_cases.run_whole(kind, cfg, p, x,
+                                                            kv, ct)
         self.world = run_world(
             ranks.train_world, 4, backend="gloo", device="cpu", timeout=60,
             deadline=300, args=(
@@ -193,7 +212,7 @@ class Cases:
                 (olmo, self.ck_state, self.host["olmo-1b"], OPT,
                  self.ck_dir),
                 (olmo, self.state["olmo-1b"], self.batches, OPT,
-                 self.el_dir, ELASTIC)))
+                 self.el_dir, ELASTIC), self.mixers))
 
 
 @pytest.fixture(scope="module")
@@ -240,6 +259,25 @@ def test_split_step_computes_a_quarter_over_model_4(cases):
     got = cases.world[0]["flops14"]
     assert 0 < got <= SPLIT_FLOPS * cases.single_flops, (
         got, cases.single_flops, got / cases.single_flops)
+
+
+@pytest.mark.parametrize("name", MIXER_CASES)
+def test_split_mixer_matches_whole_over_model_4(cases, name):
+    """A recurrent mixer over (1, 4) against the unsplit one at the full
+    width, as ``test_torch_model_split.py`` holds it over 2: output and
+    input gradient on every rank, the whole parameter gradient (SPLIT
+    leaves gathered, PART leaves summed) within that file's bound."""
+    _, cfg, _ = split_cases.MODULES[name]
+    rel = split_cases.REL if cfg.dtype == "float32" else split_cases.BF16_REL
+    y, gx, grads = cases.mixers_whole[name]
+    for w in cases.world:
+        got = w["mixers"][name]
+        split_cases.close(got["y"], y, rel)
+        split_cases.close(got["gx"], gx, rel)
+        for (path, a), (_, b) in zip(flatten_with_path(got["grads"]),
+                                     flatten_with_path(grads)):
+            assert a.shape == b.shape, path
+            split_cases.close(a, b, rel)
 
 
 def counted_single_step(tc, state_np, host) -> float:

@@ -357,6 +357,13 @@ SPLIT16 = {
     "mamba2-780m": (None, None, None, None, "whole"),
     "recurrentgemma-2b": ("whole", "whole", "split", None, "split"),
 }
+# the recurrent mixers on 16 x 16: mamba2's 48 SSD heads and
+# recurrentgemma's RG-LRU width of 2560 divide 16
+MIXER16 = {
+    "mamba2-780m": [(r"/mixer/(w_in|conv_w|conv_b|A_log|D_skip|dt_bias)$",
+                     "part"), (r"/mixer/(norm_scale|w_out)$", "split")],
+    "recurrentgemma-2b": [(r"/mixer/", "split")],
+}
 
 
 @pytest.mark.parametrize("arch", sorted(SPLIT16))
@@ -366,9 +373,12 @@ def test_model_reads_table(port_params, arch):
     divides them, ``wk``/``wv`` split under "kv" and read in part under
     "repeat" (every 7 B-and-up model and qwen, granite, h2o), ``d_ff`` and
     the vocab split where 16 divides them (granite's 49155, internvl2's
-    92553 and seamless' 256206 do not), recurrentgemma's 10 heads whole, and
-    norms, the router, the mixers and ``wo``'s bias whole.  A SPLIT leaf's
-    gather spec drops ``model``; every other spec is the storage spec."""
+    92553 and seamless' 256206 do not), recurrentgemma's 10 heads whole,
+    the recurrent mixers split (``MIXER16``: mamba2's ``w_in``, conv and
+    per-head leaves read in part, its ``norm_scale`` and ``w_out`` split;
+    every RG-LRU leaf split), and norms, the router and ``wo``'s bias
+    whole.  A SPLIT leaf's gather spec drops ``model``; every other spec is
+    the storage spec."""
     fake = FakeMesh(MESHES["16x16"])
     cfg = ARCHS[arch]
     params = port_params(arch)
@@ -376,7 +386,8 @@ def test_model_reads_table(port_params, arch):
     heads, kv, mlp, moe, vocab = SPLIT16[arch]
     want_of = [(r"/wq/(w|b)$|/wo/w$", heads), (r"/(wk|wv)/(w|b)$", kv),
                (r"/mlp/", mlp), (r"/moe/(up|gate|down)$", moe),
-               (r"^(embed/embedding|head/w)$", vocab)]
+               (r"^(embed/embedding|head/w)$", vocab)] \
+        + MIXER16.get(arch, [])
     seen = set()
     for path, got in reads.items():
         want = "whole"

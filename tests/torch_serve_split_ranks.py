@@ -17,6 +17,8 @@ from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import pspec
 from repro_torch.models.attention import KVCache, flash_attention
 from repro_torch.models.model_zoo import build_model
+from repro_torch.models.rglru import RGLRUState
+from repro_torch.models.ssm import SSMState
 from repro_torch.serve import Request, ServeConfig, ServeEngine
 from repro_torch.train.sharding import model_slice
 from repro_torch.tree import leaves
@@ -84,6 +86,22 @@ def rings(state) -> list:
     return found
 
 
+def recurrent(state) -> list:
+    """Every recurrent state of a decode state in layer order: its class
+    name and its fields (numpy)."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, (SSMState, RGLRUState)):
+            found.append((type(node).__name__,
+                          *(a.float().numpy() for a in node)))
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+    walk(state["caches"])
+    return found
+
+
 def model_case(case: dict, mesh) -> dict:
     """A config's serving sequence on this rank's model slice inside
     ``pspec.model_shard``: its logits, its rings, and the share of the
@@ -97,6 +115,7 @@ def model_case(case: dict, mesh) -> dict:
             k: t(v) for k, v in case["batch"].items()}, case["max_len"])
     size = sum(a.numel() for a in leaves(mine))
     return dict(logits=logits, rings=rings(state),
+                recurrent=recurrent(state),
                 share=size / sum(a.numel() for a in leaves(whole)))
 
 
@@ -118,7 +137,8 @@ def engine_streams(cfg, params_np, traffic, mesh) -> dict:
         eng.step()
     assert all(r.done for r in reqs)
     out = dict(streams=[(list(map(int, r.out)), r.result.planes_used_mean)
-                        for r in reqs], rings=rings(eng.state))
+                        for r in reqs], rings=rings(eng.state),
+               recurrent=recurrent(eng.state))
     pspec.set_mesh(None)
     return out
 
@@ -137,9 +157,10 @@ def other_axis(cfg, params_np, mesh) -> str:
     return ""
 
 
-def split_world(rank, n, combines, models, engine):
+def split_world(rank, n, combines, models, engine, hybrid):
     """Every check of a world of ``n`` ranks over a (1, n) mesh: the
-    softmax combine, each config's serving sequence, and the engine."""
+    softmax combine, each config's serving sequence, the engine and the
+    hybrid's engine."""
     mesh = make_test_mesh(model=n)
     cfg, params_np, traffic = engine
     return dict(rank=rank,
@@ -147,4 +168,5 @@ def split_world(rank, n, combines, models, engine):
                 models={name: model_case(c, mesh)
                         for name, c in models.items()},
                 engine=engine_streams(cfg, params_np, traffic, mesh),
+                hybrid=engine_streams(*hybrid, mesh),
                 other_axis=other_axis(cfg, params_np, mesh))

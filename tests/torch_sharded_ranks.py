@@ -121,15 +121,20 @@ def elastic(cfg, state_np, batches, opt, ckdir, n_steps, fail_at,
                 restored=ck.restored)
 
 
-def train_world(rank, cases, ck_case, el_case):
+def train_world(rank, cases, ck_case, el_case, mixers):
     """Every check of ``test_torch_sharded_train.py`` in a world of 4: the
     sharded step of each case over ``MESHES``; the olmo case's step over
     (1, 4) counted by ``launch.op_cost`` (its dot FLOPs); a sharded
     checkpoint of the olmo case's stepped state over (2, 2), restored onto
-    (4, 1); the elastic restart."""
+    (4, 1); the elastic restart; and ``mixers``, recurrent mixer cases of
+    ``torch_split_ranks.module_case``, over (1, 4)."""
+    from torch_split_ranks import module_case
+
     from repro_torch.launch.op_cost import OpCost
 
-    out = {"rank": rank, "steps": {}}
+    mesh14 = make_mesh((1, 4), AXES)
+    out = {"rank": rank, "steps": {},
+           "mixers": {k: module_case(c, mesh14) for k, c in mixers.items()}}
     for name, (cfg, state_np, host, opt) in cases.items():
         for shape in MESHES:
             full, metrics, local, coord = one_step(

@@ -1,7 +1,9 @@
 """Rank bodies of ``test_torch_model_split.py``: the model-axis operators
-("f", "g", the max), the vocab-parallel cross-entropy and the split
-attention, MLP, expert FFN, embedding and head, on a ``gloo`` world of 2
-ranks over a (1, 2) mesh.
+("f", "g", the max, the mixers' sum and gather), the vocab-parallel
+cross-entropy and the split attention, MLP, expert FFN, embedding, head
+and recurrent mixers, on a ``gloo`` world of 2 ranks over a (1, 2) mesh
+(``module_case`` also runs in ``test_torch_sharded_train.py``'s world of
+4).
 
 Spawned ranks import this module, which imports only numpy, torch and
 ``repro_torch``.  The test process hands them numpy inputs; each rank runs
@@ -14,7 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import (all_reduce_max, all_reduce_sum_,
-                                     copy_to_model, reduce_from_model)
+                                     copy_to_model, gather_over_model,
+                                     reduce_from_model, sum_over_model)
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import pspec
 from repro_torch.models.model_zoo import loss_fn
@@ -60,6 +63,19 @@ def ops_case(case, mesh):
     m = t(case["m"])[r]
     mx = all_reduce_max(m.requires_grad_(), mesh)
     out.update(max=npy(mx), max_grad=mx.requires_grad)
+
+    # the mixers' two: a sum read by every rank, a gather read in part
+    s = t(case["s"])[r].requires_grad_()
+    y = sum_over_model(s, mesh)
+    gs, = torch.autograd.grad((y * t(case["sct"])[r]).sum(), s)
+    u = t(case["u"])
+    cols = u.shape[1] // n
+    ur = u[:, r * cols:(r + 1) * cols].clone().requires_grad_()
+    whole = gather_over_model(ur, mesh, -1)
+    gu, = torch.autograd.grad(
+        ((whole @ t(case["uw"])[r]) * t(case["uct"])[r]).sum(), ur)
+    out.update(sum_y=npy(y), sum_gs=npy(gs), gather_y=npy(whole),
+               gather_gu=npy(gu))
     return out
 
 
@@ -110,6 +126,8 @@ def module_case(case, mesh):
     from repro_torch.models.layers import embed_tokens, lm_logits
     from repro_torch.models.mlp import apply_mlp
     from repro_torch.models.moe import expert_ffn
+    from repro_torch.models.rglru import apply_rglru
+    from repro_torch.models.ssm import apply_ssm
 
     cfg = case["cfg"]
     dt = getattr(torch, cfg.dtype)
@@ -135,6 +153,9 @@ def module_case(case, mesh):
             y = apply_mlp(mine["mlp"], x, cfg)
         elif kind == "moe":
             y = expert_ffn(mine["moe"], x, cfg)
+        elif kind in ("ssm", "rglru"):
+            mixer = apply_ssm if kind == "ssm" else apply_rglru
+            y, _ = mixer(mine["mixer"], x, cfg)
         else:                                   # embed then head
             h = embed_tokens(mine["embed"], x, cfg)
             y = lm_logits(mine["head"], mine["embed"], h, cfg)
