@@ -292,15 +292,20 @@ Phases (any failure exits non-zero and prints no result line):
    its first ``SH_TIMED_LAYERS`` of 16 layers (the depth cut that keeps
    the script within its time limit; phase 9's config and data: seq 2048,
    global batch 8, M = 2) over (2, 1) and over (1, 2), 1 untimed and
-   ``SH_TIMED`` timed steps each, a
-   sharded ``save_async`` after the first timed step of the (2, 1) run;
+   ``SH_TIMED`` timed step each (a cut that keeps the script within its
+   time limit since the step gathers its layers at each use), a sharded
+   ``save_async`` after the untimed step of the (2, 1) run, its write
+   overlapping the timed step;
    printed per rank: every step's loss, grad_norm, lr, wall and the
-   seconds of its own collectives by kind (parameter gather and gradient
-   reduce over the batch axis, the split's collectives over the model
-   axis; synchronized before and after, inside the step's wall), the
-   median, min and max wall, the world's tokens/s beside phase 9's, the
-   collective shares, the stored state and the peak memory over the steps,
-   and the checkpoint's snapshot and write times.  Gate (d): the untimed
+   seconds of its own collectives by kind (parameter gathers -- each remat
+   group's leaves at use and again in its recompute, ``pspec.layer_gather``
+   -- and gradient reduce-scatters over the batch axis, the split's
+   collectives over the model axis; synchronized before and after, inside
+   the step's wall), the median, min and max wall, the world's tokens/s
+   beside phase 9's, the collective shares, the stored state and the peak
+   memory over the steps beside ``SH_WHOLE_TREE_PEAK_GB``, and the
+   checkpoint's snapshot and write times.  Every sharded step of the phase
+   gathers its layer stacks group by group.  Gate (d): the untimed
    first (1, 2) step counted by ``op_cost`` on rank 0, its dot FLOPs at most
    ``SH_SPLIT_FLOPS`` of the same model's step on the card alone at the
    same global batch (``timed_yardstick``).  Gate (e): mamba2-780m at
@@ -323,9 +328,12 @@ Phases (any failure exits non-zero and prints no result line):
    counter (216); (d) the olmo-1b ``train_4k`` cell on the 16 x 16 fake
    world through the dry run's CLI in a subprocess: its record (with the
    peak's breakdown), roofline and summarize rows, gate: MODEL/op at least
-   ``MODEL_OP_MIN`` (the step's compute split over the model axis).  (b)
-   and (d) need no card: they start side by side as phase 11 starts and
-   run beside it on the host's cores.
+   ``MODEL_OP_MIN`` (the step's compute split over the model axis); (e)
+   the dry run of phase 11's (2, 1) timed program (``trace_cell`` on a
+   fake world of 2 ranks, fake CPU tensors, in a subprocess), gate: its
+   peak within 5% of rank 0's measured peak over that run's steps.  (b),
+   (d) and (e) need no card: they start side by side as phase 11 starts
+   and run beside it on the host's cores.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record, and the card's name and power limit are
@@ -3467,11 +3475,15 @@ SH_TIMEOUT = 600                # seconds a collective may wait for a peer
 SH_DEADLINE = 900               # seconds the whole world may take
 SH_MESHES = ((2, 1), (1, 2))    # gate (a): (data, model)
 SH_AXES = ("data", "model")
-SH_TIMED = 2                    # timed steps after one untimed step
+SH_TIMED = 1                    # timed steps after one untimed step
 SH_TIMED_LAYERS = 8             # the timed runs' depth: olmo-1b's first 8 of 16
 SH_TIMED_MESHES = ((2, 1), (1, 2))
 SH_SPLIT_FLOPS = 0.6            # gate (d): (1, 2) rank 0 / one device
-SH_CKPT_AFTER = 1               # sharded save_async after this timed step
+SH_CKPT_AFTER = 0               # sharded save_async after this timed step
+# a rank's peak over the timed runs when the step gathered the whole
+# parameter tree before the forward and all-reduced full-size gradients
+# (H100 80GB HBM3 at 700 W), printed beside the layer-by-layer gather's
+SH_WHOLE_TREE_PEAK_GB = {(2, 1): 13.57, (1, 2): 11.03}
 SH_ELASTIC = dict(n_steps=8, fail_at=4, lost_nodes=1, ckpt_every=3)
 # Gate (b) holds the restart apart from the reordering.  The run's first
 # steps take each rank's rows one at a time (one row a microbatch on a
@@ -3840,7 +3852,8 @@ def sh_timed(rank, dev, card, shape) -> dict:
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(rows=rows, peak_gb=peak / 1e9, stored_gb=stored / 1e9,
+    return dict(rows=rows, peak=peak, peak_gb=peak / 1e9,
+                stored_gb=stored / 1e9,
                 n_params=n_params, snap_ms=snap_ms, write_s=write_s,
                 wait_s=wait_s, ckpt_gb=nbytes / 1e9, dot_flops=flops)
 
@@ -3899,7 +3912,8 @@ def log_timed(rank, shape, t, base, tokens, single_tps, card) -> None:
         f"step's own wall (median; gather {share('gather_ms'):.3f}, reduce "
         f"{share('reduce_ms'):.3f}, model {share('model_ms'):.3f}); stored "
         f"state {t['stored_gb']:.2f} GB, peak memory over the steps "
-        f"{t['peak_gb']:.2f} GB [{card}]")
+        f"{t['peak_gb']:.2f} GB (the whole-tree gather's: "
+        f"{SH_WHOLE_TREE_PEAK_GB[shape]:.2f} GB) [{card}]")
     if rank == 0 and t["snap_ms"] is not None:
         log(f"  [rank {rank}] sharded save_async after step "
             f"{1 + SH_CKPT_AFTER}: snapshot (gather + host copy) "
@@ -3995,10 +4009,11 @@ def timed_yardstick(dev) -> float:
     return cost.totals()["dot_flops"]
 
 
-def phase11(card, dev, single_tps: float) -> None:
+def phase11(card, dev, single_tps: float) -> dict:
     """Sharded training over ``SH_RANKS`` ranks on this one card (see the
     module docstring): the single-device yardsticks and gate (c) here, then
-    the world.  ``single_tps``: phase 9's tokens/s, for the log."""
+    the world.  ``single_tps``: phase 9's tokens/s, for the log.  Returns
+    rank 0's peak bytes over each timed run, by mesh (phase 12 (e))."""
     from repro_torch.launch.mesh import run_world
     from repro_torch.train.step import make_train_step, microbatch_grads
     from repro_torch.tree import leaves
@@ -4194,6 +4209,8 @@ def phase11(card, dev, single_tps: float) -> None:
         f"are GLU; sharded training launches no hand-written kernel)")
     if failed:
         raise AssertionError("phase 11: " + "; ".join(failed))
+    return {shape: res[0]["timed"][shape]["peak"]
+            for shape in SH_TIMED_MESHES}
 
 
 # ------------------------------------------------------------ phase 3
@@ -4253,17 +4270,64 @@ print(json.dumps(trace_cell(get_arch("{TRAIN_ARCH}"), shape, None)))
 """
 
 
+# the dry run of phase 11's (2, 1) timed program, rank 0 of a fake world of
+# SH_RANKS: microbatches_for gives each rank TRAIN_MICRO microbatches
+P11_DRYRUN = f"""
+import dataclasses, json
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch.dryrun import start_world, trace_cell
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import pspec
+start_world({SH_RANKS})
+mesh = make_mesh(({SH_RANKS}, 1), {SH_AXES!r})
+pspec.set_mesh(mesh)
+shape = ShapeConfig("phase11", "train", {TRAIN_SEQ}, {TRAIN_BATCH},
+                    microbatches={TRAIN_MICRO // 2})
+arch = dataclasses.replace(get_arch("{TRAIN_ARCH}"),
+                           n_layers={SH_TIMED_LAYERS})
+print(json.dumps(trace_cell(arch, shape, mesh)))
+"""
+
+
 PHASE12_OUT = ROOT / "build" / "phase12_dryrun"
 
 
 def phase12_start() -> tuple:
-    """Phase 12's two dry runs, (b) and (d), started as subprocesses on the
-    host's cores (they need no card and nothing phase 9 measures), so that
-    they run beside phase 11; the caller stops them (``stop``)."""
+    """Phase 12's three dry runs, (b), (d) and (e), started as subprocesses
+    on the host's cores (they need no card and nothing phases 9 and 11
+    measure), so that they run beside phase 11; the caller stops them
+    (``stop``)."""
     return (dryrun_proc(["-c", P9_DRYRUN]),
             dryrun_proc(["-m", "repro_torch.launch.dryrun", "--arch",
                          TRAIN_ARCH, "--shape", "train_4k", "--out",
-                         str(PHASE12_OUT)]))
+                         str(PHASE12_OUT)]),
+            dryrun_proc(["-c", P11_DRYRUN]))
+
+
+def sharded_peak_gate(proc, measured: int) -> None:
+    """Phase 12 (e): the dry run of phase 11's (2, 1) timed program
+    (``proc``, ``P11_DRYRUN``) against rank 0's measured peak over that
+    run's steps."""
+    dry = json.loads(finished(proc, "the phase-11 dry run").splitlines()[-1])
+    mem = dry["memory"]
+    peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    log(f"  (e) dry run of phase 11's ({SH_RANKS}, 1) timed program, rank 0 "
+        f"of a fake world of {SH_RANKS} on fake CPU tensors "
+        f"({dry['compile_s']:.1f} s, M = {dry['microbatches']}): peak "
+        f"{peak / 1e9:.3f} GB predicted (state and batch "
+        f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB) against "
+        f"{measured / 1e9:.3f} GB max_memory_allocated on rank 0 (rel "
+        f"{peak / measured - 1:+.4f}, limit {PEAK_RTOL}); collectives "
+        f"{dry['collectives']['counts']}")
+    log("  (e) the rank's peak: " + ", ".join(
+        f"{k} {v / 1e9:.3f} GB" for k, v in dry["peak_breakdown"].items()))
+    if dry["microbatches"] != TRAIN_MICRO:
+        raise AssertionError(f"gate (e): the dry run took "
+                             f"{dry['microbatches']} microbatches")
+    if abs(peak / measured - 1) > PEAK_RTOL:
+        raise AssertionError(f"gate (e): predicted peak {peak} against "
+                             f"{measured}")
 
 
 def stop(procs) -> None:
@@ -4274,7 +4338,8 @@ def stop(procs) -> None:
             proc.communicate()
 
 
-def phase12(card, trained: dict, lm_counted: dict, procs: tuple) -> None:
+def phase12(card, trained: dict, lm_counted: dict, sharded_peaks: dict,
+            procs: tuple) -> None:
     """The launch tools against the card: (a) phase 9's step counted by
     ``op_cost`` and put through the roofline; (b) the dry run of that same
     one-device program on fake CPU tensors, whose dot FLOPs must equal
@@ -4282,12 +4347,13 @@ def phase12(card, trained: dict, lm_counted: dict, procs: tuple) -> None:
     ``max_memory_allocated``; (c) phase 5's generate counted by ``op_cost``,
     whose opaque DSLOT launches must equal the launch counter; (d) the
     olmo-1b ``train_4k`` cell on the 16 x 16 fake world through the CLI,
-    its roofline and summarize rows.  (b) and (d) are ``procs``
-    (``phase12_start``), side by side."""
+    its roofline and summarize rows; (e) the dry run of phase 11's (2, 1)
+    timed program against ``sharded_peaks`` (``sharded_peak_gate``).
+    (b), (d) and (e) are ``procs`` (``phase12_start``), side by side."""
     from repro_torch.launch import roofline, summarize
 
     out_dir = PHASE12_OUT
-    p9, cell = procs
+    p9, cell, p11 = procs
     try:
         # (a)
         c = trained["counted"]["totals"]
@@ -4372,7 +4438,10 @@ def phase12(card, trained: dict, lm_counted: dict, procs: tuple) -> None:
         if row["useful_ratio"] < MODEL_OP_MIN:
             raise AssertionError(f"gate (d): MODEL/op "
                                  f"{row['useful_ratio']} < {MODEL_OP_MIN}")
-    finally:   # neither subprocess outlives the phase
+
+        # (e)
+        sharded_peak_gate(p11, sharded_peaks[(SH_RANKS, 1)])
+    finally:   # no subprocess outlives the phase
         stop(procs)
 
 
@@ -4567,18 +4636,18 @@ def main() -> int:
 
     # -------------------------------------------------- 11. sharded training
     log(f"phase 11: sharded training over {SH_RANKS} ranks [{card}] (phase "
-        f"12's two dry runs start beside it, on the host's cores)")
+        f"12's three dry runs start beside it, on the host's cores)")
     t0 = time.perf_counter()
     procs = phase12_start()
     try:
-        phase11(card, dev, trained["tps"])
+        sharded_peaks = phase11(card, dev, trained["tps"])
         log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
         # ---------------------------------------------- 12. launch tools
         log(f"phase 12: the op counter, the dry run and the roofline "
             f"[{card}]")
         t0 = time.perf_counter()
-        phase12(card, trained, lm_counted, procs)
+        phase12(card, trained, lm_counted, sharded_peaks, procs)
         log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
     finally:
         stop(procs)

@@ -14,6 +14,12 @@ absorb other errors (the serving engine's step retry) let it through.
 Under ``gloo`` every collective here takes CUDA tensors as they are; only the
 point-to-point ring of ``overlap.py`` copies through the host.
 
+``gather_for_use`` is the sharded train step's ZeRO-3 gather of one stored
+parameter slice at its use (``models/pspec.py`` ``layer_gather``): an
+``all_gather`` over each axis the slice is split on, whose backward
+reduce-scatters the gradient back to the slice in f32 and adds it to an
+f32 accumulator of the step's (a sink) instead of handing it to autograd.
+
 ``copy_to_model`` and ``reduce_from_model`` are Megatron's "f" and "g", the
 autograd operators around a column- and row-parallel pair of products over
 the model axis (the sharded train step's split, ``models/pspec.py``
@@ -45,8 +51,9 @@ import torch.distributed as dist
 __all__ = ["all_gather", "all_to_all", "all_reduce_max", "all_reduce_mean",
            "all_reduce_mean_grad", "all_reduce_sum_", "axis_rank",
            "axis_size", "combine_softmax", "copy_to_model",
-           "gather_from_model", "gather_over_model", "mesh_barrier",
-           "reduce_from_model", "sum_over_model"]
+           "gather_for_use", "gather_from_model", "gather_over_model",
+           "mesh_barrier", "reduce_from_model", "reduce_scatter",
+           "sum_over_model"]
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -78,6 +85,26 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     except RuntimeError as e:
         raise _failed("all_gather", axis, e) from e
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``axis``, taken in f32 and cut
+    along ``dim`` into as many blocks as the axis has ranks: this rank's
+    block (its slot in ``all_gather``'s result), f32."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t.to(torch.float32)
+    src = t.movedim(dim, 0).to(torch.float32,
+                               memory_format=torch.contiguous_format)
+    out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+    scatter = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    try:
+        scatter(out, src, group=mesh.get_group(axis))
+    except RuntimeError as e:
+        raise _failed("reduce_scatter", axis, e) from e
+    return out.movedim(0, dim)
 
 
 def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -238,6 +265,63 @@ class _GatherOverModel(torch.autograd.Function):
         lo = axis_rank(ctx.mesh, ctx.axis) * ctx.size
         return whole.narrow(ctx.dim, lo, ctx.size).contiguous(), None, \
             None, None, None
+
+
+class _GatherForUse(torch.autograd.Function):
+    """A stored parameter slice gathered for use: ``all_gather`` over each
+    ``(axis, dim)`` of ``gathers``, innermost first.  The backward takes
+    the gradient of the gathered leaf (in its dtype) back to the slice in
+    f32 -- over each gathered axis in reverse, a reduce-scatter where the
+    axis is in ``sums`` and the rank's block otherwise; then a sum over
+    each axis of ``sums`` the slice is not split on -- and adds it to
+    ``sink``.  Nothing reaches the slice through autograd, which would
+    round the f32 sum to the slice's dtype; ``token`` (an empty tensor
+    that requires grad) is the input that puts the gather on autograd's
+    path.  No gathered tensor is saved."""
+
+    @staticmethod
+    def forward(ctx, x, token, mesh, gathers, sums, sink, timer):
+        ctx.mesh, ctx.gathers, ctx.sums = mesh, gathers, sums
+        ctx.sink, ctx.timer = sink, timer
+        with _timed(timer, "gather"):
+            for axis, dim in gathers:
+                x = all_gather(x, mesh, axis, dim)
+        return x if gathers else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, split = ctx.mesh, {a for a, _ in ctx.gathers}
+        with _timed(ctx.timer, "reduce"):
+            for axis, dim in reversed(ctx.gathers):
+                if axis in ctx.sums:
+                    g = reduce_scatter(g, mesh, axis, dim)
+                else:              # alike on every rank: its own block
+                    n = g.shape[dim] // axis_size(mesh, axis)
+                    g = g.narrow(dim, axis_rank(mesh, axis) * n, n)
+            rest = [a for a in ctx.sums if a not in split]
+            if rest:
+                g = g.to(torch.float32, memory_format=torch.contiguous_format,
+                         copy=True)
+                for axis in rest:
+                    all_reduce_sum_(g, mesh, axis)
+        ctx.sink.add_(g)
+        return None, None, None, None, None, None, None
+
+
+def gather_for_use(x: torch.Tensor, token: torch.Tensor, mesh,
+                   gathers: tuple, sums: tuple, sink: torch.Tensor,
+                   timer=None) -> torch.Tensor:
+    """``x``, a stored parameter slice, gathered whole over the ``(axis,
+    dim)`` pairs of ``gathers`` (innermost axis first) inside
+    ``timer("gather")``.  Its backward adds to ``sink`` (f32, shaped like
+    ``x``) the gradient of the gathered leaf summed in f32 over the axes of
+    ``sums`` and cut to ``x``'s block -- a reduce-scatter over each
+    gathered axis of ``sums``, the rank's block of the others, an
+    ``all_reduce`` over the axes of ``sums`` ``x`` is not split on --
+    inside ``timer("reduce")``; autograd sees no gradient of ``x``.  The
+    output requires grad through ``token``."""
+    return _GatherForUse.apply(x, token, mesh, tuple(gathers), tuple(sums),
+                               sink, timer)
 
 
 def sum_over_model(x: torch.Tensor, mesh, axis: str = "model",

@@ -25,9 +25,13 @@ Rank 0's program, by shape kind: train -- ``init_train_state``, its
 ``microbatches_for``'s depth, whose compute is split over ``model``
 (heads, ``d_ff``, the vocab, the Mamba2 mixer's heads and the RG-LRU's
 width, with parameters gathered over the batch axes only where the split
-reads the rank's slice; the record's
-``peak_breakdown`` divides a rank's peak into its stored state, the
-gathered parameters, their f32 gradient sum and the rest); prefill --
+reads the rank's slice; the layer stacks' parameters gathered group by
+group at use, their gradients reduce-scattered into f32 slices; the
+record's ``peak_breakdown`` divides a rank's peak into its stored state,
+the largest group's gathered parameters, the gathered leaves outside the
+stacks and their f32 gradient sum, the stacks' f32 gradient slices, the
+largest gathered leaf's gradient on its way to a slice, and the rest,
+activations most of it); prefill --
 ``Model.prefill`` on rank 0's batch slice (``batch_pspec``); decode --
 ``init_decode_state`` and ``decode_step`` on that slice.  Both run on rank
 0's model slice of the parameters (``train.sharding.model_slice``) inside
@@ -352,29 +356,51 @@ def _train_run(model, mesh, specs: dict, rows: int, M: int) -> dict:
 
 
 def _gathered_bytes(cfg, mesh, params, specs) -> dict:
-    """A train step's largest buffers on a rank besides its state, bytes
-    each: the parameters as ``gather_tree`` rebuilds them (a SPLIT leaf of
-    ``sharding.model_reads`` stays the rank's model slice), one
-    microbatch's gradients of them (the parameters' dtype, live while
-    ``microbatch_grads`` adds them up) and their f32 sum."""
-    from repro_torch.train.sharding import (gather_specs, model_reads)
+    """A train step's largest buffers on a rank besides its state and
+    activations, bytes each, by the parameters' gather plan
+    (``sharding.gather_specs``: a SPLIT leaf of ``sharding.model_reads``
+    stays the rank's model slice): ``group_gathered``, the largest layer
+    group's leaves gathered at use (one group of a Stack's ``groups``, or
+    one rest layer); ``outside_gathered`` and ``outside_grad_f32``, the
+    leaves outside the stacks, gathered once, and their gradients' f32 sum;
+    ``grad_slices_f32``, the stacks' f32 gradient slices; ``leaf_grad``,
+    the largest gathered stack leaf's gradient in its dtype beside its f32
+    copy (a group's backward hands each leaf's gradient to its
+    reduce-scatter as it is made)."""
+    from repro_torch.train.sharding import (gather_specs, model_reads,
+                                            stack_plan)
 
     sizes = _axis_sizes(mesh)
-    gspecs = gather_specs(specs, model_reads(mesh, cfg, params), mesh)
-    gathered = grads = 0
-
-    def one(t, spec):
-        nonlocal gathered, grads
+    reads = model_reads(mesh, cfg, params)
+    flat = []
+    tree_map(lambda *a: flat.append(a), params,
+             map_with_path(lambda path, _: path, params),
+             stack_plan(mesh, specs, reads, params),
+             gather_specs(specs, reads, mesh))
+    out = dict.fromkeys(("group_gathered", "outside_gathered",
+                         "outside_grad_f32", "grad_slices_f32",
+                         "leaf_grad"), 0)
+    groups: dict = {}
+    for t, path, plan, spec in flat:
         n = t.numel()
         for e in spec:
             for a in (e if isinstance(e, tuple) else (e,)):
                 n *= sizes[a] if a is not None else 1
-        gathered += n * t.element_size()
-        grads += n * 4
-
-    tree_map(one, params, gspecs)
-    return {"gathered_params": gathered, "grad_microbatch": gathered,
-            "grad_sum_f32": grads}
+        if plan is None:
+            out["outside_gathered"] += n * t.element_size()
+            out["outside_grad_f32"] += n * 4
+            continue
+        out["grad_slices_f32"] += t.numel() * 4
+        if plan.stacked:
+            n //= t.shape[0]
+            group = path.split("/groups/")[0]
+        else:
+            group = "/".join(path.split("/")[:path.split("/").index(
+                "rest") + 2])
+        groups[group] = groups.get(group, 0) + n * t.element_size()
+        out["leaf_grad"] = max(out["leaf_grad"], n * (t.element_size() + 4))
+    out["group_gathered"] = max(groups.values(), default=0)
+    return out
 
 
 def _extrapolate(one: dict, two: dict, M: int) -> dict:

@@ -27,6 +27,12 @@ them for serving), with ``copy_to_model`` / ``reduce_from_model`` ("f" /
 against its own slots and ``model_combine`` joins the ranks' online-softmax
 states.  Outside ``model_shard`` nothing splits, whatever mesh is
 installed, but a DSLOT MLP prepared with one (``dslot_prepare(mesh=...)``).
+
+``layer_gather`` is where a layer ``Stack`` reads stored parameter slices:
+inside it (the sharded train step's forward and backward) ``Stack.apply``
+gathers each layer's leaves just before the layer runs (``gather_leaf``),
+and their gradients go back to f32 slices of the step's; outside it a
+Stack reads its parameters as they are.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from repro_torch import distributed
 from repro_torch.distributed import axis_size
 
 __all__ = ["Splits", "active_splits", "constrain", "copy_to_model",
-           "data_shard", "fsdp_size", "gather_over_model", "head_scheme",
+           "data_shard", "fsdp_size", "gather_leaf", "gather_over_model",
+           "head_scheme", "layer_gather",
            "model_combine", "model_gather", "model_max", "model_shard",
            "model_split", "parts_cut", "reduce_from_model", "ring_splits",
            "set_mesh", "shard_mean", "splits", "sum_over_model", "tp_rank",
@@ -49,6 +56,7 @@ _FSDP: tuple = ()
 _TP: str | None = None
 _SHARD = None        # (mesh, batch axes) inside ``data_shard``
 _SPLIT = None        # (mesh, model axis, timer, parts_cut) in ``model_shard``
+_GATHER = None       # (mesh, {id: (plan, sink)}, token, timer) in layer_gather
 
 
 def set_mesh(mesh) -> None:
@@ -134,6 +142,38 @@ def model_shard(mesh, axis: str = "model", timer=None,
         yield
     finally:
         _SPLIT = prev
+
+
+@contextlib.contextmanager
+def layer_gather(mesh, table: dict, token, timer=None):
+    """Code inside reads every layer ``Stack`` leaf as a stored slice to be
+    gathered at use (the sharded train step): ``table`` maps the ``id`` of
+    each stored leaf to its ``train.sharding.LeafGather`` and an f32 sink
+    shaped like it, where the gather's backward adds the leaf's gradient
+    slice; ``token``, an empty tensor that requires grad, puts every gather
+    on autograd's path; ``timer(kind)``, an optional context manager around
+    each gather and reduction (kinds ``gather`` and ``reduce``)."""
+    global _GATHER
+    prev, _GATHER = _GATHER, (mesh, table, token, timer)
+    try:
+        yield
+    finally:
+        _GATHER = prev
+
+
+def gather_leaf(t, g: int | None = None):
+    """Stack leaf ``t`` for use by one layer: group ``g``'s entry of a
+    stacked leaf (``g`` None: a rest layer's leaf as it is), inside
+    ``layer_gather`` gathered whole from the stored slice
+    (``distributed.gather_for_use``)."""
+    if _GATHER is None:
+        return t if g is None else t[g]
+    mesh, table, token, timer = _GATHER
+    plan, sink = table[id(t)]
+    if g is not None:
+        t, sink = t[g], sink[g]
+    return distributed.gather_for_use(t, token, mesh, plan.gathers,
+                                      plan.sums, sink, timer)
 
 
 def parts_cut() -> bool:

@@ -22,6 +22,15 @@ groups and rest layers as the reference does.  Under ``cfg.remat`` a train
 forward with grad enabled keeps only each group's input and recomputes the
 group in the backward pass (the reference's ``jax.checkpoint`` with
 ``nothing_saveable``); the rest layers are not recomputed, as there.
+
+Inside ``pspec.layer_gather`` (the sharded train step) the parameters are
+the rank's stored slices: each group's leaves, and each rest layer's, are
+gathered just before the layer runs and, under remat, again in the
+recompute, so a rank holds one group's gathered weights at a time; their
+gradients are reduce-scattered into the step's f32 slices as each group's
+backward finishes.  Without remat autograd keeps every group's gathered
+weights for the backward: the gradients still shrink to slices, the
+weights do not.
 """
 
 from __future__ import annotations
@@ -179,13 +188,17 @@ def apply_layer(p: Params, x: torch.Tensor, cfg, kind: str, *,
 
 # ------------------------------------------------------------- layer stacks
 
-def _index(tree, g: int):
-    """Group ``g``'s layer from stacked params: tensors are sliced on their
-    leading axis, and a list (prepared DSLOT state, one per layer) is
-    indexed."""
+def _index(tree, g: int | None = None):
+    """One layer's params for use: group ``g``'s layer from stacked params
+    (tensors sliced on their leading axis, a list -- prepared DSLOT state,
+    one per layer -- indexed), or with ``g`` None a rest layer's as they
+    are; inside ``pspec.layer_gather`` each tensor is gathered from its
+    stored slice (``pspec.gather_leaf``)."""
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
-    if isinstance(tree, (torch.Tensor, list)):
+    if isinstance(tree, torch.Tensor):
+        return pspec.gather_leaf(tree, g)
+    if isinstance(tree, list) and g is not None:
         return tree[g]
     return tree
 
@@ -271,6 +284,8 @@ class Stack:
             aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
             with model_stats.collect() as sink:
                 for pos, kind in enumerate(self.pattern):
+                    # inside pspec.layer_gather the group's leaves are
+                    # gathered here, so the remat recompute gathers again
                     x, aux = layer(_index(p["groups"][pos], g), x, kind,
                                    g * self.period + pos)
                     aux_g = aux_g + aux
@@ -284,9 +299,10 @@ class Stack:
             # which is dropped, so each group's records and aux count once.
             # The model draws no random numbers, so no RNG state is kept.
             # Inside pspec.model_shard the recompute reruns the group's
-            # model-axis collectives in the backward; every rank builds the
-            # same graph, so every rank recomputes the same groups in the
-            # same order and the collectives pair up.
+            # model-axis collectives in the backward, and inside
+            # pspec.layer_gather its parameter gathers; every rank builds
+            # the same graph, so every rank recomputes the same groups in
+            # the same order and the collectives pair up.
             def body(x, g):
                 return torch.utils.checkpoint.checkpoint(
                     group_body, x, g, use_reentrant=False,
@@ -308,7 +324,7 @@ class Stack:
                     [s[name][i] for s in sinks]))
 
         for i, kind in enumerate(self.rest_kinds):
-            x, aux = layer(p["rest"][i], x, kind,
+            x, aux = layer(_index(p["rest"][i]), x, kind,
                            self.n_groups * self.period + i)
             aux_total = aux_total + aux
         return x, new_caches, aux_total

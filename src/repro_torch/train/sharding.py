@@ -21,8 +21,12 @@ by one ``None``.
 GSPMD places shards and inserts the collectives for the reference; here
 ``shard_tree`` keeps each rank's slice of every leaf and ``gather_tree``
 rebuilds full leaves with ``all_gather`` over each sharded axis, a few
-bucketed collectives for the whole tree.  ``model_reads`` is the table of
-how the sharded train step's split compute (``models/pspec.py``
+bucketed collectives for a whole tree (the checkpointer's snapshot, and the
+sharded train step's leaves outside the layer stacks).  ``stack_plan`` is
+the sharded train step's per-leaf plan of the layer stacks' leaves, which
+it gathers layer by layer at use (``models/pspec.py`` ``layer_gather``),
+as GSPMD gathers them inside the reference's scan.  ``model_reads`` is the
+table of how the sharded train step's split compute (``models/pspec.py``
 ``model_shard``) reads each leaf: a leaf it reads only as the rank's
 ``model`` slice is gathered over the batch axes alone (``gather_specs``),
 and a serving rank stores only what it reads (``model_slice``).
@@ -40,12 +44,12 @@ import torch
 
 from repro_torch.tree import flatten_with_path, map_with_path, tree_map
 
-__all__ = ["PART", "SPLIT", "Shardings", "WHOLE", "batch_pspec", "buckets",
-           "gather_specs", "gather_tree", "local_slice", "model_reads",
-           "model_slice",
+__all__ = ["LeafGather", "PART", "SPLIT", "Shardings", "WHOLE", "batch_pspec",
+           "buckets", "gather_specs", "gather_tree", "local_slice",
            "make_batch_shardings", "make_param_shardings",
-           "make_state_shardings", "mesh_axes", "param_pspec", "replicated",
-           "sanitize_spec", "shard_tree"]
+           "make_state_shardings", "mesh_axes", "model_reads", "model_slice",
+           "param_pspec", "replicated", "sanitize_spec", "shard_tree",
+           "stack_plan"]
 
 BUCKET_BYTES = 256 << 20     # one collective moves at most this much a rank
 
@@ -160,13 +164,57 @@ def model_reads(mesh, cfg, params):
 
 
 def gather_specs(specs, reads, mesh):
-    """The specs ``gather_tree`` gathers the parameters by: each SPLIT
-    leaf's spec without the model axis (it stays the rank's slice), the
-    others' as they are."""
+    """The specs the sharded train step gathers the parameters by
+    (``gather_tree`` and ``stack_plan``): each SPLIT leaf's spec without
+    the model axis (it stays the rank's slice), the others' as they
+    are."""
     _, tp = mesh_axes(mesh)
     return tree_map(
         lambda r, s: P(*(None if e == tp else e for e in s))
         if r == SPLIT else s, reads, specs)
+
+
+class LeafGather(NamedTuple):
+    """How the sharded train step gathers one layer-stack leaf at its use
+    (``distributed.gather_for_use``): ``gathers``, the ``(axis, dim)``
+    ``all_gather``s of one layer's slice, innermost axis first (a stacked
+    leaf's dims counted after ``_index`` took its group); ``sums``, the
+    axes its gradient is summed over (every batch axis, and the model axis
+    for a PART leaf); ``stacked``, whether the leaf holds a Stack's groups
+    on its leading dimension."""
+    gathers: tuple
+    sums: tuple
+    stacked: bool
+
+
+def stack_plan(mesh, specs, reads, params):
+    """A tree shaped like ``params``: for each leaf of a layer ``Stack``
+    its ``LeafGather`` -- gathered by ``gather_specs`` (``specs`` as they
+    are where ``reads`` is None), the stacked leaf's leading ``None``
+    dropped -- and None for the leaves outside every Stack (embedding,
+    head, final and encoder norms), which ``gather_tree`` gathers."""
+    fsdp, tp = mesh_axes(mesh)
+    sizes = _axis_sizes(mesh)
+    gspecs = specs if reads is None else gather_specs(specs, reads, mesh)
+    batch = tuple(a for a in fsdp if sizes[a] > 1)
+    part_sum = (tp,) if tp is not None and sizes[tp] > 1 else ()
+
+    def one(path, spec, read):
+        parts = path.split("/")
+        if "groups" not in parts and "rest" not in parts:
+            return None
+        stacked = "groups" in parts
+        spec = spec[1:] if stacked else spec
+        gathers = tuple((axis, dim) for axis in reversed(list(sizes))
+                        if sizes[axis] > 1
+                        for dim, e in enumerate(spec)
+                        if axis in _spec_axes(e))
+        return LeafGather(gathers, batch + (part_sum if read == PART else ()),
+                          stacked)
+
+    paths = map_with_path(lambda path, _: path, params)
+    return tree_map(one, paths, gspecs,
+                    reads if reads is not None else paths)
 
 
 def model_slice(mesh, cfg, params):

@@ -15,14 +15,18 @@ that steps twice from one state clones it first.
 
 ``make_sharded_train_step`` is the step over a mesh (the reference's
 ``make_train_step`` jitted with FSDP x TP shardings): the state is stored
-sharded by ``train.sharding.make_state_shardings``, each rank gathers the
-parameters over the batch axes, computes the gradients of its slice of the
-batch with the compute split over ``model`` as the reference's
-``constrain`` asks (Megatron's column- and row-parallel attention, MLP and
-expert FFN, a vocab-parallel embedding, head and cross-entropy) and by the
-Mamba2 mixer's heads and the RG-LRU's width (``models/pspec.py``
-``model_shard``), and the gradients are averaged over the batch axes
-before each rank updates its own slices.
+sharded by ``train.sharding.make_state_shardings``.  Each rank computes
+the gradients of its slice of the batch with the compute split over
+``model`` as the reference's ``constrain`` asks (Megatron's column- and
+row-parallel attention, MLP and expert FFN, a vocab-parallel embedding,
+head and cross-entropy) and by the Mamba2 mixer's heads and the RG-LRU's
+width (``models/pspec.py`` ``model_shard``).  As GSPMD does inside the
+reference's scan, the layer stacks' parameters are gathered layer by layer
+at use (and again in the remat recompute), and their gradients are
+reduce-scattered into the rank's f32 slices as each group's backward
+finishes, once per microbatch (``pspec.layer_gather``); the few leaves
+outside the stacks are gathered once and averaged after the last
+microbatch.  Each rank then updates its own slices.
 """
 
 from __future__ import annotations
@@ -38,10 +42,11 @@ from repro_torch.distributed import all_reduce_sum_, axis_size
 from repro_torch.models import pspec
 from repro_torch.models.model_zoo import Model, loss_fn
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
-                                     global_norm, init_opt_state)
-from repro_torch.train.sharding import (PART, SPLIT, buckets, gather_specs,
+                                     init_opt_state)
+from repro_torch.train.sharding import (PART, _axis_sizes, _coords,
+                                        _spec_axes, buckets, gather_specs,
                                         gather_tree, local_slice, mesh_axes,
-                                        model_reads)
+                                        model_reads, stack_plan)
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["CollectiveClock", "TrainState", "init_train_state",
@@ -67,10 +72,23 @@ def init_train_state(model: Model, generator: torch.Generator,
 def microbatch_grads(model: Model, params, batch):
     """``(grads, loss, aux)`` of one batch of ``(M, mb, ...)`` tensors: the
     gradients of ``loss_fn`` summed over the M microbatches in f32 and
-    scaled by ``1/M`` (a tree shaped like ``params``), and the mean loss
-    and aux.  Runs in ``full_f32()``."""
+    scaled by ``1/M`` (a tree shaped like ``params``, each leaf full size),
+    and the mean loss and aux.  Runs in ``full_f32()``.  The one-device
+    step's; the sharded step differentiates only the leaves outside the
+    layer stacks this way (``_summed_grads``)."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    flat = leaves(live)
+    acc, loss, aux, M = _summed_grads(model, live, leaves(live), batch)
+    inv = 1.0 / M
+    torch._foreach_mul_(acc, inv)
+    it = iter(acc)
+    return tree_map(lambda _: next(it), params), loss * inv, aux * inv
+
+
+def _summed_grads(model: Model, live, wrt: list, batch):
+    """``(acc, loss, aux, M)``: the gradients of ``loss_fn(model, live,
+    microbatch)`` with respect to the tensors ``wrt``, summed over the M
+    microbatches of ``batch`` in f32 (zeros for an unused tensor), and the
+    summed loss and aux.  Runs in ``full_f32()``."""
     M = leaves(batch)[0].shape[0]
     acc = loss = aux = None
     with full_f32():
@@ -78,9 +96,9 @@ def microbatch_grads(model: Model, params, batch):
             mb = tree_map(lambda a: a[i], batch)
             with torch.enable_grad():
                 tot, (ce, ax) = loss_fn(model, live, mb)
-                grads = torch.autograd.grad(tot, flat, allow_unused=True)
+                grads = torch.autograd.grad(tot, wrt, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(flat, grads)]
+                     for p, g in zip(wrt, grads)]
             if acc is None:
                 acc = [g.to(torch.float32) for g in grads]
                 loss, aux = ce.detach(), ax.detach()
@@ -88,10 +106,7 @@ def microbatch_grads(model: Model, params, batch):
                 torch._foreach_add_(acc, grads)
                 loss, aux = loss + ce.detach(), aux + ax.detach()
             del grads, tot
-    inv = 1.0 / M
-    torch._foreach_mul_(acc, inv)
-    it = iter(acc)
-    return tree_map(lambda _: next(it), params), loss * inv, aux * inv
+    return acc, loss, aux, M
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig):
@@ -145,13 +160,19 @@ def _reduce_(tensors: list, mesh, axes: tuple, mean: bool) -> list:
 class CollectiveClock:
     """Host seconds spent in a step's collectives (the card synchronized
     before and after each), by kind: ``gather`` (parameters over the batch
-    axes), ``reduce`` (gradients, loss and aux over the batch axes) and
-    ``model`` (the split compute's collectives over the model axis in the
-    forward and backward, and the model-axis sums of gradients and of the
-    gradient norm).  Pass one to ``make_sharded_train_step`` to time a
-    step's collectives inside its own wall; ``None`` times nothing and adds
-    no synchronization.  A kind it has not seen (a split serving forward's
-    ``model_gather`` and ``model_combine``) gets its own entry."""
+    axes, and PART and WHOLE leaves over ``model``: a layer stack's leaves
+    at each use, in the forward and the remat recompute, the other leaves
+    once a step), ``reduce`` (gradients over the batch axes: a stack
+    leaf's reduce-scatter, with its PART sum over ``model``, as each
+    group's backward finishes; the other leaves', loss and aux after the
+    last microbatch; the norm's sum over the batch axes) and ``model`` (the
+    split compute's collectives over the model axis in the forward and
+    backward, the model-axis sums of the other leaves' PART gradients and
+    of the gradient norm).  Pass one to ``make_sharded_train_step`` to time
+    a step's collectives inside its own wall; ``None`` times nothing and
+    adds no synchronization.  A kind it has not seen (a split serving
+    forward's ``model_gather`` and ``model_combine``) gets its own
+    entry."""
 
     def __init__(self):
         self.seconds = {"gather": 0.0, "reduce": 0.0, "model": 0.0}
@@ -177,25 +198,35 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, shardings,
 
     ``state`` holds this rank's slices (``shard_tree`` of a full state by
     ``shardings.specs``); ``batch`` is this rank's slice of the global
-    batch (``data.pipeline.make_global_batch``).  One step:
+    batch (``data.pipeline.make_global_batch``).  Every leaf is gathered by
+    ``sharding.gather_specs``: a leaf that the split compute reads only as
+    the rank's ``model`` slice (``sharding.model_reads`` SPLIT) over the
+    batch axes alone, every other leaf over every axis.  One step:
 
-    * gather the parameters by ``sharding.gather_specs``: a leaf that the
-      split compute reads only as the rank's ``model`` slice
-      (``sharding.model_reads`` SPLIT) over the batch axes alone, every
-      other leaf over every axis;
-    * ``microbatch_grads`` on the batch slice under ``pspec.data_shard``
-      (MoE dispatch takes the slice as one group, the router's load
-      statistics are averaged over the data shards) and
+    * the leaves outside the layer stacks (embedding, head, final and
+      encoder norms) gathered once (``gather_tree``);
+    * the M microbatches' forward and backward on the batch slice under
+      ``pspec.data_shard`` (MoE dispatch takes the slice as one group, the
+      router's load statistics are averaged over the data shards),
       ``pspec.model_shard`` (heads, ``d_ff``, the vocab and the recurrent
-      mixers split over ``model``);
-    * the gradients of leaves gathered whole but read in part (PART:
-      ``wk``/``wv`` under "group" and "repeat", the Mamba2 mixer's
-      ``w_in``, conv and per-head leaves) summed over ``model``; every
-      gradient, the loss and aux averaged over the batch axes (``pod``,
-      ``data``) in bucketed ``all_reduce``s;
-    * ``grad_norm`` of the whole gradient: the squares of SPLIT leaves
-      summed over ``model``, the other leaves (alike on every model rank)
-      counted once; then ``adamw_update`` of this rank's slices.
+      mixers split over ``model``) and ``pspec.layer_gather``: each Stack
+      group's leaves, and each rest layer's, gathered just before the
+      layer runs (again in the remat recompute), their gradients summed
+      over the batch axes in f32 -- a reduce-scatter to the rank's slice
+      -- as each group's backward finishes and added to the step's f32
+      slices (the gather's backward writes them there, not through
+      autograd, which would round the sum to the slice's dtype): no
+      full-size gradient of a stack leaf outside its group's backward.  A
+      PART leaf's gradient (``wk``/``wv`` under "group" and "repeat", the
+      Mamba2 mixer's ``w_in``, conv and per-head leaves) is summed over
+      ``model`` too; a WHOLE leaf's, alike on every model rank, cut to the
+      rank's block;
+    * the other leaves' gradients summed over the microbatches in f32
+      (full size), PART ones summed over ``model``, all averaged over the
+      batch axes with loss and aux in bucketed ``all_reduce``s and cut to
+      the rank's slice; the stack slices scaled to the same mean;
+    * ``grad_norm`` over the stored slices (``_slice_norm``); then
+      ``adamw_update`` of this rank's slices.
 
     All in ``full_f32()``; the metrics are equal on every rank.  The state
     is updated in place, as ``make_train_step``'s is.  Over a model axis of
@@ -205,48 +236,77 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, shardings,
     fsdp, tp = mesh_axes(mesh)
     quiet = contextlib.nullcontext()
     splits = tp is not None and axis_size(mesh, tp) > 1
-    plan = {}      # the first step's reads and gather specs
+    n_batch = 1
+    for a in fsdp:
+        n_batch *= axis_size(mesh, a)
+    plan = {}      # the first step's reads, gather specs and stack plan
 
     def timed(kind, dev):
         return clock(kind, dev) if clock is not None else quiet
 
     def train_step(state: TrainState, batch):
-        dev = leaves(state.params)[0].device
+        flat = leaves(state.params)
+        dev = flat[0].device
         if not plan:
             reads = model_reads(mesh, model.cfg, state.params) \
                 if splits else None
-            plan.update(reads=reads, specs=specs.params if reads is None
-                        else gather_specs(specs.params, reads, mesh))
-        reads, pspecs = plan["reads"], plan["specs"]
+            gspecs = specs.params if reads is None \
+                else gather_specs(specs.params, reads, mesh)
+            plan.update(kinds=None if reads is None else leaves(reads),
+                        specs=_flat_specs(state.params, gspecs),
+                        stored=_flat_specs(state.params, specs.params),
+                        stack=_flat_specs(state.params, stack_plan(
+                            mesh, specs.params, reads, state.params)))
+        kinds, pspecs, stack = plan["kinds"], plan["specs"], plan["stack"]
+        inside = [i for i, sp in enumerate(stack) if sp is not None]
+        outside = [i for i, sp in enumerate(stack) if sp is None]
+        timer = None if clock is None else (lambda kind: clock(kind, dev))
         with full_f32():
+            sinks = {i: torch.zeros(flat[i].shape, dtype=torch.float32,
+                                    device=dev) for i in inside}
             with timed("gather", dev):
-                full = gather_tree(state.params, pspecs, mesh)
-            split = quiet if reads is None else pspec.model_shard(
-                mesh, tp, None if clock is None
-                else (lambda kind: clock(kind, dev)))
-            with pspec.data_shard(mesh, fsdp), split:
-                grads, loss, aux = microbatch_grads(model, full, batch)
-            del full
-            flat = leaves(grads)
-            if reads is not None:
-                kinds = leaves(reads)
+                full = gather_tree([flat[i] for i in outside],
+                                   [pspecs[i] for i in outside], mesh)
+            wrt = [t.detach().requires_grad_() for t in full]
+            token = torch.empty(0, device=dev, requires_grad=True)
+            live = list(flat)
+            for i, t in zip(outside, wrt):
+                live[i] = t
+            it = iter(live)
+            live = tree_map(lambda _: next(it), state.params)
+            table = {id(flat[i]): (stack[i], sinks[i]) for i in inside}
+            split = quiet if kinds is None else pspec.model_shard(mesh, tp,
+                                                                   timer)
+            with pspec.data_shard(mesh, fsdp), split, \
+                    pspec.layer_gather(mesh, table, token, timer):
+                acc, loss, aux, M = _summed_grads(model, live,
+                                                  wrt + [token], batch)
+            del full, wrt, live, table, acc[-1]
+            inv = 1.0 / M
+            torch._foreach_mul_(acc, inv)
+            if kinds is not None:
                 with timed("model", dev):
-                    _reduce_([g for g, k in zip(flat, kinds) if k == PART],
-                             mesh, (tp,), mean=False)
-            stats = torch.stack([loss, aux]).to(torch.float32)
+                    _reduce_([g for g, i in zip(acc, outside)
+                              if kinds[i] == PART], mesh, (tp,), mean=False)
+            stats = torch.stack([loss * inv, aux * inv]).to(torch.float32)
             with timed("reduce", dev):
-                _reduce_(flat + [stats], mesh, fsdp, mean=True)
-            if reads is None:
-                gnorm = global_norm(flat)
-            else:
-                gnorm = _split_norm(flat, kinds, mesh, tp,
-                                    lambda: timed("model", dev))
-            mine = tree_map(lambda g, s: local_slice(g, s, mesh).clone(),
-                            grads, pspecs)
-            del grads, flat
-            params, opt, om = adamw_update(state.params, mine, state.opt,
-                                           opt_cfg, gnorm=gnorm)
+                _reduce_(acc + [stats], mesh, fsdp, mean=True)
+            mine = [None] * len(flat)
+            for i, g in zip(outside, acc):
+                mine[i] = local_slice(g, pspecs[i], mesh).clone()
+            del acc
+            for i in inside:
+                mine[i] = sinks[i]
+            del sinks
+            torch._foreach_mul_([mine[i] for i in inside], inv / n_batch)
+            gnorm = _slice_norm(mine, plan["stored"], mesh, tp,
+                                lambda kind: timed(kind, dev))
+            it = iter(mine)
+            grads = tree_map(lambda _: next(it), state.params)
             del mine
+            params, opt, om = adamw_update(state.params, grads, state.opt,
+                                           opt_cfg, gnorm=gnorm)
+            del grads
         metrics = {"loss": stats[0], "aux": stats[1], **om}
         return TrainState(params=params, opt=opt, step=state.step + 1), \
             metrics
@@ -254,18 +314,30 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, shardings,
     return train_step
 
 
-def _split_norm(flat: list, kinds: list, mesh, tp: str, timed
-                ) -> torch.Tensor:
-    """The global norm of a gradient whose SPLIT leaves are this rank's
-    model slices: their squares summed here and over ``tp``, the other
-    leaves' (alike on every model rank) added once; f32."""
-    def sq(ts):
-        return sum((torch.sum(torch.square(t.to(torch.float32))) for t in ts),
-                   torch.zeros((), dtype=torch.float32,
-                               device=flat[0].device))
+def _flat_specs(params, specs) -> list:
+    """The entries of ``specs`` (a tree shaped like ``params`` whose leaves
+    may be tuples) in ``leaves(params)`` order."""
+    out = []
+    tree_map(lambda _, s: out.append(s), params, specs)
+    return out
 
-    mine = sq(g for g, k in zip(flat, kinds) if k == SPLIT).reshape(1)
-    with timed():
-        all_reduce_sum_(mine, mesh, tp)
-    return torch.sqrt(mine[0] + sq(g for g, k in zip(flat, kinds)
-                                   if k != SPLIT))
+
+def _slice_norm(slices: list, stored: list, mesh, tp, timed
+                ) -> torch.Tensor:
+    """The global norm of a gradient held as this rank's stored slices
+    (``stored``: each slice's storage spec): each slice's squares summed
+    here, a leaf counted on one rank of every axis its spec does not split
+    (its copies there are alike), then the sum over every axis of the mesh
+    (``timed(kind)``: ``model`` for ``tp``, ``reduce`` for the others);
+    f32, equal on every rank."""
+    sizes, coords = _axis_sizes(mesh), _coords(mesh)
+    axes = [a for a in sizes if sizes[a] > 1]
+    mine = torch.zeros(1, dtype=torch.float32, device=slices[0].device)
+    for g, spec in zip(slices, stored):
+        split = {a for e in spec for a in _spec_axes(e)}
+        if all(coords[a] == 0 for a in axes if a not in split):
+            mine += torch.sum(torch.square(g.to(torch.float32)))
+    for a in axes:
+        with timed("model" if a == tp else "reduce"):
+            all_reduce_sum_(mine, mesh, a)
+    return torch.sqrt(mine[0])

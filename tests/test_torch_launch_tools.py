@@ -8,6 +8,7 @@ counts and tracked peak).  The reference's ``dryrun`` module sets
 ``XLA_FLAGS`` when imported, so it is imported inside the tests that need
 it, after JAX has started, and the flag is put back."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -213,10 +214,16 @@ def test_dslot_call_is_one_opaque_op():
 
 
 def test_sharded_step_collectives_follow_the_bucket_plan():
-    """In a gloo world of 2 over a (2, 1) mesh: one all_gather per bucket
-    of the parameters sharded over data, one all_reduce per bucket of the
-    gradients, each of the bytes the plan says."""
-    cfg = ARCHS["olmo-1b"].reduced()
+    """In a gloo world of 2 over a (2, 1) mesh, reduced olmo-1b at 4 layers
+    in two remat groups: one all_gather per bucket of the leaves outside
+    the layer stacks sharded over data and two per group of each stack
+    leaf (forward and recompute), one reduce-scatter per group of each
+    stack leaf's gradient, one all_reduce per bucket of the other
+    gradients and one of the norm, each of the bytes the plan says
+    (``ranks.counted_step``)."""
+    cfg = dataclasses.replace(ARCHS["olmo-1b"].reduced(), n_layers=4,
+                              scan_unroll=2)
+    assert cfg.remat
     world = run_world(ranks.counted_step, 2, backend="gloo", device="cpu",
                       timeout=60, deadline=180, args=(cfg,))
     for r in world:
@@ -315,6 +322,33 @@ for shape in ("train_4k", "decode_32k"):
         a = get_arch(arch).reduced()
         out[f"{arch} {shape}"] = [dryrun.trace_cell(a, s, mesh, fake=f)
                                   for f in (True, False)]
+# reduced olmo-1b at 4 layers in four remat groups: the stacks' leaves
+# gathered at use, one group at a time
+import dataclasses
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.models.model_zoo import build_model
+from repro_torch.train.sharding import (_spec_axes, gather_specs,
+                                        make_param_shardings, model_reads)
+from repro_torch.tree import leaves, tree_map
+g = dataclasses.replace(get_arch("olmo-1b").reduced(), n_layers=4,
+                        scan_unroll=1)
+s = get_shape("train_4k").reduced()
+out["grouped"] = [dryrun.trace_cell(g, s, mesh, fake=f)
+                  for f in (True, False)]
+with FakeTensorMode():
+    params = build_model(g).init(torch.Generator(), device="cpu")
+specs = make_param_shardings(mesh, params)
+gspecs = gather_specs(specs, model_reads(mesh, g, params), mesh)
+
+
+def model_cut(sp):
+    return any("model" in _spec_axes(e) for e in sp)
+
+
+sizes = []   # a leaf the split reads as its model slice: half of it
+tree_map(lambda t, sp, gs: sizes.append(t.numel() * t.element_size() // (
+    2 if model_cut(sp) and not model_cut(gs) else 1)), params, specs, gspecs)
+out["grouped_whole"] = sum(sizes)
 pspec.set_mesh(None)
 # a step of 4 microbatches traced at 1 and 2 and extrapolated, against the
 # whole step run
@@ -332,17 +366,25 @@ print(json.dumps(out))
 def test_fake_trace_counts_what_a_cpu_run_does():
     """In its own process, a fake world of 4 ranks over a (2, 2) mesh: the
     fake trace and a real CPU run of rank 0's program give equal op_cost
-    totals and equal tracked peaks, for a train step and a decode step;
-    and a 4-microbatch step traced at 1 and 2 and extrapolated equals the
-    whole step.  Over the model axis of 2 the decode state splits: olmo's
-    KV rings, and mamba2's SSM states by head, their conv tails' whole B/C
-    channels counted apart."""
+    totals and equal tracked peaks, for a train step (also of a model in
+    four remat groups, whose step gathers one group of a quarter of the
+    stacks' gathered bytes at a time and reduce-scatters the gradients)
+    and a decode step; and a 4-microbatch step traced at 1 and 2 and
+    extrapolated equals the whole step.  Over the model axis of 2 the
+    decode state splits: olmo's KV rings, and mamba2's SSM states by head,
+    their conv tails' whole B/C channels counted apart."""
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", _WORLD], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     ext, whole = res.pop("extrapolated")
+    stacks = res.pop("grouped_whole")
+    grouped = res["grouped"][0]
+    parts = grouped["peak_breakdown"]
+    assert 4 * parts["group_gathered"] == stacks - parts["outside_gathered"]
+    assert parts["grad_slices_f32"] > 0 and parts["leaf_grad"] > 0
+    assert grouped["collectives"]["counts"]["reduce-scatter"] > 0
     for name, (fake, real) in res.items():
         assert fake["corrected"] == real["corrected"], name
         assert fake["memory"] == real["memory"], name

@@ -28,7 +28,21 @@ the cases cover each way a leaf is read (``train.sharding.model_reads``):
   reduced recurrentgemma-2b (the RG-LRU split by width, 64 over 4 and 2;
   4 q heads over 1 kv head: "repeat" over 4, "group" over 2);
 * reduced olmo-1b with ``vocab_size`` 250, which does not divide 4 (the
-  embedding gathered whole, the logits whole).
+  embedding gathered whole, the logits whole);
+* layers stacked into remat groups, whose leaves the step gathers group by
+  group at use (``pspec.layer_gather``; a stacked leaf's spec is
+  ``P(None, *spec)``): olmo-1b at 4 layers in four groups of one, with
+  remat and without; granite-moe-1b-a400m at 4 layers in two groups of two
+  (stacked expert leaves ``P(None, None, f, t)``); recurrentgemma-2b at 7
+  layers, two groups of three and one rest layer (the RG-LRU split by
+  width inside a group).
+
+The gather's backward (``distributed.gather_for_use``) is held apart from
+the step over (2, 2) against a reduction by hand: a stored slice of every
+kind of leaf (PART and WHOLE split over both axes, PART and WHOLE
+replicated, SPLIT, stacked) gathered, and per-rank gradients whose pairwise
+sums need f32 summed back into the slices: over the batch axes and, for
+PART, over ``model`` in f32, WHOLE only cut to the rank's block, exactly.
 
 A rank's forward takes its batch slice as one MoE dispatch group, as the
 reference's GSPMD forward does for each data shard, and averages the
@@ -89,7 +103,16 @@ CASES = {"olmo-1b": ("olmo-1b", {}),
          "granite-moe-1b-a400m": ("granite-moe-1b-a400m",
                                   {"capacity_factor": 8.0}),
          "mamba2-780m": ("mamba2-780m", {}),
-         "recurrentgemma-2b": ("recurrentgemma-2b", {})}
+         "recurrentgemma-2b": ("recurrentgemma-2b", {}),
+         # layers stacked into remat groups
+         "olmo-1b-g": ("olmo-1b", {"n_layers": 4, "scan_unroll": 1}),
+         "olmo-1b-g-noremat": ("olmo-1b", {"n_layers": 4, "scan_unroll": 1,
+                                           "remat": False}),
+         "granite-moe-1b-a400m-g": ("granite-moe-1b-a400m",
+                                    {"n_layers": 4, "scan_unroll": 2,
+                                     "capacity_factor": 8.0}),
+         "recurrentgemma-2b-g": ("recurrentgemma-2b",
+                                 {"n_layers": 7, "scan_unroll": 1})}
 MIXER_CASES = ("ssm", "ssm-bf16", "rglru")   # test_torch_model_split's
 SPLIT_FLOPS = 0.35      # rank 0's dot FLOPs over (1, 4) against one device's
 ELASTIC = dict(n_steps=6, fail_at=3, lost_nodes=2, ckpt_every=2)
@@ -204,6 +227,7 @@ class Cases:
                                      kv_x=kv, ct=ct)
             self.mixers_whole[name] = split_cases.run_whole(kind, cfg, p, x,
                                                             kv, ct)
+        self.gather_grads = gather_inputs()
         self.world = run_world(
             ranks.train_world, 4, backend="gloo", device="cpu", timeout=60,
             deadline=300, args=(
@@ -212,7 +236,7 @@ class Cases:
                 (olmo, self.ck_state, self.host["olmo-1b"], OPT,
                  self.ck_dir),
                 (olmo, self.state["olmo-1b"], self.batches, OPT,
-                 self.el_dir, ELASTIC), self.mixers))
+                 self.el_dir, ELASTIC), self.mixers, self.gather_grads))
 
 
 @pytest.fixture(scope="module")
@@ -278,6 +302,46 @@ def test_split_mixer_matches_whole_over_model_4(cases, name):
                                      flatten_with_path(grads)):
             assert a.shape == b.shape, path
             split_cases.close(a, b, rel)
+
+
+def gather_inputs() -> dict:
+    """Each rank's bf16 cotangent of every leaf of ``ranks.GATHER_LEAVES``
+    as the gathered forward holds it: 1 + k/128, exact in bf16, whose sums
+    over two or four ranks are exact in f32 and not in bf16."""
+    rng = np.random.default_rng(24)
+    out = {}
+    for name in ranks.GATHER_LEAVES:
+        shape = ranks.seen_by(name, ranks.leaf_value(name), (0, 0)).shape
+        out[name] = [1 + rng.integers(0, 128, shape) / 128
+                     for _ in range(4)]
+    return out
+
+
+def test_layer_gather_backward_is_the_hand_reduction(cases):
+    """Over (2, 2), the stored slice of each leaf of
+    ``ranks.GATHER_LEAVES`` gathered by ``stack_plan``'s plan through
+    ``pspec.layer_gather`` (``transformer._index``, as ``Stack.apply``
+    reads a layer): the forward is the leaf as the split reads it (SPLIT:
+    the rank's model block), and the slice's f32 sink holds, exactly, the
+    ranks' bf16 cotangents summed in f32 over ``data`` and, for a PART
+    leaf, over ``model``, then cut to the rank's block (a WHOLE leaf's
+    model block only cut)."""
+    world = [w["gather"] for w in cases.world]
+    coords = [tuple(w["coord"]) for w in world]
+    for name, (_, _, read, _) in ranks.GATHER_LEAVES.items():
+        grads = cases.gather_grads[name]
+        full = ranks.leaf_value(name)
+        summed = (0, 1) if read == "part" else (0,)    # data, model
+        for w, c in zip(world, coords):
+            assert np.array_equal(w["forward"][name],
+                                  ranks.seen_by(name, full, c)), name
+            tot = sum(g for g, o in zip(grads, coords)
+                      if all(o[i] == c[i] for i in (0, 1)
+                             if i not in summed))
+            want = ranks.stored_of(name, tot, c)
+            got = w["sinks"][name]
+            assert got.dtype == np.float32 and got.shape == want.shape, name
+            assert np.array_equal(got, want.astype(np.float32)), name
 
 
 def counted_single_step(tc, state_np, host) -> float:
