@@ -30,7 +30,12 @@ Phases (any failure exits non-zero and prints no result line):
    with int32 q on a 2-stage ring, ``block_m`` 2048 and 4096 at 8 and 24
    columns), each with ReLU on and off and f32 dyadic, f32
    and bf16 weights; seamless's MLP up at 171 tiles of 24 columns, timed
-   at 128 x 24 and at phase 10's 32 x 24.  Every case runs the kernel twice and
+   at 128 x 24 and at phase 10's 32 x 24; the band kernel's cases
+   (``band_cases``: the engine's and the hybrid's admission shapes with
+   vote tiles of alternating sign, dyadic and bf16-held normal weights,
+   row budgets, an N tile of plane bound 0, a tile of 44 real rows in 128,
+   the decode band split over 2-block clusters, and an f32 layer of three
+   parts), each with the parts ``dslot_prepare`` built.  Every case runs the kernel twice and
    the two results must be equal bit for bit.  Dyadic weights (multiples
    of 2^-6) make every sum exact, so there the outputs and ``planes_used``
    must be equal.  On normal weights the outputs must agree within
@@ -47,12 +52,15 @@ Phases (any failure exits non-zero and prints no result line):
 4. Times (CUDA events, warm-up excluded): kernel, plain version and
    ``torch.matmul`` of the dequantized product at every phase-2 shape and at
    the two launches of one ``forward_dslot`` (whose exact arguments are also
-   held against the plain version), beside the kernel's bound:
+   held against the plain version), and at every ``SERVING_ROWS`` shape
+   (the serving rows of ``PERF.md``, seeded bf16-held weights through
+   ``dslot_execute``; eager and from a graph), beside the kernel's bound:
    the larger of bytes / 3.35 TB/s and the needed bf16 tensor-core
    products / 989 TFLOP/s, both H100 SXM data-sheet peaks at 700 W.  A
    product with f32 weights needs 3 bf16 products (hi, mid and lo parts of
    each weight: f32 accuracy without TF32), one whose weights are all bf16
-   values (a bf16 model's, widened to f32) needs 1.
+   values (a bf16 model's, widened to f32) needs 1; W's bytes are 2 a
+   weight there, else 4, whatever its storage.
    Bytes and products count the unpadded shape (not the pad rows of a
    tile): ``planes_used`` products per tile under ReLU
    (the early exit reads every plane's partial sum), one product of the
@@ -335,9 +343,15 @@ Phases (any failure exits non-zero and prints no result line):
    (d) and (e) need no card: they start side by side as phase 11 starts
    and run beside it on the host's cores.
 
+Phases 5, 6 and 8 also count the W splits (``dslot_split_parts``, once
+per DSLOT layer while the layers are prepared), hold one split each in
+phases 5 and 6 against its plain version bit for bit and time it, and
+phases 6 and 8 check that the traced admission and decode forwards launch
+no split.  Each phase's seconds are printed.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the per-kernel record, and the card's name and power limit are
-printed just before that.  The record's ``launches`` counts the kernel
+holds the per-kernel record (``dslot_matmul`` and ``dslot_split_parts``),
+and the card's name and power limit are printed just before that.  The record's ``launches`` counts the kernel
 launches of the driven paths (phase 3's CNN, phase 5's two ``generate``
 runs, phase 6's timed engine run, phase 7's calibrate, sweep and B = 1024
 forward, phase 8's hybrid engine run, and both ranks' timed runs of the
@@ -377,6 +391,13 @@ OUT_RTOL = 1e-5
 MARGIN_RTOL = 1e-5
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dslot_matmul.cu"
 REPLACES = "src/repro/kernels/dslot_matmul.py:169"
+# the source's kernels, as the profiler names them
+DSLOT_KERNELS = ("plane_kernel", "product_kernel", "walk_kernel",
+                 "band_kernel", "split_parts_kernel")
+# W's bf16 parts (dslot_split_parts): launches while the driven paths
+# prepared their layers (phases 5, 6 and 8), and the times of the splits
+# held against the plain version
+SPLIT = {"launches": 0, "times": []}
 
 
 def log(*args) -> None:
@@ -425,6 +446,10 @@ class Case:
     zero_tile: int | None = None    # N tile given plane bound 0
     timed: bool = False     # timed in phase 4 (as every "f32 normal n8" is)
     n_bits: int = 8
+    mixed: bool = False     # q rows of one sign per vote tile, alternating
+    bf16_held: bool = False  # f32 weights that bf16 holds (a bf16 model's)
+    prepared: bool = False  # pass dslot_prepare's W parts to the kernel
+    rows: int | None = None  # real rows; the rest are the wrapper's pad rows
 
 
 def phase2_cases() -> list[Case]:
@@ -487,6 +512,46 @@ def phase2_cases() -> list[Case]:
              **{**mlp, "M": 512, "N": 128, "block_m": 256, "block_n": 32,
                 "block_k": 256, "sort": False}),
         *repaired_tile_cases(),
+        *band_cases(),
+    ]
+
+
+# The band kernel's serving shapes (ReLU, signed 8-bit q, block_n 128, the
+# MLP's prepared W parts): the engine's and the hybrid's admission with
+# vote tiles of alternating sign ("mixed": the positive ones die at
+# different planes, the negative ones never), dyadic (exact) and
+# bf16-held normal weights (one part); row budgets; an N tile of plane
+# bound 0; a 128-row tile with 44 real rows (the rest the wrapper's pad
+# rows, whose products the band skips); and the decode band, whose N
+# tiles split over 2-block clusters.
+def band_cases() -> list[Case]:
+    sig = dict(relu=True, signed=True, block_n=128, block_k=None,
+               prepared=True, mixed=True)
+    adm = dict(M=128, K=2048, N=8192, block_m=16, **sig)
+    hyb = dict(M=256, K=2560, N=7680, block_m=16, **sig)
+    dec = dict(M=16, K=2048, N=8192, block_m=16, **sig)
+    return [
+        Case("band engine adm mixed dyadic rows", weights="dyadic",
+             precision="rows", **adm),
+        Case("band engine adm mixed bf16-held normal n8", weights="normal",
+             bf16_held=True, timed=True, **adm),
+        Case("band engine adm mixed dyadic bound0", weights="dyadic",
+             zero_tile=3, **adm),
+        Case("band hybrid adm mixed dyadic n8", weights="dyadic", **hyb),
+        Case("band hybrid adm mixed bf16-held normal rows", weights="normal",
+             bf16_held=True, precision="rows", **hyb),
+        Case("band hybrid adm mixed bf16-held normal n8", weights="normal",
+             bf16_held=True, timed=True, **hyb),
+        Case("band pad rows 44 of 128 dyadic n8", weights="dyadic",
+             rows=44, **{**sig, "M": 128, "K": 1024, "N": 4096,
+                         "block_m": 128}),
+        Case("band decode cluster dyadic rows", weights="dyadic",
+             precision="rows", **dec),
+        Case("band decode cluster bf16-held normal n8", weights="normal",
+             bf16_held=True, timed=True, **dec),
+        Case("band mlp f32 normal n6 (3 parts)", weights="normal",
+             precision=6, **{**sig, "M": 512, "K": 1024, "N": 1024,
+                             "block_m": 64, "mixed": False}),
     ]
 
 
@@ -601,7 +666,8 @@ def phase2(card, dev) -> tuple[float, dict]:
             f"tiles {a.planes_used.numel()}")
         if case.timed or case.name.endswith("f32 normal n8"):  # one a shape
             shape_times[case.name.split(" f32")[0]] = time_call(
-                case.name, q, prep.w, kw, (case.M, case.K, case.N),
+                case.name, q, prep.w, kw, (case.rows or case.M, case.K,
+                                           case.N),
                 lambda: dm.dslot_matmul_cuda(q, prep.w, **kw),
                 lambda: dm.dslot_matmul_plain(q, prep.w, **kw), card)
         del q, prep, kw, a, a2, b
@@ -621,7 +687,10 @@ def make_inputs(case: Case, seed: int):
     exit fires.  "dyadic" rounds the weights to multiples of 2^-6 in
     [-1, 1]; "inert" makes every weight <= 0 (weight-side plane bound 0);
     "wide" gives each weight a random sign and a magnitude 2^u, u uniform
-    in [-20, 0], unshifted.
+    in [-20, 0], unshifted.  ``mixed`` makes the q rows of vote tile v
+    negative for odd v and |q| scaled by 1, 1/8, 1/2, 1/4 in turn for even
+    v; ``bf16_held`` rounds f32 weights to bf16 values; rows from
+    ``case.rows`` on are zero (the wrapper's pad rows).
     """
     from repro_torch.kernels.dslot_matmul import q_storage_dtype
 
@@ -648,6 +717,17 @@ def make_inputs(case: Case, seed: int):
         w = (w * 64).round().clamp(-64, 64) / 64
     elif case.weights == "inert":
         w = -w.abs()
+    if case.bf16_held:
+        w = w.to(torch.bfloat16).to(torch.float32)
+    if case.mixed:
+        tile = torch.arange(case.M) // case.block_m
+        scale = torch.tensor([1.0, 0.125, 0.5, 0.25])[(tile // 2) % 4]
+        mag = q.to(torch.int32).abs()
+        q = torch.where((tile % 2 == 1)[:, None], -mag,
+                        (mag * scale[:, None]).round().to(torch.int32))
+        q = q.to(q_storage_dtype(case.n_bits, True))
+    if case.rows is not None:
+        q[case.rows:] = 0
     return q, w.to(case.wdtype)
 
 
@@ -677,6 +757,12 @@ def run_case(case: Case, seed: int, dev: torch.device):
               block_n=case.block_n, block_k=prep.block_k, n_planes_rt=npl,
               row_budget=budget, suffix_colsum=prep.suffix_colsum,
               total_colsum=prep.total_colsum, plane_bound=bound)
+    if case.prepared:
+        if prep.parts is None:
+            raise AssertionError(f"{case.name}: dslot_prepare built no parts")
+        kw["parts"] = prep.parts
+    if case.rows is not None:
+        kw["rows"] = case.rows
     return q, prep, kw
 
 
@@ -752,7 +838,9 @@ def kernel_kw(args) -> dict:
     return dict(n_bits=args[2], relu=args[4], block_m=args[5],
                 block_n=args[6], block_k=args[7], suffix_colsum=args[8],
                 total_colsum=args[9][None], n_planes_rt=args[10],
-                row_budget=args[11], plane_bound=args[12])
+                row_budget=args[11], plane_bound=args[12],
+                parts=args[13] if len(args) > 13 else None,
+                rows=args[14] if len(args) > 14 else None)
 
 
 class Captured:
@@ -776,6 +864,69 @@ class Captured:
         return out
 
 
+def count_splits(label, fn, expected: int):
+    """``fn()`` with the W-split launches counted from 0: each prepared
+    DSLOT layer splits its W once, so ``expected`` (its DSLOT layers)."""
+    from repro_torch.kernels import dslot_matmul as dm
+
+    dm.split_parts.launches = 0
+    out = fn()
+    n = dm.split_parts.launches
+    if n != expected:
+        raise AssertionError(f"{label}: {n} W splits, expected {expected}")
+    SPLIT["launches"] += n
+    log(f"  {label}: {n} W splits (dslot_split_parts), one per DSLOT layer")
+    return out
+
+
+def hold_split(label, args, card) -> None:
+    """The W split of one prepared layer (``dm.run``'s arguments ``args``:
+    its padded W and the parts ``dslot_prepare`` stored), held against the
+    plain version bit for bit and timed as in phase 4: kernel (eager and
+    from a graph), plain version and ``Tensor.to(torch.bfloat16)``, which
+    computes the same function where one part of 128-column tiles is the
+    bf16 weights themselves, beside its bound: W read once and the parts
+    written once over 3.35 TB/s."""
+    from repro_torch.kernels import dslot_matmul as dm
+
+    w, bn, parts = args[1], args[6], args[13]
+    n = parts.shape[0]
+    want = dm.split_parts_plain(w, bn, n)
+    got = dm.split_parts(w, bn, n)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(parts, want)):
+        raise AssertionError(f"{label}: W's parts differ from the plain "
+                             f"version")
+    k_ms = cuda_ms(lambda: dm.split_parts(w, bn, n))
+    k_graph = graph_ms(lambda: dm.split_parts(w, bn, n))
+    p_ms = cuda_ms(lambda: dm.split_parts_plain(w, bn, n), reps=3, warm=1)
+    lib_ms = cuda_ms(lambda: w.to(torch.bfloat16)) \
+        if n == 1 and bn % 128 == 0 else None
+    nbytes = w.numel() * w.element_size() + parts.numel() * 2
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"  {label}: W {tuple(w.shape)} {w.dtype} -> {n} part(s) "
+        f"{tuple(parts.shape)}, equal to the plain version; kernel "
+        f"{k_ms:.4f} ms (graph {k_graph:.4f}), plain {p_ms:.4f} ms, "
+        f"Tensor.to(bfloat16) "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{b_ms:.4g} ms (bytes; {nbytes / 1e6:.2f} MB) [{card}]")
+    SPLIT["times"].append({"ms": k_ms, "graph_ms": k_graph, "plain_ms": p_ms,
+                           "library_ms": lib_ms, "bound_ms": b_ms})
+
+
+def no_split_in(label, trace) -> None:
+    """A traced engine forward must launch no W split: its layers' parts
+    were built once, when the engine prepared them."""
+    if trace is None:
+        log(f"  {label}: W splits in the trace not measured (no device "
+            f"time in the trace)")
+        return
+    if any("split_parts_kernel" in r[2] for r in trace[1]):
+        raise AssertionError(f"{label}: the traced forward launched "
+                             f"split_parts_kernel")
+    log(f"  {label}: no split_parts_kernel in the traced forward")
+
+
 def bound_ms(q, w, kw, used, dims) -> tuple[float, str, float, float]:
     """Least time for the call on an H100 SXM at 700 W: bytes moved once
     over 3.35 TB/s against the bf16 tensor-core flops this run's data needs
@@ -784,7 +935,10 @@ def bound_ms(q, w, kw, used, dims) -> tuple[float, str, float, float]:
     ms, what bounds it, bytes, f32 flops).
 
     ``dims`` is the unpadded (M, K, N), and both terms count only real
-    rows, columns and K: bytes are q (M, K), W (K, N), the f32 out (M, N),
+    rows, columns and K: bytes are q (M, K), W (K, N) at 2 bytes a weight
+    where bf16 holds every weight and 4 otherwise (whatever its storage:
+    a kernel that reads prepared bf16 parts needs no more), the f32 out
+    (M, N),
     the termination tables, ``planes_used`` per tile and the M row budgets,
     not the pad rows and columns the wrapper adds for its tiles.  A ReLU
     tile needs its partial sum after every plane it entered (the
@@ -793,7 +947,8 @@ def bound_ms(q, w, kw, used, dims) -> tuple[float, str, float, float]:
     truncated q, and none when it entered no plane.
     """
     M, K, N = dims
-    nbytes = (M * K * q.element_size() + K * N * w.element_size()
+    w_bytes = 2 if bf16_parts(w) == 1 else 4
+    nbytes = (M * K * q.element_size() + K * N * w_bytes
               + kw["suffix_colsum"].numel() * 4 + kw["total_colsum"].numel()
               * 4 + M * N * 4 + used.numel() * 4 + 4)
     if kw["plane_bound"] is not None:
@@ -935,6 +1090,57 @@ def traced(fn, calls: int = 1):
     return out, (sum(r[0] for r in rows), rows)
 
 
+# The serving rows of the band kernel (rows, K, N, block_m; block_n 128):
+# the shapes of phases 5, 6, 8 and 10's launches, timed here side by side
+# on seeded inputs through ``dslot_prepare`` / ``dslot_execute``.
+SERVING_ROWS = (
+    ("engine admission", 128, 2048, 8192, 16),
+    ("hybrid admission", 256, 2560, 7680, 16),
+    ("hybrid tp2 admission shard", 256, 2560, 3840, 16),
+    ("tp2 admission shard", 128, 2048, 4096, 16),
+    ("LM encoder", 32, 1024, 4096, 128),
+    ("LM decode", 4, 1024, 4096, 128),
+    ("tp2 decode shard", 16, 2048, 4096, 16),
+    ("hybrid tp2 decode shard", 16, 2560, 3840, 16),
+    ("engine decode", 16, 2048, 8192, 16),
+    ("hybrid decode", 16, 2560, 7680, 16),
+    ("LM prefill", 4160, 1024, 4096, 128))
+
+
+def serving_rows(card, dev) -> None:
+    """Each ``SERVING_ROWS`` shape: bf16-held weights (a bf16 model's,
+    widened to f32, as ``prepare_mlp_dslot`` prepares them: one part),
+    N(0, K^-1/2) shifted down by a ramp of 0 to 3 standard deviations
+    across N, and N(0.2, 1) activations, through the MLP's
+    ``dslot_execute``; its launch held against the plain version by phase
+    2's rule and timed as every phase-4 shape (eager and from a graph,
+    beside torch.matmul and the bound)."""
+    from repro_torch.kernels import dslot_matmul as dm
+    from repro_torch.kernels.ops import dslot_execute, dslot_prepare
+
+    g = torch.Generator().manual_seed(25)
+    for label, rows, K, N, bm in SERVING_ROWS:
+        w = torch.randn((K, N), generator=g) * K ** -0.5
+        w = (w - torch.linspace(0.0, 3.0, N) * K ** -0.5).to(torch.bfloat16)
+        x = torch.randn((rows, K), generator=g) + 0.2
+        prep = dslot_prepare(w.to(dev, torch.float32), n_bits=8, relu=True,
+                             signed=True, sort_columns=True, block_m=bm,
+                             block_n=128)
+        with Captured(dm) as cap:
+            dslot_execute(prep, x.to(dev))
+        args = cap.calls[0][0]
+        q, kw = args[0], kernel_kw(args)
+        a = dm.DslotMatmulOut(*dm._launch(*args))
+        b = dm.DslotMatmulOut(*dm._replay(*args))
+        torch.cuda.synchronize()
+        compare(label, a, b, False, q, args[1], kw)
+        time_call(f"{label} ({rows}, {K}) @ ({K}, {N}), block_m {bm}", q,
+                  args[1], kw, (rows, K, N), lambda a=args: dm._launch(*a),
+                  lambda a=args: dm._replay(*a), card)
+        del w, x, prep, cap, args, q, kw, a, b
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phase 5
 
 LM_ARCH = "seamless-m4t-medium"
@@ -1006,7 +1212,12 @@ def phase5(card, dev):
     from repro_torch.runtime import precision_scope
     from repro_torch.serve.engine import generate
 
-    cfg, model, params, prep, dense, batch = lm_setup(dev)
+    from repro_torch.configs.registry import get_arch
+
+    lm = get_arch(LM_ARCH)
+    cfg, model, params, prep, dense, batch = count_splits(
+        "prepare_dslot", lambda: lm_setup(dev),
+        lm.encoder_layers + lm.n_layers)
     n_layers = cfg.encoder_layers + cfg.n_layers
     expected = n_layers + cfg.n_layers * LM_NEW
     budgets = {"n_planes=8": 8,
@@ -1080,6 +1291,7 @@ def phase5(card, dev):
             label, q, w, kw, (rows, cfg.d_model, cfg.d_ff),
             lambda a=args: dm._launch(*a), lambda a=args: dm._replay(*a),
             card))
+    hold_split("LM layer W split", shapes[0][1], card)
     del calls
 
     # the whole generate on the plain version
@@ -1143,9 +1355,8 @@ def phase5(card, dev):
                 f"holds no device time)")
             continue
         dev_ms, rows = prof
-        kern = sum(r[0] for r in rows if any(
-            k in r[2] for k in ("plane_kernel", "product_kernel",
-                                "split_parts_kernel")))
+        kern = sum(r[0] for r in rows if any(k in r[2]
+                                             for k in DSLOT_KERNELS))
         log(f"  {label} device time (torch.profiler): {dev_ms:.3f} ms, idle "
             f"share {1 - dev_ms / wall:.3f} of the median "
             f"{wall:.3f} ms; dslot kernels {kern:.3f} ms; top kernels:")
@@ -1357,9 +1568,7 @@ def log_forward(label, walls, trace, which) -> None:
             "no device time)")
         return
     dev_ms, rows = trace
-    kern = sum(r[0] for r in rows if any(
-        k in r[2] for k in ("plane_kernel", "product_kernel",
-                            "split_parts_kernel")))
+    kern = sum(r[0] for r in rows if any(k in r[2] for k in DSLOT_KERNELS))
     log(line + f"; device time (torch.profiler, {which}) {dev_ms:.3f} ms, "
         f"idle share {1 - dev_ms / wall:.3f}; dslot kernels {kern:.3f} ms; "
         f"top kernels:")
@@ -1493,8 +1702,12 @@ def phase6(card, dev):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    for label, trace in traces.items():
+        no_split_in(label, trace)
     t1 = time.perf_counter()
-    eng = ServeEngine(model, params, scfg)
+    eng = count_splits("engine (prepare_dslot)",
+                       lambda: ServeEngine(model, params, scfg),
+                       cfg.n_layers)
     sync(dev)
     log(f"  {cfg.name} with a ReLU MLP (act relu, no GLU): "
         f"{model.param_count(params) / 1e9:.4f} B parameters ({cfg.dtype}), "
@@ -1535,6 +1748,8 @@ def phase6(card, dev):
 
     max_err, times = hold_engine_shapes(captured, ENGINE_KERNEL_ROWS, cfg,
                                         dev, card)
+    hold_split("engine layer W split",
+               captured[ENGINE_KERNEL_ROWS["engine admission launch"]], card)
     del captured
 
     held = hold_reserved(model, eng.params, run["reqs"], dev,
@@ -2175,7 +2390,9 @@ def hybrid_engine(card, dev):
     specs = hybrid_traffic(HYBRID_REQUESTS, cfg.vocab_size, cfg.window)
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    eng = ServeEngine(model, params, scfg)
+    eng = count_splits("engine (prepare_dslot)",
+                       lambda: ServeEngine(model, params, scfg),
+                       cfg.n_layers)
     sync(dev)
     lens = sorted(len(s["prompt"]) for s in specs)
     log(f"  {cfg.name} with a ReLU MLP (act relu, no GLU): "
@@ -2236,6 +2453,7 @@ def hybrid_engine(card, dev):
     for label, timed in (("decode forward", eng._decode),
                          ("admission forward", eng.pipeline._extend_lanes)):
         log_forward(label, timed.walls, timed.trace, "the third call")
+        no_split_in(label, timed.trace)
     for tier in ("reserved", "standard", "degradable"):
         rs = [r for r in run["reqs"] if r.tier == tier]
         steps = sorted(r.ttft_steps for r in rs)
@@ -4457,6 +4675,24 @@ def cpu_copy(prep):
                          head_params=move(prep.head_params))
 
 
+def split_record() -> dict:
+    """The W split's entry of the kernel record: its launches while the
+    driven paths prepared their layers, its times summed over the splits
+    held in phases 5 and 6."""
+    t = SPLIT["times"]
+    if SPLIT["launches"] == 0 or not t:
+        raise AssertionError("the driven paths launched no W split")
+    lib = [x["library_ms"] for x in t]
+    return {"name": "dslot_split_parts", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": SPLIT["launches"], "max_abs_err": 0.0,
+            "ms": sum(x["ms"] for x in t),
+            "plain_ms": sum(x["plain_ms"] for x in t),
+            "bound_ms": sum(x["bound_ms"] for x in t), "bound_by": "bytes",
+            "library_ms": None if None in lib else sum(lib),
+            "graph_ms": sum(x["graph_ms"] for x in t)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4470,6 +4706,13 @@ def main() -> int:
     from repro_torch.kernels import dslot_matmul as dm
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        log(f"  {name} took {now - laps[-1]:.1f} s")
+        laps.append(now)
+
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4486,10 +4729,12 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
+    lap("phase 1")
     # -------------------------------------------------- 2. kernel vs plain
     log("phase 2: kernel vs plain version")
     max_err, shape_times = phase2(card, dev)
 
+    lap("phase 2")
     # -------------------------------------------------- 3. main path
     log("phase 3: MNIST CNN main path, B = 1024")
     images_np, _ = synth_mnist(103, seed=0)
@@ -4546,6 +4791,7 @@ def main() -> int:
         f"{logit_err:.3g}, planes_used equal")
     max_err = max(max_err, logit_err)
 
+    lap("phase 3")
     # -------------------------------------------------- 4. times
     log(f"phase 4: times [{card}]")
     with Captured(dm) as cap:
@@ -4594,31 +4840,38 @@ def main() -> int:
     for shape, t in shape_times.items():
         log(f"  shape {shape}: kernel {t['ms']:.4f} ms vs bound "
             f"{t['bound_ms']:.4g} ms")
+    log(f"  the serving rows [{card}]")
+    serving_rows(card, dev)
 
+    lap("phase 4")
     # -------------------------------------------------- 5. LM serving path
     log(f"phase 5: LM serving path, {LM_ARCH} through generate")
     lm_launches, lm_err, lm_times, lm_counted = phase5(card, dev)
     max_err = max(max_err, lm_err)
     main_times += lm_times
 
+    lap("phase 5")
     # -------------------------------------------------- 6. serving engine
     log(f"phase 6: the slot-pool ServeEngine, {ENGINE_ARCH} with ReLU MLPs")
     eng_launches, eng_err, eng_times = phase6(card, dev)
     max_err = max(max_err, eng_err)
     main_times += eng_times
 
+    lap("phase 6")
     # -------------------------------------------------- 7. paper experiment
     log("phase 7: the paper's experiment, the MNIST CNN trained on the card")
     mn_launches, mn_err, mn_times = phase7(card, dev)
     max_err = max(max_err, mn_err)
     main_times += mn_times
 
+    lap("phase 7")
     # -------------------------------------------------- 8. the model zoo
     log(f"phase 8: the rest of the model zoo at full width [{card}]")
     hy_launches, hy_err, hy_times = phase8(card, dev)
     max_err = max(max_err, hy_err)
     main_times += hy_times
 
+    lap("phase 8")
     # -------------------------------------------------- 9. training
     log(f"phase 9: training {TRAIN_ARCH} at full width [{card}]")
     n0 = dm.dslot_matmul_cuda.launches
@@ -4627,6 +4880,7 @@ def main() -> int:
         f"{dm.dslot_matmul_cuda.launches - n0} (the model has no DSLOT "
         f"layer; training launches no hand-written kernel)")
 
+    lap("phase 9")
     # -------------------------------------------------- 10. parallel serving
     log(f"phase 10: tensor- and expert-parallel serving over {TP_RANKS} "
         f"ranks [{card}]")
@@ -4634,6 +4888,7 @@ def main() -> int:
     max_err = max(max_err, tp_err)
     main_times += tp_times
 
+    lap("phase 10")
     # -------------------------------------------------- 11. sharded training
     log(f"phase 11: sharded training over {SH_RANKS} ranks [{card}] (phase "
         f"12's three dry runs start beside it, on the host's cores)")
@@ -4666,7 +4921,8 @@ def main() -> int:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": sum(t["library_ms"] for t in main_times),
         "graph_ms": sum(t["graph_ms"] for t in main_times),
-        "library_graph_ms": sum(t["library_graph_ms"] for t in main_times)}]}
+        "library_graph_ms": sum(t["library_graph_ms"] for t in main_times)},
+        split_record()]}
     log(f"phases 1-12 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps(record))

@@ -7,8 +7,9 @@ Each kernel of OLD is held against its counterpart in NEW: the NEW
 instantiation whose template arguments are OLD's followed by the
 ``--extra`` arguments given for that kernel (template parameters NEW
 added, at the values meant to reproduce OLD's code; a kernel without
-``--extra`` keeps its name).  Equal SASS means equal speed on equal
-inputs, whatever a timing between two processes shows.  Prints each
+``--extra`` keeps its name).  Instructions and their encodings are
+compared, not the listing's column padding.  Equal SASS means equal speed
+on equal inputs, whatever a timing between two processes shows.  Prints each
 kernel that differs and the counts, and exits 1 if any differs or has no
 counterpart.  Needs ``cuobjdump`` (the CUDA toolkit) and ``c++filt``;
 ``_build.build`` leaves each tree's library under its ``build/repro_torch/``.
@@ -43,8 +44,17 @@ def kernels(lib: str) -> dict[str, str]:
     found = {}
     for name, body in zip(names, parts[2::2]):
         m = _NAME.search(name)
-        found[m.group(1) + (m.group(2) or "") if m else name] = body
+        found[m.group(1) + (m.group(2) or "") if m else name] = \
+            _instructions(body)
     return found
+
+
+def _instructions(body: str) -> str:
+    """A function's SASS with each line's runs of whitespace collapsed:
+    ``cuobjdump`` pads its columns to the longest instruction of the whole
+    listing, so adding a kernel with longer instructions moves every other
+    kernel's columns without changing an instruction or its encoding."""
+    return "\n".join(" ".join(line.split()) for line in body.splitlines())
 
 
 def counterpart(name: str, extra: dict[str, str]) -> str:

@@ -15,7 +15,7 @@
 // and, when it holds, stops all further work and writes zeros.  planes_used
 // counts the planes the tile entered.
 //
-// The host picks one of two paths from `relu` and `n_bits`.
+// The host picks a path from `relu`, `n_bits`, the q type and the tile.
 //
 // A. Product path (no ReLU, n_bits <= 24).  Nothing can terminate, so the
 //    function is one product: out[m, n] = sum_k t[m, k] * w[k, n], with
@@ -66,8 +66,9 @@
 //      (where they fit beside the ring; the MLP's 128 x 1024 bytes do) and
 //      streams W through a 3-stage cp.async ring of KC-row sub-chunks, the
 //      next ones in flight while one computes.  A small kernel before the
-//      tiles writes W's bf16 parts once per call, each N tile's columns
-//      padded to PN, so that every W row copy is 16-byte cp.async.
+//      tiles writes W's bf16 parts once per call (or the caller passes the
+//      parts dslot_prepare built once), each N tile's columns padded to PN,
+//      so that every W row copy is 16-byte cp.async.
 //      Where q does not fit, each sub-chunk's q columns ride in its ring
 //      stage.  For each (plane, sub-chunk) a streamed block writes the digit
 //      tile to shared memory once, so warps that share rows do not extract
@@ -87,9 +88,59 @@
 //    or a digit tile and ring past the shared memory).  B's products and
 //    vote, with the tile's sums kept in its own region of `out` between
 //    chunks and the tile walked in sub-tiles (walk_kernel).
+//
+// D. Band (the serving shapes: ReLU, 8-bit signed q, block_n 128, block_m
+//    16 to 128, logical chunks of whole 64-row sub-chunks; band_kernel).
+//    At these shapes B lost 18-36x to torch.matmul on an H100: 16 x 128
+//    tiles gave each warp 6 mma.sync between two barriers, one block a tile
+//    re-streamed W's parts for every vote tile and plane (15.1 GB at the
+//    hybrid admission's 16 M tiles, against 39.3 MB of bf16 weights), and
+//    the parts were rebuilt on every call.  Bound on an H100: the needed
+//    bf16 products at admission and prefill (operations), W's bytes at
+//    decode.  The design:
+//    * One block per N tile and band of up to 128 rows, which holds
+//      128 / block_m logical vote tiles (64 rows, where bands of 128 would
+//      leave half the SMs idle: the admission shapes of 32-64 N tiles).  Each W sub-chunk is staged once
+//      per plane for all of them (W traffic at hybrid admission: ~0.6 GB,
+//      mostly L2 hits).  Each vote tile keeps its own sums, vote (an AND over
+//      exactly its block_m x 128 elements after each logical chunk) and
+//      planes_used; a dead tile writes zeros, and the band stops streaming
+//      once every tile is dead or the planes reach the tile's bound.
+//    * The products run on wgmma, transposed: wgmma's M is 64 of the tile's
+//      columns (one warpgroup each), its N the band's rows, so one
+//      instruction shape (m64nNk16, N = 16 to 128) serves decode and
+//      admission alike, with no 64-row minimum on the rows.  A = W^T comes
+//      from registers: TMA lands each part's 64 x 64 box in shared memory
+//      (128-byte swizzle) and ldmatrix.trans reads it into the A fragments.
+//      B = the digit tile, written to shared memory by the extraction
+//      (K-major, 128-byte swizzle) for every (plane, sub-chunk) and read by
+//      wgmma through a descriptor.  The next sub-chunk's digits are written
+//      while the current wgmma runs (two digit tiles).
+//    * TMA boxes (W parts and the band's q rows) fill a ring of up to 8
+//      stages, each with an mbarrier.  One thread refills a stage right
+//      after the block's per-sub-chunk barrier has freed it, so no
+//      producer warp and no second set of barriers is needed.
+//    * Exactness as in B: each 64-row sub-chunk is summed from zero
+//      (scale-d 0) and added to the sums with round-to-nearest adds; no
+//      TF32.  W's bf16 parts are built once per layer by dslot_prepare
+//      (dslot_split_parts): one part where bf16 holds every weight, since a
+//      bf16 value's mid and lo parts are zero and adding zero products
+//      changes no bit.
+//    * A single band computes only the rows that hold real data, rounded up
+//      to 16, 32, 64 or 128 (the wrapper passes the unpadded M); the pad
+//      rows past them have zero sums, vote with them (so their tile cannot
+//      die, as in the reference) and are written as zeros.
+//    * Decode bands (16 rows) on fewer N tiles than half the SMs (32 to 64):
+//      each N tile's columns split over a 2-block cluster, one warpgroup a
+//      block; the two join their votes through distributed shared memory.
+//      (On the H100 the split shortened 16-row bands; at 128 rows both
+//      halves extract the band's digits, and it lost.)  No element's
+//      sum changes with the split, the band size or the rank's share of N,
+//      and there are no float atomics: two launches give the same bits.
 // npl, the per-row budgets and the per-tile plane bounds are read from device
-// memory in both paths: a new precision needs no host sync and no rebuild.
+// memory in every path: a new precision needs no host sync and no rebuild.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -99,6 +150,7 @@
 #include <cooperative_groups.h>
 #include <map>
 #include <mutex>
+#include <tuple>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -1313,6 +1365,462 @@ __global__ void __launch_bounds__(WALK_WARPS * 32) walk_kernel(
   if (threadIdx.x == 0) used[blockIdx.x * geo.Nt + nt] = planes;
 }
 
+// ------------------------------------------------------------ D. band
+
+// The streamed ReLU tiles of the serving shapes (header note D): one block,
+// or one 2-block cluster, per N tile of 128 columns and band of up to
+// BAND_ROWS rows, the band holding 128 / block_m logical vote tiles.
+constexpr int BAND_ROWS = 128;
+constexpr int BAND_KC = 64;            // K rows of a sub-chunk: a 128-byte
+                                       // swizzle row of bf16 digits
+constexpr int BAND_TILES = BAND_ROWS / 16;  // vote tiles of a band, at most
+constexpr int BAND_MAX_STAGES = 8;
+constexpr int BAND_BOX = 64 * 64 * 2;  // one W part's 64 x 64 TMA box, bytes
+
+struct BandGeom {
+  int Mp, K, N, n_bits, D, bm, lbm, bk;  // lbm: log2(block_m)
+  int band;         // rows of a band: BAND_ROWS, or 64 (band_launch)
+  int parts;        // bf16 parts of W: 1 or 3
+  int ns;           // ring stages
+  int Nt;           // N tiles
+  int stage;        // bytes of one ring stage: the W boxes, then q [NB][64]
+  int off_ring, off_bar, off_bud, off_vote;  // shared-memory offsets
+  int smem;         // dynamic shared memory, bytes (1024 of it alignment)
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned ok = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!ok);
+}
+
+// One 2-D TMA box of `map` at element coordinates (x, y) into dst; its
+// bytes count against bar's transaction count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x),
+      "r"(y)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes to shared memory (the digit tile) made visible to
+// the async proxy that wgmma reads it through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_fence(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A @ B for m64nNk16, bf16 in, f32 sums: A (64 x 16) from registers
+// in mma.m16n8k16's per-warp fragment layout, B (16 x N) K-major from the
+// shared memory that `desc` describes; scale_d 0 starts from zero.
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <int NB>
+__device__ __forceinline__ void wgmma_band(float (&d)[NB / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  if constexpr (NB == 16) wgmma_n16(d, a, desc, scale_d);
+  else if constexpr (NB == 32) wgmma_n32(d, a, desc, scale_d);
+  else if constexpr (NB == 64) wgmma_n64(d, a, desc, scale_d);
+  else wgmma_n128(d, a, desc, scale_d);
+}
+
+// Descriptor of a K-major operand with 128-byte swizzle: rows of 128 bytes
+// (64 bf16 of K), 8-row atoms of 1024 bytes (the stride between them), the
+// buffer 1024-byte aligned; a 16-wide k step adds 32 bytes (2 units).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// Digit plane d of a sub-chunk's q rows (int8, [NB][64] as the TMA box
+// lands) into the digit tile [NB][64] bf16, K-major with 128-byte swizzle
+// (the 16-byte chunk kc of row r at kc ^ (r % 8)).  A thread decodes 8 q
+// of one row at a time; a warp reads 4 whole rows and writes 512
+// contiguous bytes.
+template <int NB, int THREADS>
+__device__ __forceinline__ void band_digits(uint8_t* dst, const uint8_t* q_s,
+                                            const int* rbud_s, int shift,
+                                            int d) {
+  const uint32_t e_bits = static_cast<uint32_t>(127 + shift) << 7;
+#pragma unroll
+  for (int u0 = 0; u0 < NB * 8; u0 += THREADS) {
+    const int u = u0 + static_cast<int>(threadIdx.x);
+    if (NB * 8 % THREADS == 0 || u < NB * 8) {
+      const int r = u >> 3;
+      const int kc = u & 7;
+      const uint2 x = *reinterpret_cast<const uint2*>(q_s + r * BAND_KC +
+                                                      kc * 8);
+      const bool live = rbud_s[r] > d;
+      uint32_t mag, neg, l0, h0, l1, h1;
+      mag_neg4<int8_t>(x.x, mag, neg);
+      decode4(mag, neg, shift, e_bits, live, l0, h0);
+      mag_neg4<int8_t>(x.y, mag, neg);
+      decode4(mag, neg, shift, e_bits, live, l1, h1);
+      *reinterpret_cast<uint4*>(dst + r * 128 + ((kc ^ (r & 7)) << 4)) =
+          make_uint4(l0, h0, l1, h1);
+    }
+  }
+}
+
+// A = W^T fragments of the warp's 16 columns for the 4 k steps of a
+// sub-chunk, from one part's 64 x 64 TMA box (128-byte swizzle: the 16-byte
+// chunk c of K row k sits at c ^ (k % 8)), transposed by ldmatrix.
+__device__ __forceinline__ void band_a(uint32_t (&a)[4][4],
+                                       const uint8_t* box, int wq, int lane) {
+  const int j = lane >> 3;
+  const int rr = lane & 7;
+  const int chunk = 2 * wq + (j & 1);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const int k = 16 * ks + (j >> 1) * 8 + rr;
+    ldsm_x4_t(a[ks], box + k * 128 + ((chunk ^ rr) << 4));
+  }
+}
+
+// Shared memory (1024-byte aligned): two digit tiles [NB][128 B] | ns ring
+// stages, each the W boxes [part][warpgroup][64 K rows][64 columns] bf16
+// (TMA, 128-byte swizzle) and the q box [NB][64] int8 | ns mbarriers | row
+// budgets [NB] | vote words.  Warpgroup wg computes the transposed product
+// for 64 columns: wgmma's M is the columns, its N the band's NB rows.
+// Thread (warp wq of its warpgroup, lane g * 4 + t4) holds columns ca and
+// ca + 8 of rows 8j + 2 t4 + {0, 1}: sums [4j + e], e = 2 * (column) + row.
+template <int NB, int NWG, bool CLUSTER>
+__global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
+    const __grid_constant__ CUtensorMap tm_w,
+    const __grid_constant__ CUtensorMap tm_q, const float* __restrict__ sfx,
+    const float* __restrict__ tot, const int* __restrict__ npl_ptr,
+    const int* __restrict__ bnd, const int* __restrict__ bud,
+    float* __restrict__ out, int* __restrict__ used, BandGeom geo) {
+  constexpr int THREADS = NWG * 128;
+  constexpr int NR = NB / 2;  // sums per thread
+  extern __shared__ uint8_t band_raw[];
+  uint8_t* smem = band_raw + ((1024 - (smem_addr(band_raw) & 1023)) & 1023);
+  uint8_t* dig = smem;
+  uint8_t* ring = smem + geo.off_ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + geo.off_bar);
+  int* rbud_s = reinterpret_cast<int*>(smem + geo.off_bud);
+  unsigned* vote_s = reinterpret_cast<unsigned*>(smem + geo.off_vote);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int t4 = lane & 3;
+  const int half = CLUSTER ? static_cast<int>(blockIdx.x & 1) : 0;
+  const int nt = CLUSTER ? static_cast<int>(blockIdx.x >> 1)
+                         : static_cast<int>(blockIdx.x);
+  const long long r0 = static_cast<long long>(blockIdx.y) * geo.band;
+  const int N = geo.N;
+  const int K = geo.K;
+  const long long n0 = static_cast<long long>(nt) * 128;
+  const int ca = (half + wg) * 64 + wq * 16 + (lane >> 2);
+  const int cb = ca + 8;
+  const int rows = static_cast<int>(
+      min(static_cast<long long>(geo.band), geo.Mp - r0));
+  const int tiles = rows >> geo.lbm;
+  const int npl = *npl_ptr;
+  const int limit = min(min(geo.D, npl), bnd[nt]);
+  const float tail = pow2(geo.n_bits - npl);
+  const int T = K / BAND_KC;       // sub-chunks of a plane
+  const int S = geo.bk / BAND_KC;  // sub-chunks of a logical chunk
+  const int total = limit > 0 ? limit * T : 0;
+  const int ns = geo.ns;
+  const int wbytes = geo.parts * NWG * BAND_BOX;
+
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int r = tid; r < NB; r += THREADS)
+    rbud_s[r] = r0 + r < geo.Mp ? (bud == nullptr ? geo.D : bud[r0 + r]) : 0;
+  __syncthreads();
+
+  const CUtensorMap* map_w = &tm_w;
+  const CUtensorMap* map_q = &tm_q;
+  // the next item to issue (thread 0 issues, every thread counts): its
+  // stage and its sub-chunk within the plane
+  int issued = 0, i_stage = 0, i_sub = 0;
+  auto issue = [&]() {
+    if (tid == 0) {
+      uint8_t* st = ring + i_stage * geo.stage;
+      const int k0 = i_sub * BAND_KC;
+      mbar_expect_tx(full + i_stage, wbytes + NB * BAND_KC);
+      for (int p = 0; p < geo.parts; ++p)
+        for (int h = 0; h < NWG; ++h)
+          tma_load_2d(st + (p * NWG + h) * BAND_BOX, map_w, full + i_stage,
+                      static_cast<int>(n0) + (half + h) * 64, p * K + k0);
+      tma_load_2d(st + wbytes, map_q, full + i_stage, k0,
+                  static_cast<int>(r0));
+    }
+    ++issued;
+    if (++i_stage == ns) i_stage = 0;
+    if (++i_sub == T) i_sub = 0;
+  };
+  while (issued < min(ns, total)) issue();
+
+  float acc[NR], t[NR];
+#pragma unroll
+  for (int e = 0; e < NR; ++e) acc[e] = t[e] = 0.0f;
+  unsigned alive = (1u << tiles) - 1u;
+  unsigned died = 0u;
+  int planes[BAND_TILES];
+#pragma unroll
+  for (int v = 0; v < BAND_TILES; ++v) planes[v] = 0;
+  const float tot_a = tot[n0 + ca];
+  const float tot_b = tot[n0 + cb];
+  float sf_a = 0.0f, sf_b = 0.0f;
+  int waited = -1;  // the last item every thread has waited for
+  int votes = 0;
+  if (total > 0) {
+    mbar_wait(full, 0);
+    waited = 0;
+    band_digits<NB, THREADS>(dig, ring + wbytes, rbud_s, geo.n_bits - 1, 0);
+    fence_proxy_async();
+    __syncthreads();
+  }
+  // item i: stage st_i with parity ph_i, plane d, sub-chunk r of the plane,
+  // sub-chunk sc of logical chunk c
+  int st_i = 0, ph_i = 0, d = 0, r = 0, sc = 0, c = 0;
+  for (int i = 0; i < total; ++i) {
+    if (r == 0) {  // the band enters plane d
+#pragma unroll
+      for (int v = 0; v < BAND_TILES; ++v) planes[v] += (alive >> v) & 1u;
+      c = 0;
+    }
+    if (sc == 0) {  // in flight while the chunk computes
+      sf_a = sfx[static_cast<long long>(c) * N + n0 + ca];
+      sf_b = sfx[static_cast<long long>(c) * N + n0 + cb];
+    }
+    const uint8_t* st = ring + st_i * geo.stage;
+    const uint64_t desc = sw128_desc(dig + (i & 1) * NB * 128);
+    if (geo.parts == 1) {
+      uint32_t a[4][4];
+      band_a(a, st + wg * BAND_BOX, wq, lane);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_band<NB>(t, a[ks], desc + 2 * ks, ks != 0);
+    } else {  // lo, mid, hi per k step
+      uint32_t a[3][4][4];
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        band_a(a[p], st + (p * NWG + wg) * BAND_BOX, wq, lane);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int p = 2; p >= 0; --p)
+          wgmma_band<NB>(t, a[p][ks], desc + 2 * ks, ks != 0 || p != 2);
+    }
+    wgmma_commit();
+    // the next item's place
+    const int st_n = st_i + 1 == ns ? 0 : st_i + 1;
+    const int ph_n = st_n == 0 ? ph_i ^ 1 : ph_i;
+    const int r_n = r + 1 == T ? 0 : r + 1;
+    const int d_n = r_n == 0 ? d + 1 : d;
+    if (i + 1 < total) {  // the next digits while the products run
+      mbar_wait(full + st_n, ph_n);
+      waited = i + 1;
+      band_digits<NB, THREADS>(dig + ((i + 1) & 1) * NB * 128,
+                               ring + st_n * geo.stage + wbytes, rbud_s,
+                               geo.n_bits - 1 - d_n, d_n);
+      fence_proxy_async();
+    }
+    wgmma_wait0();
+    reg_fence<NR>(t);
+#pragma unroll
+    for (int e = 0; e < NR; ++e) acc[e] = __fadd_rn(acc[e], t[e]);
+    __syncthreads();  // stage st_i and digit tile i are free; digits i+1 are in
+    if (issued < total) issue();
+    const int d_i = d;
+    st_i = st_n, ph_i = ph_n, r = r_n, d = d_n;
+    if (++sc < S) continue;
+    sc = 0;
+    ++c;
+    // the vote at the end of a logical chunk, per vote tile
+    const float scale = pow2(geo.n_bits - 1 - d_i);
+    const float rem_a = __fadd_rn(__fmul_rn(scale, sf_a),
+                                  __fmul_rn(scale - tail, tot_a));
+    const float rem_b = __fadd_rn(__fmul_rn(scale, sf_b),
+                                  __fmul_rn(scale - tail, tot_b));
+    unsigned bad = 0u;
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      const int ok = static_cast<int>(__fadd_rn(acc[4 * j], rem_a) < 0.0f) &
+                     static_cast<int>(__fadd_rn(acc[4 * j + 1], rem_a) < 0.0f) &
+                     static_cast<int>(__fadd_rn(acc[4 * j + 2], rem_b) < 0.0f) &
+                     static_cast<int>(__fadd_rn(acc[4 * j + 3], rem_b) < 0.0f);
+      bad |= static_cast<unsigned>(ok ^ 1) << ((8 * j) >> geo.lbm);
+    }
+    // rows past the NB computed: the wrapper's pad rows, whose sums are 0
+    if (NB < rows && !(rem_a < 0.0f && rem_b < 0.0f))
+      bad |= ~0u << (NB >> geo.lbm);
+    unsigned* vs = vote_s + (votes & 1) * 8;
+    const unsigned wmask = __reduce_and_sync(0xffffffffu, ~bad);
+    if (lane == 0) vs[warp] = wmask;
+    __syncthreads();
+    unsigned all = ~0u;
+#pragma unroll
+    for (int w = 0; w < NWG * 4; ++w) all &= vs[w];
+    if constexpr (CLUSTER) {  // join the other half's vote
+      cg::cluster_group cluster = cg::this_cluster();
+      unsigned* bs = vote_s + 16 + (votes & 1);
+      if (tid == 0) *bs = all;
+      cluster.sync();
+      all &= *cluster.map_shared_rank(bs, cluster.block_rank() ^ 1u);
+    }
+    ++votes;
+    died |= all & alive;
+    alive &= ~all;
+    if (alive == 0u) break;
+  }
+  // a band that stopped early: the boxes still in flight land before exit
+  if (tid == 0)
+    for (int j = waited + 1; j < issued; ++j)
+      mbar_wait(full + j % ns, (j / ns) & 1);
+
+#pragma unroll
+  for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 8 * j + 2 * t4 + (e & 1);
+      if (n < rows) {
+        const int v = n >> geo.lbm;
+        out[(r0 + n) * N + n0 + ((e >> 1) ? cb : ca)] =
+            (died >> v) & 1u ? 0.0f : fmaxf(acc[4 * j + e], 0.0f);
+      }
+    }
+  // rows past the NB computed: zeros
+  for (int e = tid; e < (rows - NB) * NWG * 64; e += THREADS) {
+    const int n = NB + e / (NWG * 64);
+    out[(r0 + n) * N + n0 + half * 64 + e % (NWG * 64)] = 0.0f;
+  }
+  if (tid == 0 && half == 0) {
+#pragma unroll
+    for (int v = 0; v < BAND_TILES; ++v)
+      if (v < tiles)
+        used[((r0 >> geo.lbm) + v) * geo.Nt + nt] = planes[v];
+  }
+  if constexpr (CLUSTER) cg::this_cluster().sync();  // no exit while read
+}
+
 // ------------------------------------------------------------ launchers
 
 bool product_path(int n_bits, int relu) { return !relu && n_bits <= 24; }
@@ -1429,14 +1937,16 @@ cudaError_t blocks_per_sm(int threads, int smem, int* per_sm) {
 template <int MI, int NI, typename QT, int NS, bool SLAB>
 int launch_plane_mn(const void* q, const void* w, int wtype, const float* sfx,
                     const float* tot, const int* npl, const int* bnd,
-                    const int* bud, float* out, int* used, void* ws, int M,
-                    int K, int N, int n_bits, int D, int bm, int bn, int bk,
-                    int relu, PlaneGeom geo, cudaStream_t s) {
+                    const int* bud, float* out, int* used, void* ws,
+                    const void* parts, int M, int K, int N, int n_bits, int D,
+                    int bm, int bn, int bk, int relu, PlaneGeom geo,
+                    cudaStream_t s) {
   auto kernel = plane_kernel<MI, NI, QT, NS, SLAB>;
   cudaError_t err = plane_attributes<MI, NI, QT, NS, SLAB>();
   if (err != cudaSuccess) return err;
-  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(ws);
-  if (!geo.resident) {
+  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(
+      parts != nullptr ? parts : ws);
+  if (!geo.resident && parts == nullptr) {  // W's parts, built for this call
     if (ws == nullptr) return cudaErrorInvalidValue;
     split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(
         w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, bn, geo.PN);
@@ -1581,17 +2091,20 @@ WalkGeom walk_geometry(int N, int bm, int bn, int wtype) {
 template <typename QT>
 int launch_walk(const void* q, const void* w, int wtype, const float* sfx,
                 const float* tot, const int* npl, const int* bnd,
-                const int* bud, float* out, int* used, void* ws, int M, int K,
-                int N, int n_bits, int D, int bm, int bn, int bk, int relu,
-                cudaStream_t s) {
+                const int* bud, float* out, int* used, void* ws,
+                const void* parts, int M, int K, int N, int n_bits, int D,
+                int bm, int bn, int bk, int relu, cudaStream_t s) {
   static std::atomic<unsigned> done{0};
   cudaError_t err = smem_attributes(walk_kernel<QT>, done);
   if (err != cudaSuccess) return err;
-  if (ws == nullptr) return cudaErrorInvalidValue;
   WalkGeom geo = walk_geometry<QT>(N, bm, bn, wtype);
-  __nv_bfloat16* wp = static_cast<__nv_bfloat16*>(ws);
-  split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(w, wtype, wp, K, N, bn,
-                                                   geo.PN);
+  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(
+      parts != nullptr ? parts : ws);
+  if (parts == nullptr) {  // W's parts, built for this call
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(
+        w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, bn, geo.PN);
+  }
   for (int y0 = 0; y0 < geo.Nt; y0 += 65535) {  // grid.y's limit
     const int ny = geo.Nt - y0 < 65535 ? geo.Nt - y0 : 65535;
     geo.y0 = y0;
@@ -1609,16 +2122,244 @@ long long parts_bytes(int K, int N, int bn, int PN, int wtype) {
   return (wtype == W_F32 ? 3LL : 1LL) * 2 * K * (N / bn) * PN;
 }
 
+// ---- D. band launcher
+
+// The band kernel takes ReLU tiles of 8-bit signed q, 128 columns, block_m
+// 16 to 128 and logical chunks of whole 64-row sub-chunks (the serving
+// shapes); q must suit TMA (16-byte aligned, K a multiple of 16 bytes).
+// What it takes depends on the tile and K alone, never on N, so a layer
+// split over ranks by N tiles takes the same path on every rank.
+int band_lbm(int bm) {
+  return bm == 16 ? 4 : bm == 32 ? 5 : bm == 64 ? 6 : bm == 128 ? 7 : -1;
+}
+
+bool band_path(const void* q, int M, int K, int bm, int bn, int bk,
+               int n_bits, int relu) {
+  return relu && n_bits <= 8 && bn == 128 && band_lbm(bm) > 0 &&
+         bk % BAND_KC == 0 && (M + BAND_ROWS - 1) / BAND_ROWS <= 65535 &&
+         (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+}
+
+// Rows a band's products cover: the band's, or for a single band the
+// fewest of 16, 32, 64 and 128 that hold its real rows (the rest are the
+// wrapper's pad rows: zero digits, skipped).
+int band_nb(int M, int m_real, int band) {
+  if (M > band) return band;
+  const int real = m_real > 0 && m_real < M ? m_real : M;
+  return real <= 16 ? 16 : real <= 32 ? 32 : real <= 64 ? 64 : 128;
+}
+
+BandGeom band_geometry(int M, int K, int N, int n_bits, int D, int bm,
+                       int bk, int parts, int nwg, int nb, int band) {
+  BandGeom geo{};
+  geo.Mp = M, geo.K = K, geo.N = N, geo.n_bits = n_bits, geo.D = D;
+  geo.band = band;
+  geo.bm = bm, geo.lbm = band_lbm(bm), geo.bk = bk, geo.parts = parts;
+  geo.Nt = N / 128;
+  geo.stage = (parts * nwg * BAND_BOX + nb * BAND_KC + 1023) / 1024 * 1024;
+  geo.off_ring = 2 * nb * 128;
+  const int rest = 64 + 4 * BAND_ROWS + 128;  // barriers, budgets, votes
+  geo.ns = (MAX_SMEM - 1024 - geo.off_ring - rest) / geo.stage;
+  if (geo.ns > BAND_MAX_STAGES) geo.ns = BAND_MAX_STAGES;
+  geo.off_bar = geo.off_ring + geo.ns * geo.stage;
+  geo.off_bud = geo.off_bar + 64;
+  geo.off_vote = geo.off_bud + 4 * BAND_ROWS;
+  geo.smem = 1024 + geo.off_vote + 128;
+  return geo;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult res{};
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault, &res) !=
+        cudaSuccess)
+      f = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &res) != cudaSuccess)
+      f = nullptr;
+#endif
+    return res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                              : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D row-major tensor map: rows x cols elements of `bytes` each, boxes of
+// box_rows x box_cols.
+bool tensor_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType ty,
+                   int bytes, long long rows, long long cols, int box_rows,
+                   int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, ty, 2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The parts' tensor map, once per (parts, K, N tiles): the prepared parts
+// of a layer live as long as the layer, and the map holds nothing else.
+bool parts_map(CUtensorMap* map, const void* wp, int parts, int K, int Nt) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int>, CUtensorMap> known;
+  const auto key = std::make_tuple(wp, parts, K, Nt);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find(key);
+  if (it == known.end()) {
+    CUtensorMap m;
+    if (!tensor_map_2d(&m, wp, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                       static_cast<long long>(parts) * K,
+                       static_cast<long long>(Nt) * 128, 64, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B))
+      return false;
+    it = known.emplace(key, m).first;
+  }
+  *map = it->second;
+  return true;
+}
+
+template <int NB, int NWG, bool CLUSTER>
+cudaError_t launch_band_nb(const CUtensorMap& tm_w, const CUtensorMap& tm_q,
+                           const float* sfx, const float* tot, const int* npl,
+                           const int* bnd, const int* bud, float* out,
+                           int* used, const BandGeom& geo, int bands,
+                           cudaStream_t s) {
+  static std::atomic<unsigned> done{0};
+  auto kernel = band_kernel<NB, NWG, CLUSTER>;
+  cudaError_t err = smem_attributes(kernel, done);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(geo.Nt * (CLUSTER ? 2 : 1), bands);
+  cfg.blockDim = dim3(NWG * 128);
+  cfg.dynamicSmemBytes = geo.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 2;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = CLUSTER ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, tm_w, tm_q, sfx, tot, npl, bnd, bud,
+                           out, used, geo);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+int launch_band(const void* q, const void* w, int wtype, const void* sfx,
+                const void* tot, const void* npl, const void* bnd,
+                const void* bud, void* out, void* used, void* ws,
+                const void* parts, int n_parts, int m_real, int M, int K,
+                int N, int n_bits, int D, int bm, int bk, cudaStream_t s) {
+  const int Nt = N / 128;
+  int np = n_parts;
+  const void* wp = parts;
+  if (wp == nullptr) {  // W's parts, built for this call
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    np = wtype == W_F32 ? 3 : 1;
+    split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(
+        w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, 128, 128);
+    wp = ws;
+  }
+  if (np != 1 && np != 3) return cudaErrorInvalidValue;
+  // bands of 64 rows where bands of 128 would leave half the SMs idle
+  // (the admission shapes of 32-64 N tiles) and block_m divides 64: twice
+  // the blocks, each extracting and multiplying half the rows
+  const int band = bm <= 64 && M > 64 &&
+                   2LL * ((M + BAND_ROWS - 1) / BAND_ROWS) * Nt <= NUM_SMS
+                       ? 64 : BAND_ROWS;
+  const int bands = (M + band - 1) / band;
+  const int nb = band_nb(M, m_real, band);
+  // a decode band (16 rows) whose tiles leave SMs idle: each N tile's
+  // columns split over a 2-block cluster, one warpgroup a block (the same
+  // sums, element for element), where the clusters fit on the SMs at once.
+  // Wider bands keep one block a tile: both halves would extract the
+  // band's digits, and a second wave costs more than the idle SMs.
+  const bool split = nb == 16 && 2LL * bands * Nt <= NUM_SMS;
+  const BandGeom geo = band_geometry(M, K, N, n_bits, D, bm, bk, np,
+                                     split ? 1 : 2, nb, band);
+  if (geo.ns < 2) return cudaErrorInvalidValue;
+  CUtensorMap tm_w, tm_q;
+  if (!parts_map(&tm_w, wp, np, K, Nt) ||
+      !tensor_map_2d(&tm_q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, nb,
+                     BAND_KC, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const float* sf = static_cast<const float*>(sfx);
+  const float* tt = static_cast<const float*>(tot);
+  const int* pl = static_cast<const int*>(npl);
+  const int* bd = static_cast<const int*>(bnd);
+  const int* bu = static_cast<const int*>(bud);
+  float* o = static_cast<float*>(out);
+  int* u = static_cast<int*>(used);
+  if (split)
+    return launch_band_nb<16, 1, true>(tm_w, tm_q, sf, tt, pl, bd, bu, o, u,
+                                       geo, bands, s);
+#define DSLOT_BAND(NB_)                                                     \
+  if (nb == NB_)                                                            \
+    return launch_band_nb<NB_, 2, false>(tm_w, tm_q, sf, tt, pl, bd, bu, o, \
+                                         u, geo, bands, s);
+  DSLOT_BAND(16)
+  DSLOT_BAND(32)
+  DSLOT_BAND(64)
+  DSLOT_BAND(128)
+#undef DSLOT_BAND
+  return cudaErrorInvalidValue;
+}
+
+// The plane path.  Prepared parts (`parts`, n_parts of them) replace the
+// per-call split_parts_kernel wherever a tile reads parts: the band kernel
+// takes the serving shapes, every other streamed or walked tile reads them
+// in place of its workspace.  One prepared part of f32 weights (bf16 holds
+// every weight) is the layout bf16 weights give, so those tiles launch with
+// W_BF16; a resident tile stages W from `w` itself and ignores them.
 template <typename QT>
 int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
                  const void* tot, const void* npl, const void* bnd,
-                 const void* bud, void* out, void* used, void* ws, int M,
-                 int K, int N, int n_bits, int D, int bm, int bn, int bk,
-                 int relu, cudaStream_t s) {
+                 const void* bud, void* out, void* used, void* ws,
+                 const void* parts, int n_parts, int m_real, int M, int K,
+                 int N, int n_bits, int D, int bm, int bn, int bk, int relu,
+                 cudaStream_t s) {
+  if constexpr (std::is_same<QT, int8_t>::value) {
+    if (band_path(q, M, K, bm, bn, bk, n_bits, relu))
+      return launch_band(q, w, wtype, sfx, tot, npl, bnd, bud, out, used, ws,
+                         parts, n_parts, m_real, M, K, N, n_bits, D, bm, bk,
+                         s);
+  }
   PlaneGeom geo{};
   int mi = 0, ni = 0;
-  const int err = plane_geometry<QT>(K, N, bm, bn, bk, wtype, geo, mi, ni);
+  int err = plane_geometry<QT>(K, N, bm, bn, bk, wtype, geo, mi, ni);
   if (err != cudaSuccess) return err;
+  if (parts != nullptr && (mi != 0 && geo.resident)) parts = nullptr;
+  if (parts != nullptr && n_parts == 1 && wtype == W_F32) {
+    PlaneGeom one{};
+    int mi1 = 0, ni1 = 0;
+    err = plane_geometry<QT>(K, N, bm, bn, bk, W_BF16, one, mi1, ni1);
+    if (err != cudaSuccess) return err;
+    if (mi1 == 0 || !one.resident) {
+      geo = one, mi = mi1, ni = ni1;
+      wtype = W_BF16;
+    } else {
+      parts = nullptr;
+    }
+  }
   const float* sf = static_cast<const float*>(sfx);
   const float* tt = static_cast<const float*>(tot);
   const int* np = static_cast<const int*>(npl);
@@ -1629,14 +2370,14 @@ int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
   // The warp tiles that ran before slabs keep a variant with their old code
   // for up to 65535 N tiles; every other launch takes the SLAB variant.
   if (mi == 0)
-    return launch_walk<QT>(q, w, wtype, sf, tt, np, bd, bu, o, u, ws, M, K, N,
-                           n_bits, D, bm, bn, bk, relu, s);
+    return launch_walk<QT>(q, w, wtype, sf, tt, np, bd, bu, o, u, ws, parts,
+                           M, K, N, n_bits, D, bm, bn, bk, relu, s);
   const bool slab = geo.Nt > 65535;
 #define DSLOT_PLANE(MI_, NI_, NS_, SLAB_)                                   \
   if (mi == MI_ && ni == NI_ && geo.nstage == NS_ && (SLAB_ || !slab))      \
     return launch_plane_mn<MI_, NI_, QT, NS_, SLAB_>(                       \
-        q, w, wtype, sf, tt, np, bd, bu, o, u, ws, M, K, N, n_bits, D, bm,  \
-        bn, bk, relu, geo, s);
+        q, w, wtype, sf, tt, np, bd, bu, o, u, ws, parts, M, K, N, n_bits, \
+        D, bm, bn, bk, relu, geo, s);
   DSLOT_PLANE(1, 1, NSTAGE, false)
   DSLOT_PLANE(2, 2, NSTAGE, false)
   DSLOT_PLANE(4, 4, NSTAGE, false)
@@ -1658,14 +2399,16 @@ int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
 template <typename QT>
 int launch_typed(const void* q, int wtype, const void* w, const void* sfx,
                  const void* tot, const void* npl, const void* bnd,
-                 const void* bud, void* out, void* used, void* ws, int M,
-                 int K, int N, int n_bits, int D, int bm, int bn, int bk,
-                 int relu, cudaStream_t s) {
+                 const void* bud, void* out, void* used, void* ws,
+                 const void* parts, int n_parts, int m_real, int M, int K,
+                 int N, int n_bits, int D, int bm, int bn, int bk, int relu,
+                 cudaStream_t s) {
   if (product_path(n_bits, relu))
     return launch_product<QT>(q, w, wtype, npl, bnd, bud, out, used, M, K, N,
                               n_bits, D, bm, bn, s);
   return launch_plane<QT>(q, w, wtype, sfx, tot, npl, bnd, bud, out, used, ws,
-                          M, K, N, n_bits, D, bm, bn, bk, relu, s);
+                          parts, n_parts, m_real, M, K, N, n_bits, D, bm, bn,
+                          bk, relu, s);
 }
 
 }  // namespace
@@ -1696,7 +2439,7 @@ long long dslot_matmul_workspace(int K, int N, int bm, int bn, int bk,
 }
 
 // One launch's arguments, every field 8 bytes, so that the caller packs them
-// in one step (22 int64 in this order).
+// in one step (25 int64 in this order).
 struct DslotArgs {
   const void* q;
   long long qtype;
@@ -1712,6 +2455,9 @@ struct DslotArgs {
   void* ws;          // dslot_matmul_workspace bytes, or null when 0
   long long M, K, N, n_bits, D, bm, bn, bk, relu;
   void* stream;
+  const void* parts;  // W's prepared bf16 parts (dslot_split_parts), or null
+  long long n_parts;  // how many: 1 or 3 (0 with no parts)
+  long long m_real;   // rows before the caller's padding (M when unpadded)
 };
 
 // Returns a cudaError_t as int: cudaErrorInvalidValue for shapes the kernel
@@ -1721,7 +2467,9 @@ int dslot_matmul_launch(const DslotArgs* a) {
       a->bk <= 0 || a->M > INT_MAX || a->N > INT_MAX || a->K > INT_MAX ||
       a->M % a->bm != 0 || a->N % a->bn != 0 || a->K % a->bk != 0 ||
       a->D < 1 || a->D > a->n_bits || a->n_bits > 30 || a->qtype < Q_U8 ||
-      a->qtype > Q_I32 || a->wtype < W_F32 || a->wtype > W_BF16) {
+      a->qtype > Q_I32 || a->wtype < W_F32 || a->wtype > W_BF16 ||
+      (a->parts != nullptr && a->n_parts != 1 && a->n_parts != 3) ||
+      (a->parts != nullptr && a->n_parts == 3 && a->wtype != W_F32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int M = static_cast<int>(a->M), K = static_cast<int>(a->K),
@@ -1733,8 +2481,10 @@ int dslot_matmul_launch(const DslotArgs* a) {
 #define DSLOT_TYPED(CODE, T)                                                 \
   if (a->qtype == CODE)                                                      \
     return launch_typed<T>(a->q, wtype, a->w, a->sfx, a->tot, a->npl, a->bnd,\
-                           a->bud, a->out, a->used, a->ws, M, K, N, n_bits,  \
-                           D, bm, bn, bk, relu, s);
+                           a->bud, a->out, a->used, a->ws, a->parts,       \
+                           static_cast<int>(a->n_parts),                     \
+                           static_cast<int>(a->m_real), M, K, N, n_bits, D,  \
+                           bm, bn, bk, relu, s);
   DSLOT_TYPED(Q_U8, uint8_t)
   DSLOT_TYPED(Q_I8, int8_t)
   DSLOT_TYPED(Q_U16, uint16_t)
@@ -1742,6 +2492,21 @@ int dslot_matmul_launch(const DslotArgs* a) {
   DSLOT_TYPED(Q_I32, int32_t)
 #undef DSLOT_TYPED
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// W's bf16 parts in split_parts_kernel's layout [part][K][N / bn][PN], PN =
+// bn rounded up to 8: 3 parts of f32 weights, 1 of bf16 weights (a caller
+// whose f32 weights bf16 holds exactly passes them as bf16).  Run once per
+// layer, when it is prepared.
+int dslot_split_parts(const void* w, int wtype, void* out, int K, int N,
+                      int bn, void* stream) {
+  if (K <= 0 || N <= 0 || bn <= 0 || N % bn != 0 || wtype < W_F32 ||
+      wtype > W_BF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  split_parts_kernel<<<min(K, 4096), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      w, wtype, static_cast<__nv_bfloat16*>(out), K, N, bn, (bn + 7) / 8 * 8);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* dslot_error_string(int code) {

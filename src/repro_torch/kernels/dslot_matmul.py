@@ -22,10 +22,16 @@ Two executions of that one definition live here:
   without ReLU (and ``n_bits <= 24``) cannot terminate, so it runs as one
   product of the truncated ``q`` with ``W``, split over K across a
   thread-block cluster when its tiles are fewer than the SMs.  A ReLU layer
-  runs one thread block per output tile with the (d, c) loop inside the
-  block, the digit planes on the tensor cores (bf16 ``mma.sync``, f32
-  weights as three bf16 parts) and a block-wide vote for the early exit.
-  ``dslot_matmul_cuda`` launches it for CUDA tensors.
+  runs the (d, c) loop inside a thread block, the digit planes on the
+  tensor cores (bf16, f32 weights as three bf16 parts) and a vote for the
+  early exit: at the serving shapes (8-bit signed q, ``block_n`` 128)
+  one block per N tile and band of up to 128 rows, its vote tiles voting
+  each on its own, on ``wgmma``; elsewhere one block per output tile on
+  ``mma.sync``.  ``dslot_matmul_cuda`` launches it for CUDA tensors.
+* ``split_parts`` — W's bf16 parts in the layout the kernel streams
+  (``split_parts_plain`` is its plain version).  ``ops.dslot_prepare``
+  builds them once per layer and passes them on every call; a call on raw
+  weights builds them inside the launch.
 * ``_replay`` — the plain PyTorch version: the vectorized replay of the
   reference's ``ops._jnp_path``.  It computes every plane and derives the
   per-tile ``planes_used`` the kernel reports by replaying the bound check in
@@ -53,8 +59,9 @@ from repro_torch.device import full_f32
 from . import _build
 
 __all__ = ["DslotMatmulOut", "colsum_tables", "dslot_matmul_cuda",
-           "dslot_matmul_cuda_batched", "dslot_matmul_plain",
-           "q_storage_dtype", "select_block_k"]
+           "dslot_matmul_cuda_batched", "dslot_matmul_plain", "part_count",
+           "q_storage_dtype", "select_block_k", "split_parts",
+           "split_parts_plain"]
 
 _CHUNK_BUDGET_BYTES = 12 * 1024 * 1024  # the reference's block_k policy
 _LANE = 128                             # the reference's K-chunk alignment
@@ -132,12 +139,74 @@ def _pad_to(x: torch.Tensor, m: int, axis: int) -> torch.Tensor:
     return out
 
 
+# ------------------------------------------------------------ W's parts
+
+def part_count(w: torch.Tensor) -> int:
+    """bf16 parts the kernel needs for ``w``: 1 where bf16 holds every
+    weight exactly (a bf16 model's weights, widened to f32), else 3 (hi,
+    mid and lo: 24 bits of significand)."""
+    if w.dtype == torch.bfloat16:
+        return 1
+    return 1 if torch.equal(w, w.to(torch.bfloat16).to(w.dtype)) else 3
+
+
+def split_parts_plain(w: torch.Tensor, block_n: int, n_parts: int
+                      ) -> torch.Tensor:
+    """Plain version of ``split_parts``: (n_parts, K, N / block_n, PN) bf16,
+    PN = block_n rounded up to 8 with zero pad columns; hi = bf16(w), mid =
+    bf16(w - hi), lo = bf16(w - hi - mid), each difference exact in f32."""
+    K, N = w.shape
+    Nt = N // block_n
+    pn = -(-block_n // 8) * 8
+    x = w.to(torch.float32).reshape(K, Nt, block_n)
+    hi = x.to(torch.bfloat16)
+    parts = [hi]
+    if n_parts == 3:
+        r1 = x - hi.to(torch.float32)
+        mid = r1.to(torch.bfloat16)
+        parts += [mid, (r1 - mid.to(torch.float32)).to(torch.bfloat16)]
+    return _pad_to(torch.stack(parts), pn, axis=3)
+
+
+def split_parts(w: torch.Tensor, block_n: int, n_parts: int) -> torch.Tensor:
+    """W's bf16 parts in the layout the kernel streams (``split_parts_plain``
+    gives the shape): a CUDA tensor launches ``dslot_split_parts``
+    (``split_parts.launches`` counts the launches), a CPU tensor runs the
+    plain version.  ``n_parts`` 1 asks for bf16(w), exact only where
+    ``part_count(w)`` is 1."""
+    K, N = w.shape
+    if N % block_n or n_parts not in (1, 3):
+        raise ValueError(f"w{tuple(w.shape)} does not tile by {block_n}, or "
+                         f"{n_parts} parts")
+    if not w.is_cuda:
+        return split_parts_plain(w, block_n, n_parts)
+    # one part: the bf16 weights themselves, whose kernel split is one part
+    src = _dense(w, torch.bfloat16 if n_parts == 1 else torch.float32)
+    pn = -(-block_n // 8) * 8
+    out = torch.empty((n_parts, K, N // block_n, pn), dtype=torch.bfloat16,
+                      device=w.device)
+    lib = _library()
+    with torch.cuda.device(w.device):
+        err = lib.dslot_split_parts(
+            src.data_ptr(), _W_CODES[src.dtype], out.data_ptr(), K, N,
+            block_n, torch.cuda.current_stream(w.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("dslot_split_parts kernel launch failed: "
+                           + lib.dslot_error_string(err).decode())
+    split_parts.launches += 1
+    return out
+
+
+split_parts.launches = 0
+
+
 # ------------------------------------------------------------ the replay
 
 def _replay(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
             relu: bool, block_m: int, block_n: int, bk: int,
             suffix: torch.Tensor, total: torch.Tensor, npl: torch.Tensor,
-            row_budget: torch.Tensor | None, tile_bound: torch.Tensor
+            row_budget: torch.Tensor | None, tile_bound: torch.Tensor,
+            parts: torch.Tensor | None = None, rows: int | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel: every plane computed, ``planes_used``
     replayed (port of the reference's ``ops._jnp_path``).
@@ -146,8 +215,9 @@ def _replay(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
     the |W| column-sum tables; ``npl`` the runtime precision (i32 scalar
     tensor); ``row_budget`` (M,) i32 or None (every row at ``npl``);
     ``tile_bound`` (Nt,) i32 the weight-side plane bound; ``n_planes`` the
-    static plane depth D.  Digits of rows past their budget and columns of
-    tiles past their bound contribute nothing; check results at steps the
+    static plane depth D; ``parts`` and ``rows`` (the kernel's prepared
+    parts and unpadded row count) change nothing here.  Digits of rows past
+    their budget and columns of tiles past their bound contribute nothing; check results at steps the
     kernel never enters are removed by the final clamps to ``tile_bound``
     and ``npl``, as in the reference.
     """
@@ -195,12 +265,16 @@ def _replay(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
 def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
             relu: bool, block_m: int, block_n: int, bk: int,
             suffix: torch.Tensor, total: torch.Tensor, npl: torch.Tensor,
-            row_budget: torch.Tensor | None, tile_bound: torch.Tensor
+            row_budget: torch.Tensor | None, tile_bound: torch.Tensor,
+            parts: torch.Tensor | None = None, rows: int | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/dslot_matmul.cu`` on the current stream (same
-    arguments and results as ``_replay``).  One call is one launch for the
-    counter, also where it takes two grids (W's bf16 parts written before
-    tiles that stream W).  The host work per call is kept small: an H100
+    arguments and results as ``_replay``).  ``parts`` are W's prepared bf16
+    parts (``split_parts``), read in place of a per-call split; ``rows``
+    the real rows of ``q`` before the caller padded it to ``block_m`` (the
+    kernel skips the products of pad rows past them).  One call is one
+    launch for the counter, also where it takes two grids (W's bf16 parts
+    written before tiles that stream W, when no parts are passed).  The host work per call is kept small: an H100
     runs the CNN head's kernel in about 11 us, so there the wrapper's own
     time is what an eager caller waits for."""
     M, K = q.shape
@@ -217,7 +291,7 @@ def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
     dev = q.get_device()
     for name, t in (("w", w), ("suffix", suffix), ("total", total),
                     ("npl", npl), ("tile_bound", tile_bound),
-                    ("row_budget", row_budget)):
+                    ("row_budget", row_budget), ("parts", parts)):
         if t is not None and t.get_device() != dev:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     q, w = _dense(q, q.dtype), _dense(w, w.dtype)
@@ -232,12 +306,25 @@ def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
             or (row_budget is not None and row_budget.shape != (M,)):
         raise ValueError("termination tables, runtime precision, plane bound "
                          "or row budget do not match the tiled shapes")
+    n_parts = 0
+    if parts is not None:
+        n_parts = parts.shape[0]
+        if parts.dtype != torch.bfloat16 or not parts.is_contiguous() \
+                or parts.shape != (n_parts, K, N // block_n,
+                                   -(-block_n // 8) * 8) \
+                or n_parts not in (1, 3) \
+                or (n_parts == 3 and w.dtype != torch.float32):
+            raise ValueError(f"parts {tuple(parts.shape)} {parts.dtype} are "
+                             f"not split_parts of w{tuple(w.shape)}")
     lib = _library()
-    key = (K, N, block_m, block_n, bk, n_bits, bool(relu), q_code, w_code)
-    ws_bytes = _WORKSPACE.get(key)
-    if ws_bytes is None:
-        ws_bytes = _WORKSPACE[key] = max(0, lib.dslot_matmul_workspace(
-            K, N, block_m, block_n, bk, n_bits, int(relu), q_code, w_code))
+    ws_bytes = 0
+    if parts is None:
+        key = (K, N, block_m, block_n, bk, n_bits, bool(relu), q_code, w_code)
+        ws_bytes = _WORKSPACE.get(key)
+        if ws_bytes is None:
+            ws_bytes = _WORKSPACE[key] = max(0, lib.dslot_matmul_workspace(
+                K, N, block_m, block_n, bk, n_bits, int(relu), q_code,
+                w_code))
     out = torch.empty((M, N), dtype=torch.float32, device=q.device)
     used = torch.empty((M // block_m, N // block_n), dtype=torch.int32,
                        device=q.device)
@@ -249,7 +336,9 @@ def _launch(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
         0 if row_budget is None else row_budget.data_ptr(), out.data_ptr(),
         used.data_ptr(), 0 if ws is None else ws.data_ptr(), M, K, N, n_bits,
         n_planes, block_m, block_n, bk, int(relu),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream,
+        0 if parts is None else parts.data_ptr(), n_parts,
+        M if rows is None else rows)
     if dev == torch.cuda.current_device():
         err = lib.dslot_matmul_launch(args)
     else:
@@ -269,8 +358,8 @@ def _dense(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
-# The C entry point's argument record (struct DslotArgs): 22 int64 fields.
-_ARGS = struct.Struct("=22q")
+# The C entry point's argument record (struct DslotArgs): 25 int64 fields.
+_ARGS = struct.Struct("=25q")
 _WORKSPACE: dict[tuple, int] = {}   # workspace bytes by launch shape
 
 
@@ -284,13 +373,17 @@ def _library() -> ctypes.CDLL:
         lib.dslot_matmul_workspace.restype = ctypes.c_longlong
         lib.dslot_error_string.argtypes = [i]
         lib.dslot_error_string.restype = ctypes.c_char_p
+        p = ctypes.c_void_p
+        lib.dslot_split_parts.argtypes = [p, i, p, i, i, i, p]
+        lib.dslot_split_parts.restype = i
     return lib
 
 
 def run(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
         relu: bool, block_m: int, block_n: int, bk: int,
         suffix: torch.Tensor, total: torch.Tensor, npl: torch.Tensor,
-        row_budget: torch.Tensor | None, tile_bound: torch.Tensor
+        row_budget: torch.Tensor | None, tile_bound: torch.Tensor,
+        parts: torch.Tensor | None = None, rows: int | None = None
         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The backend rule on pre-padded inputs: a CUDA tensor launches the
     kernel, a CPU tensor runs the plain version.  Nothing falls back.
@@ -306,7 +399,7 @@ def run(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,
             "torch.no_grad()")
     fn = _launch if q.is_cuda else _replay
     args = (q, w, n_bits, n_planes, relu, block_m, block_n, bk, suffix,
-            total, npl, row_budget, tile_bound)
+            total, npl, row_budget, tile_bound, parts, rows)
     if _COST_HOOK is not None:   # an active launch.op_cost.OpCost
         return _COST_HOOK(fn, args)
     return fn(*args)
@@ -358,14 +451,15 @@ def _normalize(q, w, *, n_bits, n_planes, block_m, block_n, block_k,
 
 
 def _call(fn, q, w, *, n_bits, n_planes, relu, block_m, block_n, block_k,
-          n_planes_rt, row_budget, suffix_colsum, total_colsum, plane_bound):
+          n_planes_rt, row_budget, suffix_colsum, total_colsum, plane_bound,
+          parts=None, rows=None):
     q, w, D, bk, sfx, tot, npl, bud, bnd = _normalize(
         q, w, n_bits=n_bits, n_planes=n_planes, block_m=block_m,
         block_n=block_n, block_k=block_k, n_planes_rt=n_planes_rt,
         row_budget=row_budget, suffix_colsum=suffix_colsum,
         total_colsum=total_colsum, plane_bound=plane_bound)
     out, used = fn(q, w, n_bits, D, relu, block_m, block_n, bk, sfx, tot,
-                   npl, bud, bnd)
+                   npl, bud, bnd, parts, rows)
     return DslotMatmulOut(out=out, planes_used=used)
 
 
@@ -377,7 +471,9 @@ def dslot_matmul_cuda(q: torch.Tensor, w: torch.Tensor, *, n_bits: int = 8,
                       row_budget: torch.Tensor | None = None,
                       suffix_colsum: torch.Tensor | None = None,
                       total_colsum: torch.Tensor | None = None,
-                      plane_bound: torch.Tensor | None = None
+                      plane_bound: torch.Tensor | None = None,
+                      parts: torch.Tensor | None = None,
+                      rows: int | None = None
                       ) -> DslotMatmulOut:
     """Run the digit-serial matmul (counterpart of ``dslot_matmul_pallas``).
 
@@ -392,6 +488,10 @@ def dslot_matmul_cuda(q: torch.Tensor, w: torch.Tensor, *, n_bits: int = 8,
     suffix_colsum / total_colsum: prepared |W| column-sum tables ((Kt, N) /
        (1, N)), or None to compute them here.
     plane_bound: (N/block_n,) i32 weight-side plane bound per N tile.
+    parts: W's prepared bf16 parts (``split_parts`` of the K-padded ``w``),
+       or None to build them inside the launch where a tile reads them.
+    rows: the rows of ``q`` before the caller padded M to ``block_m`` (None:
+       all of them); the kernel may skip the pad rows' products.
     M % block_m == 0 and N % block_n == 0 (callers pad).
 
     CUDA tensors launch the kernel (``dslot_matmul_cuda.launches`` counts
@@ -401,7 +501,7 @@ def dslot_matmul_cuda(q: torch.Tensor, w: torch.Tensor, *, n_bits: int = 8,
                  block_m=block_m, block_n=block_n, block_k=block_k,
                  n_planes_rt=n_planes_rt, row_budget=row_budget,
                  suffix_colsum=suffix_colsum, total_colsum=total_colsum,
-                 plane_bound=plane_bound)
+                 plane_bound=plane_bound, parts=parts, rows=rows)
 
 
 dslot_matmul_cuda.launches = 0
@@ -415,7 +515,9 @@ def dslot_matmul_plain(q: torch.Tensor, w: torch.Tensor, *, n_bits: int = 8,
                        row_budget: torch.Tensor | None = None,
                        suffix_colsum: torch.Tensor | None = None,
                        total_colsum: torch.Tensor | None = None,
-                       plane_bound: torch.Tensor | None = None
+                       plane_bound: torch.Tensor | None = None,
+                       parts: torch.Tensor | None = None,
+                       rows: int | None = None
                        ) -> DslotMatmulOut:
     """The plain PyTorch version of ``dslot_matmul_cuda`` on any device
     (same signature, same ``(out, planes_used)``)."""
@@ -423,7 +525,7 @@ def dslot_matmul_plain(q: torch.Tensor, w: torch.Tensor, *, n_bits: int = 8,
                  block_m=block_m, block_n=block_n, block_k=block_k,
                  n_planes_rt=n_planes_rt, row_budget=row_budget,
                  suffix_colsum=suffix_colsum, total_colsum=total_colsum,
-                 plane_bound=plane_bound)
+                 plane_bound=plane_bound, parts=parts, rows=rows)
 
 
 def dslot_matmul_cuda_batched(q: torch.Tensor, w: torch.Tensor, *,

@@ -7,7 +7,9 @@ paper's weight-stationary dataflow:
 * ``dslot_prepare(w, ...) -> DslotWeights`` — everything that depends only
   on the weights, computed once per layer: column-sort permutation (+
   inverse), block geometry (``block_k``), N/K padding, the |W| column-sum
-  termination tables and the weight-side MSR plane bound.
+  termination tables, the weight-side MSR plane bound and, for layers whose
+  kernel tiles stream W, W's bf16 parts (one part where bf16 holds every
+  weight, else three).
 * ``dslot_execute(prepared, x, n_planes=...)`` — the per-request path:
   quantize activations (against a calibrated fixed scale when one is
   stored), run the digit-serial matmul, dequantize.  ``n_planes`` is a
@@ -101,6 +103,8 @@ class DslotWeights:
     x_scale: torch.Tensor | None       # () f32 calibrated activation step,
                                        # or None = per-call max
     msr_bound: torch.Tensor | None = None  # (Nt,) i32 static plane bound
+    parts: torch.Tensor | None = None  # (P, Kp, Nt, PN) bf16 parts of w
+                                       # (dm.split_parts), or None
     n_bits: int = 8
     relu: bool = True
     signed: bool = False
@@ -165,6 +169,14 @@ def dslot_prepare(w: torch.Tensor, *, n_bits: int = 8, relu: bool = True,
     weights alone get bound 0 and are never issued; results are identical
     to ``msr_bound=False``.
 
+    W's bf16 parts (``dm.split_parts``, the kernel's streamed layout) are
+    built here once, after the rank's columns are cut, for every layer
+    whose tiles take the kernel's plane path and are wider than 8 columns
+    (those tiles all stream W; tiles of 8 columns may stay resident and
+    stage W themselves, and a streamed one builds its parts per call).  The
+    part count is decided once over the whole layer: 1 where bf16 holds
+    every weight, else 3.  Every call passes them; none rebuilds them.
+
     ``mesh``/``tp_axis`` (a ``DeviceMesh`` and one of its axis names) make
     every ``dslot_execute`` of the result tensor-parallel over that axis;
     each rank keeps its own columns (module docstring).  Every rank of the
@@ -195,15 +207,25 @@ def dslot_prepare(w: torch.Tensor, *, n_bits: int = 8, relu: bool = True,
     if x_scale is not None:
         x_scale = torch.as_tensor(x_scale, dtype=torch.float32,
                                   device=w.device)
+    n_parts = dm.part_count(w_p) if _reads_parts(relu, n_bits, block_n) \
+        else 0
     if mesh is not None:
         w_p, suffix_colsum, total_colsum, bound = _shard_columns(
             mesh, tp_axis, block_n, n_bits, w_p, suffix_colsum,
             total_colsum, bound)
+    parts = dm.split_parts(w_p, block_n, n_parts) if n_parts else None
     return DslotWeights(
         w=w_p, suffix_colsum=suffix_colsum, total_colsum=total_colsum,
-        inv_perm=inv_perm, x_scale=x_scale, msr_bound=bound, n_bits=n_bits,
-        relu=relu, signed=signed, block_m=block_m, block_n=block_n,
-        block_k=bk, d_in=K, d_out=N, mesh=mesh, tp_axis=tp_axis)
+        inv_perm=inv_perm, x_scale=x_scale, msr_bound=bound, parts=parts,
+        n_bits=n_bits, relu=relu, signed=signed, block_m=block_m,
+        block_n=block_n, block_k=bk, d_in=K, d_out=N, mesh=mesh,
+        tp_axis=tp_axis)
+
+
+def _reads_parts(relu: bool, n_bits: int, block_n: int) -> bool:
+    """Whether a layer gets prepared parts: its tiles take the kernel's
+    plane path (ReLU, or more than 24 bits) and are wider than 8 columns."""
+    return (relu or n_bits > 24) and block_n > 8
 
 
 def _shard_columns(mesh, axis, block_n, n_bits, w_p, suffix, total, bound):
@@ -270,7 +292,8 @@ def _execute_core(prepared: DslotWeights, x: torch.Tensor, npl: torch.Tensor,
 
     out_p, used = dm.run(q_p, cfg.w, cfg.n_bits, D, cfg.relu, cfg.block_m,
                          cfg.block_n, cfg.block_k, cfg.suffix_colsum,
-                         cfg.total_colsum[0], npl_scalar, bud_p, bnd)
+                         cfg.total_colsum[0], npl_scalar, bud_p, bnd,
+                         cfg.parts, M)
     used = torch.minimum(used, npl_scalar.to(torch.int32))
     if cfg.mesh is not None:
         out_p, used, bnd = _gather_shards(cfg, out_p, used, bnd)

@@ -80,3 +80,26 @@ def test_identical_builds_pass_and_a_changed_kernel_fails(fake_tools, capsys):
     # no --extra: the old names are not in the new build
     assert cs.main(["old.so", "new.so"]) == 1
     assert "2 without a counterpart" in capsys.readouterr().out
+
+
+def test_column_padding_does_not_count(monkeypatch, capsys):
+    """cuobjdump pads every line to the listing's longest instruction: a
+    build that adds a kernel with longer instructions re-pads the others,
+    which must still compare identical; a changed encoding must not."""
+    line = "        /*0000*/{pad}LDC R1, c[0x0][0x28] ;{pad}/* 0x00000a00ff017b82 */"
+    listings = {"old.so": {"k": line.format(pad="   ")},
+                "new.so": {"k": line.format(pad="      ")},
+                "bad.so": {"k": line.format(pad="   ").replace("17b82",
+                                                              "17b83")}}
+
+    def run(cmd, input=None, **kw):
+        if cmd[0] == "c++filt":
+            return subprocess.CompletedProcess(cmd, 0, stdout=input)
+        body = listings[cmd[-1]]["k"]
+        return subprocess.CompletedProcess(
+            cmd, 0, stdout=f"Fatbin elf code:\n\t\tFunction : k\n{body}\n")
+
+    monkeypatch.setattr(cs.subprocess, "run", run)
+    assert cs.main(["old.so", "new.so"]) == 0
+    assert "1 identical, 0 different" in capsys.readouterr().out
+    assert cs.main(["old.so", "bad.so"]) == 1

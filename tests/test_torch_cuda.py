@@ -631,3 +631,91 @@ def test_walked_tiles_match_plain_exactly(cuda, block_m, block_n, K, M, N,
     assert torch.equal(a.planes_used, b.planes_used)
     assert torch.equal(a.out, b.out)
     assert torch.equal(a.out, a2.out)
+
+
+# ------------------------------------------------------------ band path
+
+# The serving shapes (rows, K, N, block_m) the band kernel takes: engine and
+# hybrid admission, their decode, the tp2 shards, the LM encoder, decode and
+# a prefill of 4160 rows at block_m 128.
+BAND_SHAPES = [(128, 2048, 8192, 16), (256, 2560, 7680, 16),
+               (16, 2048, 8192, 16), (16, 2560, 3840, 16),
+               (32, 1024, 4096, 128), (4, 1024, 4096, 128),
+               (4160, 1024, 4096, 128)]
+
+
+def _band_launch(cuda, rows, K, N, bm, w, x, npl=None):
+    """The captured launch of ``dslot_execute`` on prepared ``w``: kernel
+    result, a second launch, the plain version on the same arguments."""
+    from repro_torch.kernels.ops import dslot_execute, dslot_prepare
+
+    prep = dslot_prepare(w, n_bits=8, relu=True, signed=True, block_m=bm,
+                         block_n=128)
+    calls = []
+    run = dm.run
+    dm.run = lambda *a: calls.append(a) or run(*a)
+    try:
+        n0 = dm.split_parts.launches
+        dslot_execute(prep, x, n_planes=npl)
+        assert dm.split_parts.launches == n0, "execute must not split W"
+    finally:
+        dm.run = run
+    args = calls[0]
+    assert args[13] is prep.parts and args[14] == rows
+    a = dm._launch(*args)
+    b = dm._launch(*args)
+    c = dm._replay(*args)
+    torch.cuda.synchronize()
+    return a, b, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,K,N,bm", BAND_SHAPES)
+def test_band_kernel_matches_plain_at_serving_shapes(cuda, rows, K, N, bm):
+    """Dyadic weights (bf16 holds them: one prepared part) make every sum
+    exact, so the band kernel equals its plain version bit for bit, per-row
+    budgets included, and two launches give the same bits."""
+    rng = np.random.default_rng(rows + K)
+    w = torch.as_tensor(rng.integers(-64, 65, (K, N)) / 64.0 - 0.25,
+                        dtype=torch.float32).to(cuda)
+    x = torch.as_tensor(rng.normal(0.2, 1.0, (rows, K)),
+                        dtype=torch.float32).to(cuda)
+    npl = torch.as_tensor(rng.integers(1, 9, rows), dtype=torch.int32,
+                          device=cuda)
+    for budget in (None, npl):
+        a, b, c = _band_launch(cuda, rows, K, N, bm, w, x, budget)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert torch.equal(a[1], c[1])
+        assert torch.equal(a[0], c[0])
+
+
+@pytest.mark.gpu
+def test_band_kernel_mixed_vote_tiles(cuda):
+    """The CPU test's mixed-vote case on the card: vote tiles of one N tile
+    stop at different planes, each by its own vote (f32 weights: three
+    prepared parts; sums in another order, so outputs within 1e-5)."""
+    x, w = torch_parallel_ranks.mixed_vote_case()
+    a, b, c = _band_launch(cuda, x.shape[0], 128, 128, 16,
+                           torch.as_tensor(w).to(cuda),
+                           torch.as_tensor(x).to(cuda))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[1], c[1])
+    assert len(set(a[1][:, 0].tolist())) >= 3
+    scale = float(c[0].abs().max())
+    assert bool(((a[0] - c[0]).abs() <= 1e-5 * c[0].abs() + 1e-5 * scale)
+                .all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_n", [5, 128])
+def test_split_parts_kernel_matches_plain(cuda, block_n):
+    rng = np.random.default_rng(block_n)
+    mag = np.exp2(rng.uniform(-20.0, 0.0, (64, 3 * block_n)))
+    w = torch.as_tensor(np.where(rng.random(mag.shape) < 0.5, -mag, mag),
+                        dtype=torch.float32)
+    n0 = dm.split_parts.launches
+    for n_parts, src in ((3, w), (1, w.to(torch.bfloat16).float())):
+        got = dm.split_parts(src.to(cuda), block_n, n_parts)
+        assert torch.equal(got.cpu(), dm.split_parts_plain(src, block_n,
+                                                           n_parts))
+    assert dm.split_parts.launches == n0 + 2

@@ -265,3 +265,35 @@ def ep_world(rank, n, moe, matmul, groups):
         out["groups"] = dict(y=yg.numpy(), aux=float(auxg), data=d,
                              y_ep=ye.numpy(), aux_ep=float(auxe))
     return out
+
+
+# ------------------------------------------------------------ prepared parts
+
+def mixed_vote_case():
+    """One N tile of 128 columns over 8 vote tiles of 16 rows: mostly
+    negative W and q rows of one sign per vote tile, alternating, the
+    positive tiles at falling magnitudes, so that they die at different
+    planes and the negative ones never do."""
+    rng = np.random.default_rng(11)
+    M, K, N = 128, 128, 128
+    w = rng.normal(-0.02, 0.01, (K, N)).astype(np.float32)
+    sign = np.repeat([1.0, -1.0] * 4, 16)[:, None]
+    scale = np.repeat([1.0, 1.0, 0.12, 1.0, 0.5, 1.0, 0.25, 1.0], 16)[:, None]
+    x = (sign * scale * rng.uniform(0.5, 1.0, (M, K))).astype(np.float32)
+    return x, w
+
+
+
+def prepared_parts_cases(rank, cases):
+    """This rank's prepared W parts of each (weights, prepare keywords)
+    layer split over (1, 2), with the column range its tiles cover in the
+    unsharded padded layout."""
+    mesh = make_test_mesh(model=2)
+    out = []
+    for w_np, kw in cases:
+        prep = dslot_prepare(t(w_np), mesh=mesh, **kw)
+        tiles = prep.w.shape[1] // prep.block_n
+        out.append(dict(parts=prep.parts.float().numpy(),
+                        cols=(rank * tiles * prep.block_n,
+                              (rank + 1) * tiles * prep.block_n)))
+    return dict(rank=rank, cases=out)
