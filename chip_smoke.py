@@ -28,14 +28,20 @@ Phases (any failure exits non-zero and prints no result line):
    256 x 66; ``WALKED_TILES``, each timed once: 16 x 256 at the olmo
    engine's admission shape, 1024 x 136, (4, 4) warp tiles of 512 x 32
    with int32 q on a 2-stage ring, ``block_m`` 2048 and 4096 at 8 and 24
-   columns), each with ReLU on and off and f32 dyadic, f32
+   columns; each ReLU case's kernel, from ``dm.route``, is printed and
+   must be the one ``WALKED_TILES`` names: the band kernel's 2-block
+   clusters at 16 x 256, ``cluster_kernel`` for the tall tiles), each with
+   ReLU on and off and f32 dyadic, f32
    and bf16 weights; seamless's MLP up at 171 tiles of 24 columns, timed
    at 128 x 24 and at phase 10's 32 x 24; the band kernel's cases
    (``band_cases``: the engine's and the hybrid's admission shapes with
    vote tiles of alternating sign, dyadic and bf16-held normal weights,
    row budgets, an N tile of plane bound 0, a tile of 44 real rows in 128,
    the decode band split over 2-block clusters, and an f32 layer of three
-   parts), each with the parts ``dslot_prepare`` built.  Every case runs the kernel twice and
+   parts), each with the parts ``dslot_prepare`` built; and the tiles the
+   port's launchers pass (``LAUNCHER_TILES``: 32 x 32, 16 x 16 and 16 x 32
+   at ``block_k`` 16), each timed at the engine's admission shape with
+   bf16-held weights.  Every case runs the kernel twice and
    the two results must be equal bit for bit.  Dyadic weights (multiples
    of 2^-6) make every sum exact, so there the outputs and ``planes_used``
    must be equal.  On normal weights the outputs must agree within
@@ -513,6 +519,7 @@ def phase2_cases() -> list[Case]:
                 "block_k": 256, "sort": False}),
         *repaired_tile_cases(),
         *band_cases(),
+        *launcher_tile_cases(),
     ]
 
 
@@ -587,35 +594,80 @@ REPAIRED_TILES = (
 )
 
 # Tiles refused until walk_kernel and the (4, 4) 2-stage ring, each timed
-# once (its "f32 normal n6" ReLU case).  16 x 256 at the olmo engine's
-# admission shape needs 32 warps of (1, 1) and has no (2, 2) fit; 1024 x 136
-# needs 68 warps of 256 x 8, and its f32 sums (557 KB) fit no SM; 512 x 32
-# with int32 q (n_bits 20) overflows 3 ring stages of (4, 4) warp tiles
-# (287 KB) and fits 2; block_m 2048 and 4096 at 8 and 24 columns overflow
-# even a 2-stage ring beside their digit tile.
+# once (its "f32 normal n6" ReLU case), with the kernel its ReLU cases
+# take.  16 x 256 at the olmo engine's admission shape needs 32 warps of
+# (1, 1) and has no (2, 2) fit: the band kernel's 2-block clusters take it;
+# 1024 x 136 needs 68 warps of 256 x 8, and its f32 sums (557 KB) fit no
+# SM: a 16-block cluster_kernel takes it; 512 x 32 with int32 q (n_bits 20)
+# overflows 3 ring stages of (4, 4) warp tiles (287 KB) and fits 2;
+# block_m 2048 and 4096 at 8 and 24 columns overflow even a 2-stage ring
+# beside their digit tile: cluster_kernel.
 WALKED_TILES = (
     ("bm=16 bn=256 K=2048", dict(M=128, K=2048, N=8192, block_m=16,
-                                 block_n=256, block_k=None)),
+                                 block_n=256, block_k=None), "band_kernel"),
     ("bm=1024 bn=136 K=256", dict(M=2048, K=256, N=272, block_m=1024,
-                                  block_n=136, block_k=128)),
+                                  block_n=136, block_k=128),
+     "cluster_kernel"),
     ("bm=512 bn=32 K=256 n_bits=20 (4, 4) 2-stage ring",
      dict(M=1024, K=256, N=64, block_m=512, block_n=32, block_k=128,
-          n_bits=20)),
+          n_bits=20), "plane_kernel"),
     ("bm=2048 bn=8 K=256", dict(M=4096, K=256, N=16, block_m=2048,
-                                block_n=8, block_k=128)),
+                                block_n=8, block_k=128), "cluster_kernel"),
     ("bm=2048 bn=24 K=256", dict(M=4096, K=256, N=48, block_m=2048,
-                                 block_n=24, block_k=128)),
+                                 block_n=24, block_k=128), "cluster_kernel"),
     ("bm=4096 bn=8 K=256", dict(M=8192, K=256, N=16, block_m=4096,
-                                block_n=8, block_k=128)),
+                                block_n=8, block_k=128), "cluster_kernel"),
     ("bm=4096 bn=24 K=256", dict(M=8192, K=256, N=48, block_m=4096,
-                                 block_n=24, block_k=128)),
+                                 block_n=24, block_k=128), "cluster_kernel"),
 )
+WALKED_KERNEL = {f"tile {label} ": kernel
+                 for label, _, kernel in WALKED_TILES}
+
+# The tiles the port's own launchers pass, timed at the olmo engine's
+# admission shape with bf16-held weights and the prepared parts:
+# ``launch/serve.py --dslot`` (32 x 32), ``launch/serve_lm.py``'s DSLOT
+# generation (16 x 16) and its SLO engine (16 x 32, block_k 16).
+LAUNCHER_TILES = (
+    ("serve --dslot bm=32 bn=32", dict(block_m=32, block_n=32,
+                                       block_k=None)),
+    ("serve_lm bm=16 bn=16", dict(block_m=16, block_n=16, block_k=None)),
+    ("serve_lm slo bm=16 bn=32 bk=16", dict(block_m=16, block_n=32,
+                                            block_k=16)),
+)
+
+
+def launcher_tile_cases() -> list[Case]:
+    return [Case(f"launcher {label} bf16-held normal n8", M=128, K=2048,
+                 N=8192, relu=True, signed=True, weights="normal",
+                 bf16_held=True, prepared=True, sort=True, timed=True,
+                 **shape) for label, shape in LAUNCHER_TILES]
+
+
+def walked_route(case: Case, q, w, bk: int) -> str | None:
+    """The kernel a walked tile's ReLU case took (``dm.route``), held
+    against ``WALKED_KERNEL``; None for the other cases."""
+    from repro_torch.kernels import dslot_matmul as dm
+
+    want = [k for label, k in WALKED_KERNEL.items()
+            if case.name.startswith(label)]
+    if not want or not case.relu:
+        return None
+    got = dm.route(q.shape[0], q.shape[1], w.shape[1], case.block_m,
+                   case.block_n, bk, case.n_bits,
+                   case.relu, q.dtype, w.dtype)
+    if got == "walk_kernel":
+        got += (" (its f32 sums exceed what a 16-block cluster holds, or "
+                "a slice the shared memory)")
+    if got != want[0]:
+        raise AssertionError(f"{case.name}: took {got}, not {want[0]}")
+    return got
 
 
 def repaired_tile_cases() -> list[Case]:
     out = []
-    for label, shape in REPAIRED_TILES + WALKED_TILES:
-        timed = (label, shape) in WALKED_TILES
+    walked = tuple((label, shape) for label, shape, _ in WALKED_TILES)
+    for label, shape in REPAIRED_TILES + walked:
+        timed = (label, shape) in walked
         for relu in (True, False):
             geo = dict(shape, relu=relu, signed=True)
             tag = "" if relu else " no-relu"
@@ -660,10 +712,12 @@ def phase2(card, dev) -> tuple[float, dict]:
                 == 0.0):
             raise AssertionError(f"{case.name}: an inert weight must issue "
                                  f"no planes and emit zeros")
+        took = walked_route(case, q, prep.w, prep.block_k)
         log(f"  {case.name}: max err {err:.3g}, planes_used mean "
             f"{float(a.planes_used.float().mean()):.3f} "
             f"(plain {float(b.planes_used.float().mean()):.3f}), "
-            f"tiles {a.planes_used.numel()}")
+            f"tiles {a.planes_used.numel()}"
+            + (f", kernel {took}" if took else ""))
         if case.timed or case.name.endswith("f32 normal n8"):  # one a shape
             shape_times[case.name.split(" f32")[0]] = time_call(
                 case.name, q, prep.w, kw, (case.rows or case.M, case.K,

@@ -84,8 +84,8 @@
 //      per element, then a uniform break, so a dead tile issues no further
 //      loads or products.
 //
-// C. Walk (ReLU tiles that no warp tiling of B takes: more than 16 warps,
-//    or a digit tile and ring past the shared memory).  B's products and
+// C. Walk (the tiles that no warp tiling of B takes, whose sums no cluster
+//    of E holds: past 1 MB of f32 sums, e.g. 4096 x 136).  B's products and
 //    vote, with the tile's sums kept in its own region of `out` between
 //    chunks and the tile walked in sub-tiles (walk_kernel).
 //
@@ -137,6 +137,52 @@
 //      halves extract the band's digits, and it lost.)  No element's
 //      sum changes with the split, the band size or the rank's share of N,
 //      and there are no float atomics: two launches give the same bits.
+//    Wide tiles (block_n 256, e.g. DslotConfig(block_n=256)) take the same
+//    kernel with each N tile's 256 columns over a 2-block cluster, two
+//    warpgroups a block, the halves joining their votes.
+//
+// E. Cluster (the other tiles that no warp tiling of B takes: more than 16
+//    warps of B's tilings, e.g. 1024 x 136 or 16 x 256 with 16-bit q, or a
+//    digit tile and ring past one block's shared memory, block_m 2048 and
+//    4096 at 8 to 24 columns; cluster_kernel).  walk_kernel lost 25-230x to
+//    torch.matmul on an H100 there: one block a tile (4 blocks on 132 SMs
+//    for the tall tiles), every sub-chunk staged again for each sub-tile,
+//    the sums through `out` once a chunk, no load in flight while a product
+//    ran.  A tall tile's sums (557 KB at 1024 x 136) fit no SM, but they fit
+//    a cluster.  Bound on an H100: not the operations (under 4 us at these
+//    tiles) but a chain of rounds, one a logical chunk: each round's
+//    products (a few dependent mma.sync chains a warp), then its vote
+//    across the cluster.  The design:
+//    * One logical tile spread over a thread-block cluster of up to 16
+//      blocks (non-portable; 8 where the card holds no cluster of 16),
+//      rows split first (blocks of one row group extract the same digits),
+//      then columns.  Each block holds its slice's sums in registers across
+//      every plane and chunk.
+//    * A slice whose W parts over all of K fit beside its q rows (the tall
+//      tiles: K = 256) stages both once and issues no load in its loop;
+//      where one warp spans the slice's columns (8-column tiles) each warp
+//      builds its rows' digits in registers (B's resident digit path) and
+//      the block meets only at the vote, else up to 8 sub-chunks' digits
+//      are extracted between two barriers.  Any other slice streams as B
+//      does: q rows staged once where they fit, W parts of the slice's
+//      columns through the 3-stage cp.async ring, the digit tile written
+//      once per (plane, sub-chunk).
+//    * The vote: each block ANDs its slice (__syncthreads_and) into a word
+//      of its shared memory; every warp reads the cluster's words through
+//      distributed shared memory (a lane a block).  Its cluster barrier is
+//      split: a block arrives after writing its word and waits only after
+//      the next chunk's products, which a dead tile drops (on the H100 the
+//      cluster's join was 0.7 us of a 2048 x 8 tile's 3.9 us rounds).  Two
+//      words, so one barrier a vote.  Dead tiles stop in every block at once.
+//    * mma.sync, not wgmma: the slices are 8 to 144 columns wide with 64 to
+//      256 rows; wgmma's N would be the slice's columns (8 to 144, one
+//      instruction shape each) and its 64-row M per warpgroup leaves the
+//      16-row wide slices, while the rounds are latency chains at under
+//      0.1 of the tensor cores' rate.  The 16 x 256 tiles of 8-bit q take
+//      the band kernel's transposed wgmma (D).
+//    * Exactness as in B: the same products and round-to-nearest adds per
+//      32-row sub-chunk, so no sum depends on the cluster's size or split;
+//      no float atomics.
 // npl, the per-row budgets and the per-tile plane bounds are read from device
 // memory in every path: a new precision needs no host sync and no rebuild.
 
@@ -1199,10 +1245,9 @@ __global__ void __launch_bounds__(
 
 // ------------------------------------------------------------ C. walk
 
-// The tiles plane_kernel's warp tilings do not take: those needing more
-// than 16 warps with no (2, 2) or (4, 4) fit (16 x 256, 1024 x 136), and
-// those whose digit tile and a 2-stage ring overflow the shared memory
-// (block_m 2048 at 8 columns).  A 1024 x 136 tile's f32 sums alone are
+// The tiles that neither plane_kernel's warp tilings nor a cluster of
+// cluster_kernel take (header note C): whose f32 sums exceed what 16 blocks
+// of 16 warps hold in registers.  A 1024 x 136 tile's f32 sums alone are
 // 557 KB, more than one SM's registers and shared memory together, so here
 // the tile's sums live in its own region of `out` between its chunks (the
 // L2 holds them), and the block walks the tile in sub-tiles of SR x SC: for
@@ -1597,7 +1642,10 @@ __device__ __forceinline__ void band_a(uint32_t (&a)[4][4],
 // stages, each the W boxes [part][warpgroup][64 K rows][64 columns] bf16
 // (TMA, 128-byte swizzle) and the q box [NB][64] int8 | ns mbarriers | row
 // budgets [NB] | vote words.  Warpgroup wg computes the transposed product
-// for 64 columns: wgmma's M is the columns, its N the band's NB rows.
+// for 64 columns: wgmma's M is the columns, its N the band's NB rows.  An N
+// tile is BN = 64 * NWG columns, or twice that over a 2-block cluster, each
+// block taking its half: 128 columns at <16, 1, true> and <NB, 2, false>,
+// 256 (the wide tiles of block_n 256) at <NB, 2, true>.
 // Thread (warp wq of its warpgroup, lane g * 4 + t4) holds columns ca and
 // ca + 8 of rows 8j + 2 t4 + {0, 1}: sums [4j + e], e = 2 * (column) + row.
 template <int NB, int NWG, bool CLUSTER>
@@ -1609,6 +1657,7 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
     float* __restrict__ out, int* __restrict__ used, BandGeom geo) {
   constexpr int THREADS = NWG * 128;
   constexpr int NR = NB / 2;  // sums per thread
+  constexpr int BN = 64 * NWG * (CLUSTER ? 2 : 1);  // columns of an N tile
   extern __shared__ uint8_t band_raw[];
   uint8_t* smem = band_raw + ((1024 - (smem_addr(band_raw) & 1023)) & 1023);
   uint8_t* dig = smem;
@@ -1629,8 +1678,8 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
   const long long r0 = static_cast<long long>(blockIdx.y) * geo.band;
   const int N = geo.N;
   const int K = geo.K;
-  const long long n0 = static_cast<long long>(nt) * 128;
-  const int ca = (half + wg) * 64 + wq * 16 + (lane >> 2);
+  const long long n0 = static_cast<long long>(nt) * BN;
+  const int ca = (half * NWG + wg) * 64 + wq * 16 + (lane >> 2);
   const int cb = ca + 8;
   const int rows = static_cast<int>(
       min(static_cast<long long>(geo.band), geo.Mp - r0));
@@ -1665,7 +1714,7 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
       for (int p = 0; p < geo.parts; ++p)
         for (int h = 0; h < NWG; ++h)
           tma_load_2d(st + (p * NWG + h) * BAND_BOX, map_w, full + i_stage,
-                      static_cast<int>(n0) + (half + h) * 64, p * K + k0);
+                      static_cast<int>(n0) + (half * NWG + h) * 64, p * K + k0);
       tma_load_2d(st + wbytes, map_q, full + i_stage, k0,
                   static_cast<int>(r0));
     }
@@ -1810,7 +1859,7 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
   // rows past the NB computed: zeros
   for (int e = tid; e < (rows - NB) * NWG * 64; e += THREADS) {
     const int n = NB + e / (NWG * 64);
-    out[(r0 + n) * N + n0 + half * 64 + e % (NWG * 64)] = 0.0f;
+    out[(r0 + n) * N + n0 + half * NWG * 64 + e % (NWG * 64)] = 0.0f;
   }
   if (tid == 0 && half == 0) {
 #pragma unroll
@@ -1819,6 +1868,301 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
         used[((r0 >> geo.lbm) + v) * geo.Nt + nt] = planes[v];
   }
   if constexpr (CLUSTER) cg::this_cluster().sync();  // no exit while read
+}
+
+// ------------------------------------------------------------ E. cluster
+
+// The two halves of a cluster barrier (cluster.sync() is both at once):
+// arrive releases this thread's shared-memory writes to the cluster, wait
+// acquires every block's writes before their arrive.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The ReLU tiles that neither a warp tiling of B nor the band kernel takes
+// (header note E): one logical tile spread over a thread-block cluster of up
+// to CL_MAX_BLOCKS blocks.  Block rank b computes the slice of row group
+// b / CG and column group b % CG, SR x SC of the physical tile, with its
+// sums in registers across every plane and chunk.
+constexpr int CL_MAX_BLOCKS = 16;  // a non-portable cluster on Hopper
+constexpr int CL_WARPS = 16;       // most warps of a block
+
+struct ClusterGeom {
+  int CL;              // blocks of a cluster: one logical tile
+  int CG;              // column groups of the tile (row groups: CL / CG)
+  int SR, SC;          // a block's slice: rows (a multiple of 16 * MI) and
+                       // columns (of 8 * NI)
+  int WN;              // warps across a slice's columns
+  int PN;              // block_n padded to 8: split_parts_kernel's PN
+  int resident;        // 1: W parts of the slice over all of K staged once
+  int dt;              // resident: digit tiles, sub-chunks extracted at once
+  int q_once;          // the slice's q rows over all of K staged once
+  int q_stride;        // staged q row stride, bytes
+  int off_a, off_q, off_p, off_vote;  // shared-memory offsets, bytes
+  int p_row, p_part;   // bf16 elements per staged W row and part
+  int stage;           // streamed: bytes of one ring stage
+  int threads;         // threads of a block
+  int smem;            // dynamic shared memory, bytes
+  int Nt, y0;          // N tiles, and this launch's first (grid.y's limit)
+};
+
+// Shared memory: row budgets [SR] i32 | digit tiles [dt][SR][AS] bf16 (one
+// where the slice streams) | q_once: the slice's q rows over all of K |
+// resident: W parts [part][T * KC][p_row], sub-chunk t at rows t * KC,
+// zero past each chunk's end; streamed: NSTAGE ring stages, each (unless
+// q_once) the slice's q rows of a KC-column sub-chunk, then the W parts
+// [part][KC][p_row] of the slice's columns | two vote words.  W comes from
+// `wp` (split_parts_kernel's layout).  Warp w owns rows (w / WN) * 16 * MI
+// + [0, 16 * MI) and columns (w % WN) * 8 * NI + [0, 8 * NI) of the slice.
+// The grid is (M tiles * CL, N tiles), the cluster (CL, 1, 1): block x
+// computes a slice of M tile x / CL.  A resident slice issues no load in
+// its loop (the tall tiles: K = 256, 8 to 24 columns): where one warp
+// spans its columns (8-column tiles), each warp builds its rows' digits in
+// registers (mma_item_reg, W's rows in perm_k's order) and the block
+// meets only at the vote; else it extracts the digits of up to dt
+// sub-chunks between two barriers.
+template <int MI, int NI, typename QT>
+__global__ void __launch_bounds__(CL_WARPS * 32, 1) cluster_kernel(
+    const QT* __restrict__ q, int wtype, const __nv_bfloat16* __restrict__ wp,
+    const float* __restrict__ sfx, const float* __restrict__ tot,
+    const int* __restrict__ npl_ptr, const int* __restrict__ bnd,
+    const int* __restrict__ bud, float* __restrict__ out,
+    int* __restrict__ used, int K, int N, int n_bits, int D, int bm, int bn,
+    int bk, int relu, ClusterGeom geo) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* rbud_s = reinterpret_cast<int*>(smem);
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_a);
+  uint8_t* q_area = smem + geo.off_q;
+  uint8_t* p_area = smem + geo.off_p;  // resident W, or the ring
+  unsigned* vote_s = reinterpret_cast<unsigned*>(smem + geo.off_vote);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wm0 = (warp / geo.WN) * MI * 16;  // in the slice
+  const int wn0 = (warp % geo.WN) * NI * 8;
+  const int r0 = (rank / geo.CG) * geo.SR;    // the slice in the tile
+  const int c0 = (rank % geo.CG) * geo.SC;
+  const int tm = static_cast<int>(blockIdx.x) / geo.CL;
+  const int nt = static_cast<int>(blockIdx.y) + geo.y0;
+  const long long m0 = static_cast<long long>(tm) * bm;
+  const int n0 = nt * bn;
+  const int parts = wtype == W_F32 ? 3 : 1;
+  const int Kt = K / bk;
+  const int S = (bk + KC - 1) / KC;  // sub-chunks per logical chunk
+  const int T = Kt * S;
+  const int npl = *npl_ptr;
+  const int limit = min(min(D, npl), bnd[nt]);
+  const float tail = pow2(n_bits - npl);
+  const int q_rows = max(0, min(geo.SR, bm - r0));      // the slice's q rows
+  const int w_cols = max(0, min(geo.SC, geo.PN - c0));  // and W columns
+  const int q_row = geo.q_stride / static_cast<int>(sizeof(QT));
+
+  float tot_c[NI][2];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = c0 + wn0 + ni * 8 + 2 * t4 + j;
+      tot_c[ni][j] = col < bn ? tot[n0 + col] : 0.0f;
+    }
+  float sf[NI][2];
+  float acc[MI][NI][4];
+
+  const QT* q_slice = q + (m0 + r0) * K;
+  const int q_stage = geo.q_once ? 0 : geo.SR * geo.q_stride;
+  const int total = limit * T;  // (plane, chunk, sub-chunk) items
+  // W parts of sub-chunk t, rows [0, v), into dst ([part][.][p_row])
+  auto copy_w = [&](uint8_t* dst, int t, int v) {
+    const int k0 = t / S * bk + t % S * KC;
+    if (w_cols > 0)
+      for (int p = 0; p < parts; ++p)
+        copy_rows(dst + p * geo.p_part * 2, geo.p_row * 2,
+                  reinterpret_cast<const uint8_t*>(
+                      wp + ((p * static_cast<long long>(K) + k0) * geo.Nt +
+                            nt) * geo.PN + c0),
+                  static_cast<long long>(geo.Nt) * geo.PN * 2, v,
+                  w_cols * 2);
+  };
+  // resident slices whose warps own whole rows (one warp across the
+  // columns) build their digits in registers (mma_item_reg): W's rows go
+  // in perm_k's order, 16-byte copies (w_cols and c0 are multiples of 8)
+  const bool reg = geo.resident && geo.WN == 1;
+  auto copy_w_perm = [&](uint8_t* dst, int t, int v) {
+    const int k0 = t / S * bk + t % S * KC;
+    const int units = w_cols / 8;
+    for (int e = threadIdx.x; e < parts * v * units; e += blockDim.x) {
+      const int u = e % units;
+      const int r = e / units % v;
+      const int p = e / (units * v);
+      cp_async16(dst + (p * geo.p_part + perm_k(r) * geo.p_row + u * 8) * 2,
+                 wp + ((p * static_cast<long long>(K) + k0 + r) * geo.Nt +
+                       nt) * geo.PN + c0 + u * 8);
+    }
+  };
+  auto issue = [&](int item) {  // streamed: one ring stage
+    const int t = item % T;
+    const int s = t % S;
+    const int v = min(KC, bk - s * KC);
+    uint8_t* st = p_area + (item % NSTAGE) * geo.stage;
+    if (!geo.q_once && q_rows > 0)
+      copy_rows(st, geo.q_stride,
+                reinterpret_cast<const uint8_t*>(q_slice + t / S * bk +
+                                                 s * KC),
+                static_cast<long long>(K) * sizeof(QT), q_rows,
+                v * static_cast<int>(sizeof(QT)));
+    copy_w(st + q_stage, t, v);
+  };
+  for (int r = threadIdx.x; r < geo.SR; r += blockDim.x)  // pad rows: never live
+    rbud_s[r] = r0 + r >= bm ? 0 : (bud == nullptr ? D : bud[m0 + r0 + r]);
+  zero_tile<MI, NI>(acc);
+  // zero the W area once: W rows past a chunk's end meet zero digits, and
+  // W columns past the tile's meet the products of columns never stored;
+  // both must be finite
+  uint4* z = reinterpret_cast<uint4*>(p_area);
+  const int p_bytes = geo.resident ? parts * geo.p_part * 2
+                                   : NSTAGE * geo.stage;
+  for (int e = threadIdx.x; e < p_bytes / 16; e += blockDim.x)
+    z[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  if (geo.q_once && total > 0 && q_rows > 0)  // lands with the first item
+    copy_rows(q_area, geo.q_stride, reinterpret_cast<const uint8_t*>(q_slice),
+              static_cast<long long>(K) * sizeof(QT), q_rows,
+              K * static_cast<int>(sizeof(QT)));
+  if (geo.resident) {
+    if (total > 0)
+      for (int t = 0; t < T; ++t) {
+        uint8_t* dst = p_area + t * KC * geo.p_row * 2;
+        const int v = min(KC, bk - t % S * KC);
+        if (reg)
+          copy_w_perm(dst, t, v);
+        else
+          copy_w(dst, t, v);
+      }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+  } else {
+    for (int i = 0; i < NSTAGE - 1; ++i) {
+      if (i < total) issue(i);
+      cp_async_commit();
+    }
+  }
+  int planes = 0;
+  int i = 0;
+  int votes = 0;
+  bool dead = false;
+  // The vote of the logical tile: the block's AND (__syncthreads_and) into
+  // a word of its shared memory, then the cluster's, every warp reading
+  // the blocks' words through distributed shared memory (a lane a block).
+  // A vote's cluster barrier is split: a block arrives after writing its
+  // word and waits only after computing the next chunk, which a dead tile
+  // then drops (its outputs are zeros whatever its sums; planes_used
+  // counts the planes entered before the vote).  Two words: a block writes
+  // word v & 1 after waiting out vote v - 1, so after every block arrived
+  // at it, and so after every block read word v & 1 of vote v - 2.
+  bool pending = false;  // a vote arrived at, not yet waited for
+  auto join = [&]() {    // wait for the pending vote; true: the tile died
+    cluster_wait();
+    pending = false;
+    const unsigned got =
+        lane < geo.CL ? *cluster.map_shared_rank(vote_s + ((votes - 1) & 1),
+                                                 static_cast<unsigned>(lane))
+                      : 1u;
+    return __all_sync(0xffffffffu, got != 0u) != 0;
+  };
+  for (int d = 0; d < limit && !dead; ++d) {
+    ++planes;
+    const int shift = n_bits - 1 - d;
+    for (int c = 0; c < Kt; ++c) {
+      if (relu)  // in flight while the chunk computes
+        load_sf<NI>(sf, sfx, c, N, n0, c0 + wn0, t4, bn);
+      if (reg) {
+        const QT* q_c = reinterpret_cast<const QT*>(q_area) + c * bk;
+        const __nv_bfloat16* w_c =
+            reinterpret_cast<const __nv_bfloat16*>(p_area) +
+            c * S * KC * geo.p_row;
+#pragma unroll 4  // independent sub-chunks: their products interleave
+        for (int s = 0; s < S; ++s)
+          mma_item_reg<MI, NI, QT>(acc, q_c + s * KC, q_row, rbud_s,
+                                   w_c + s * KC * geo.p_row, geo.p_row,
+                                   geo.p_part, parts, shift, d,
+                                   min(KC, bk - s * KC), wm0, wn0, lane);
+      } else if (geo.resident) {
+        const QT* q_c = reinterpret_cast<const QT*>(q_area) + c * bk;
+        for (int s0 = 0; s0 < S; s0 += geo.dt) {
+          const int ns = min(geo.dt, S - s0);
+          __syncthreads();  // every warp is done with the digit tiles
+          for (int j = 0; j < ns; ++j)
+            extract_digits<QT>(a_s + j * geo.SR * AS, q_c + (s0 + j) * KC,
+                               q_row, rbud_s, geo.SR, shift, d,
+                               min(KC, bk - (s0 + j) * KC));
+          __syncthreads();
+#pragma unroll 4
+          for (int j = 0; j < ns; ++j)
+            mma_item<MI, NI>(
+                acc, a_s + j * geo.SR * AS,
+                reinterpret_cast<const __nv_bfloat16*>(p_area) +
+                    (c * S + s0 + j) * KC * geo.p_row,
+                geo.p_row, geo.p_part, parts, wm0, wn0, lane);
+        }
+      } else {
+        for (int s = 0; s < S; ++s, ++i) {
+          const int v = min(KC, bk - s * KC);
+          cp_async_wait<NSTAGE - 2>();
+          __syncthreads();  // item i landed; every thread is done with i-1
+          if (i + NSTAGE - 1 < total) issue(i + NSTAGE - 1);
+          cp_async_commit();
+          const uint8_t* st = p_area + (i % NSTAGE) * geo.stage;
+          const QT* q_sub = reinterpret_cast<const QT*>(
+              geo.q_once ? q_area : st) + (geo.q_once ? c * bk + s * KC : 0);
+          extract_digits<QT>(a_s, q_sub, q_row, rbud_s, geo.SR, shift, d, v);
+          __syncthreads();
+          mma_item<MI, NI>(
+              acc, a_s, reinterpret_cast<const __nv_bfloat16*>(st + q_stage),
+              geo.p_row, geo.p_part, parts, wm0, wn0, lane);
+        }
+      }
+      if (pending && join()) {  // the tile died at the last chunk's vote
+        dead = true;
+        if (c == 0) --planes;   // this chunk opened a plane it never used
+        break;
+      }
+      if (!relu) continue;
+      const int mine = __syncthreads_and(tile_votes<MI, NI>(
+          acc, sf, tot_c, pow2(shift), tail, r0 + wm0, c0 + wn0, g, t4, bm,
+          bn));
+      if (threadIdx.x == 0) vote_s[votes & 1] = static_cast<unsigned>(mine);
+      ++votes;
+      cluster_arrive();
+      pending = true;
+    }
+  }
+  if (pending && join()) dead = true;
+  cp_async_wait_all();
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + wm0 + mi * 16 + g + 8 * (e >> 1);
+        const int col = c0 + wn0 + ni * 8 + 2 * t4 + (e & 1);
+        if (row < bm && col < bn) {
+          float v = acc[mi][ni][e];
+          if (relu) v = dead ? 0.0f : fmaxf(v, 0.0f);
+          out[(m0 + row) * N + n0 + col] = v;
+        }
+      }
+  if (rank == 0 && threadIdx.x == 0) used[tm * geo.Nt + nt] = planes;
+  cluster.sync();  // no block exits while another may read its votes
 }
 
 // ------------------------------------------------------------ launchers
@@ -1986,7 +2330,7 @@ long long align16(long long x) { return (x + 15) / 16 * 16; }
 // tiles of 2, 8 or 16 row fragments, the fewest that keep at most 16 warps,
 // its physical rows rounded up to the warps' rows; it streams.  A tile that
 // needs more than 16 warps even at 16 row fragments (ceil(bm / 256) *
-// ceil(bn / 8) > 16, e.g. 1024 x 136) goes to walk_kernel: mi = ni = 0.
+// ceil(bn / 8) > 16, e.g. 1024 x 136) goes to launch_walk: mi = ni = 0.
 // A tile of 8 columns whose q rows and W parts fit in
 // RESIDENT_BYTES stays resident and builds its digits in registers, with
 // 64 x 8 warp tiles when its rows are a multiple of 64 (the CNN conv: two
@@ -1999,7 +2343,7 @@ long long align16(long long x) { return (x + 15) / 16 * 16; }
 // ring takes 2 stages.  Only the tall tilings and (4, 4) get that far: at
 // their warp limits a (1, 1) or (2, 2) tile's 3 stages of int32 q and f32
 // parts take at most 146 KB.  A tile whose digit tile and 2 stages still
-// overflow (block_m 2048 at 8 columns) goes to walk_kernel.
+// overflow (block_m 2048 at 8 columns) goes to launch_walk.
 template <typename QT>
 int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
                    PlaneGeom& geo, int& mi, int& ni) {
@@ -2017,7 +2361,7 @@ int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
     const int pm = (bm + 16 * r - 1) / (16 * r) * (16 * r);
     if ((pm / (16 * r)) * (geo.PN / 8) <= 16) mi = r, ni = 1, geo.PM = pm;
   }
-  if (mi == 0) return cudaSuccess;  // walk_kernel
+  if (mi == 0) return cudaSuccess;  // launch_walk
   geo.WN = geo.PN / (8 * ni);
   geo.nstage = NSTAGE;
   geo.Nt = N / bn;
@@ -2055,7 +2399,7 @@ int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
       geo.nstage = 2;  // a shallower ring
       bytes = geo.off_q + 2 * (geo.PM * chunk_stride + w_stage);
     }
-    if (bytes > MAX_SMEM) {  // walk_kernel
+    if (bytes > MAX_SMEM) {  // launch_walk
       mi = ni = 0;
       return cudaSuccess;
     }
@@ -2088,15 +2432,210 @@ WalkGeom walk_geometry(int N, int bm, int bn, int wtype) {
   return geo;
 }
 
+// ---- E. cluster launcher
+
+// cluster_kernel's warp tilings (MI, NI), in the order they are tried: the
+// fewest fragments a warp first, so that a slice has the most warps to
+// extract its digits.
+constexpr int CL_TILINGS[4][2] = {{1, 1}, {2, 1}, {4, 1}, {4, 2}};
+
+// A cluster of at most `blocks` blocks for one logical tile: for each
+// tiling in turn, the fewest column groups (1, 2, 4, 8, 16; a group of at
+// least 8 columns) whose slice fits CL_WARPS warps and the shared memory,
+// each column group split in as many row groups of at least 16 * MI rows
+// as the cluster holds.  Rows split first: blocks of one row group each
+// extract the same digits.  Returns false (walk_kernel) where no cluster
+// holds the tile's sums: 16 blocks of 16 warps of (4, 2) fragments, 1 MB
+// of f32 sums (2048 x 256, or 4096 x 128), or a slice's shared memory
+// past MAX_SMEM.  The choice reads the tile, K and the q type, never N.
+template <typename QT>
+bool cluster_geometry(int K, int bm, int bn, int bk, int wtype, int blocks,
+                      ClusterGeom& geo, int& mi, int& ni) {
+  const int PM = (bm + 15) / 16 * 16;
+  const long long S = (bk + KC - 1) / KC;  // sub-chunks of a chunk
+  const long long T = static_cast<long long>(K / bk) * S;
+  geo.PN = (bn + 7) / 8 * 8;
+  const long long es = sizeof(QT);
+  const long long parts = wtype == W_F32 ? 3 : 1;
+  for (int t = 0; t < 4; ++t) {
+    const int MI_ = CL_TILINGS[t][0];
+    const int NI_ = CL_TILINGS[t][1];
+    for (int cgs = 1; cgs <= blocks && 8 * cgs <= geo.PN; cgs *= 2) {
+      const int per = 8 * NI_;
+      const int sc = (geo.PN + cgs * per - 1) / (cgs * per) * per;
+      if ((cgs - 1) * sc >= geo.PN) continue;  // a group without columns
+      int rgs = blocks / cgs;
+      if (rgs > PM / (16 * MI_)) rgs = PM / (16 * MI_);
+      if (rgs < 1) rgs = 1;
+      const int rows = 16 * MI_;
+      const int sr = (PM + rgs * rows - 1) / (rgs * rows) * rows;
+      const int warps = sr / rows * (sc / per);
+      if (warps > CL_WARPS) continue;
+      const long long p_row = sc + 8;
+      const long long budgets = 4LL * sr;
+      const long long tile = 2LL * sr * AS;  // one digit tile
+      const long long w_stage = parts * KC * p_row * 2;
+      const long long once_stride = (K * es + 127) / 128 * 128 + 32;
+      const long long chunk_stride = align16(KC * es) + 16;
+      // resident: W over all of K and the q rows once, with as many digit
+      // tiles as fit, up to a chunk's sub-chunks (at most 8)
+      const long long w_all = parts * T * KC * p_row * 2;
+      const long long fixed = budgets + sr * once_stride + w_all + 16;
+      int dt = S < 8 ? S : 8;
+      while (dt > 0 && fixed + dt * tile > MAX_SMEM) --dt;
+      const long long once = budgets + tile + sr * once_stride +
+                             NSTAGE * w_stage + 16;
+      const bool q_once = dt > 0 || once <= MAX_SMEM;
+      const long long bytes =
+          dt > 0 ? fixed + dt * tile
+                 : (q_once ? once
+                           : budgets + tile +
+                                 NSTAGE * (sr * chunk_stride + w_stage) + 16);
+      if (bytes > MAX_SMEM) continue;
+      geo.CL = rgs * cgs;
+      geo.CG = cgs;
+      geo.SR = sr;
+      geo.SC = sc;
+      geo.WN = sc / per;
+      geo.resident = dt > 0 ? 1 : 0;
+      geo.dt = dt > 0 ? dt : 1;
+      geo.q_once = q_once ? 1 : 0;
+      geo.q_stride = static_cast<int>(q_once ? once_stride : chunk_stride);
+      geo.off_a = static_cast<int>(budgets);
+      geo.off_q = static_cast<int>(budgets + geo.dt * tile);
+      geo.off_p = geo.off_q + (q_once ? static_cast<int>(sr * once_stride)
+                                      : 0);
+      geo.p_row = static_cast<int>(p_row);
+      geo.p_part = static_cast<int>((dt > 0 ? T : 1) * KC * p_row);
+      geo.stage = static_cast<int>(q_once ? w_stage
+                                          : sr * chunk_stride + w_stage);
+      geo.off_vote = static_cast<int>(bytes - 16);
+      geo.threads = warps * 32;
+      geo.smem = static_cast<int>(bytes);
+      mi = MI_, ni = NI_;
+      return true;
+    }
+  }
+  return false;
+}
+
+// The launch configuration of cluster_kernel<MI, NI, QT> for a geometry,
+// and whether the card can hold one such cluster at once (asked of the
+// runtime once per device, cluster size, block size and shared memory).
+template <int MI, int NI, typename QT>
+cudaError_t cluster_config(const ClusterGeom& geo, int gx, int ny,
+                           cudaStream_t s, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute* attr, bool* fits) {
+  static std::atomic<unsigned> done{0};
+  static std::atomic<unsigned> wide{0};
+  static std::mutex mu;
+  static std::map<long long, int> known;
+  auto kernel = cluster_kernel<MI, NI, QT>;
+  cudaError_t err = smem_attributes(kernel, done);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && !(wide.load() >> dev & 1u)) {  // clusters of 9 to 16
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    wide.fetch_or(1u << dev);
+  }
+  cfg = {};
+  cfg.gridDim = dim3(gx, ny);
+  cfg.blockDim = dim3(geo.threads);
+  cfg.dynamicSmemBytes = geo.smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = geo.CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const long long key = (static_cast<long long>(dev) << 56) |
+                        (static_cast<long long>(geo.CL) << 48) |
+                        (static_cast<long long>(geo.threads) << 32) |
+                        geo.smem;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find(key);
+  if (it == known.end()) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    it = known.emplace(key, n).first;
+  }
+  *fits = it->second > 0;
+  return cudaSuccess;
+}
+
+// The tile's cluster: 16 blocks where the card holds such a cluster, else
+// 8 (a portable cluster).  `launch` false only chooses (the route query).
+template <typename QT>
+int launch_cluster(const void* q, int wtype, const float* sfx,
+                   const float* tot, const int* npl, const int* bnd,
+                   const int* bud, float* out, int* used,
+                   const __nv_bfloat16* wp, int M, int K, int N, int n_bits,
+                   int D, int bm, int bn, int bk, int relu, bool launch,
+                   bool* taken, cudaStream_t s) {
+  *taken = false;
+  for (int blocks = CL_MAX_BLOCKS; blocks >= 8; blocks /= 2) {
+    ClusterGeom geo{};
+    int mi = 0, ni = 0;
+    if (!cluster_geometry<QT>(K, bm, bn, bk, wtype, blocks, geo, mi, ni))
+      return cudaSuccess;  // walk_kernel
+    geo.Nt = N / bn;
+    const int ny0 = geo.Nt < 65535 ? geo.Nt : 65535;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    bool fits = false;
+    cudaError_t err = cudaErrorInvalidValue;
+#define DSLOT_CLUSTER_CFG(MI_, NI_)                                          \
+    if (mi == MI_ && ni == NI_)                                              \
+      err = cluster_config<MI_, NI_, QT>(geo, M / bm * geo.CL, ny0, s, cfg,  \
+                                         attr, &fits);
+    DSLOT_CLUSTER_CFG(1, 1)
+    DSLOT_CLUSTER_CFG(2, 1)
+    DSLOT_CLUSTER_CFG(4, 1)
+    DSLOT_CLUSTER_CFG(4, 2)
+#undef DSLOT_CLUSTER_CFG
+    if (err != cudaSuccess) return err;
+    if (!fits && geo.CL > 8) continue;  // a cluster of 8 at most
+    if (!fits) return cudaErrorInvalidValue;
+    *taken = true;
+    if (!launch) return cudaSuccess;
+    for (int y0 = 0; y0 < geo.Nt; y0 += 65535) {  // grid.y's limit
+      geo.y0 = y0;
+      cfg.gridDim.y = geo.Nt - y0 < 65535 ? geo.Nt - y0 : 65535;
+#define DSLOT_CLUSTER(MI_, NI_)                                              \
+      if (mi == MI_ && ni == NI_)                                            \
+        err = cudaLaunchKernelEx(&cfg, cluster_kernel<MI_, NI_, QT>,         \
+                                 static_cast<const QT*>(q), wtype, wp, sfx,  \
+                                 tot, npl, bnd, bud, out, used, K, N,        \
+                                 n_bits, D, bm, bn, bk, relu, geo);
+      DSLOT_CLUSTER(1, 1)
+      DSLOT_CLUSTER(2, 1)
+      DSLOT_CLUSTER(4, 1)
+      DSLOT_CLUSTER(4, 2)
+#undef DSLOT_CLUSTER
+      if (err != cudaSuccess) return err;
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
+  return cudaSuccess;
+}
+
+// The tiles no warp tiling of B takes: W's parts (prepared, or written for
+// this call), then cluster_kernel where a cluster holds the tile, else
+// walk_kernel.
 template <typename QT>
 int launch_walk(const void* q, const void* w, int wtype, const float* sfx,
                 const float* tot, const int* npl, const int* bnd,
                 const int* bud, float* out, int* used, void* ws,
                 const void* parts, int M, int K, int N, int n_bits, int D,
                 int bm, int bn, int bk, int relu, cudaStream_t s) {
-  static std::atomic<unsigned> done{0};
-  cudaError_t err = smem_attributes(walk_kernel<QT>, done);
-  if (err != cudaSuccess) return err;
   WalkGeom geo = walk_geometry<QT>(N, bm, bn, wtype);
   const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(
       parts != nullptr ? parts : ws);
@@ -2105,6 +2644,14 @@ int launch_walk(const void* q, const void* w, int wtype, const float* sfx,
     split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(
         w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, bn, geo.PN);
   }
+  bool taken = false;
+  cudaError_t err = static_cast<cudaError_t>(launch_cluster<QT>(
+      q, wtype, sfx, tot, npl, bnd, bud, out, used, wp, M, K, N, n_bits, D,
+      bm, bn, bk, relu, true, &taken, s));
+  if (err != cudaSuccess || taken) return err;
+  static std::atomic<unsigned> done{0};
+  err = smem_attributes(walk_kernel<QT>, done);
+  if (err != cudaSuccess) return err;
   for (int y0 = 0; y0 < geo.Nt; y0 += 65535) {  // grid.y's limit
     const int ny = geo.Nt - y0 < 65535 ? geo.Nt - y0 : 65535;
     geo.y0 = y0;
@@ -2124,18 +2671,19 @@ long long parts_bytes(int K, int N, int bn, int PN, int wtype) {
 
 // ---- D. band launcher
 
-// The band kernel takes ReLU tiles of 8-bit signed q, 128 columns, block_m
-// 16 to 128 and logical chunks of whole 64-row sub-chunks (the serving
-// shapes); q must suit TMA (16-byte aligned, K a multiple of 16 bytes).
-// What it takes depends on the tile and K alone, never on N, so a layer
-// split over ranks by N tiles takes the same path on every rank.
+// The band kernel takes ReLU tiles of 8-bit signed q, 128 or 256 columns,
+// block_m 16 to 128 and logical chunks of whole 64-row sub-chunks (the
+// serving shapes, and the wide tiles a DslotConfig of block_n 256 gives);
+// q must suit TMA (16-byte aligned, K a multiple of 16 bytes).  What it
+// takes depends on the tile and K alone, never on N, so a layer split over
+// ranks by N tiles takes the same path on every rank.
 int band_lbm(int bm) {
   return bm == 16 ? 4 : bm == 32 ? 5 : bm == 64 ? 6 : bm == 128 ? 7 : -1;
 }
 
 bool band_path(const void* q, int M, int K, int bm, int bn, int bk,
                int n_bits, int relu) {
-  return relu && n_bits <= 8 && bn == 128 && band_lbm(bm) > 0 &&
+  return relu && n_bits <= 8 && (bn == 128 || bn == 256) && band_lbm(bm) > 0 &&
          bk % BAND_KC == 0 && (M + BAND_ROWS - 1) / BAND_ROWS <= 65535 &&
          (reinterpret_cast<uintptr_t>(q) & 15) == 0;
 }
@@ -2150,12 +2698,12 @@ int band_nb(int M, int m_real, int band) {
 }
 
 BandGeom band_geometry(int M, int K, int N, int n_bits, int D, int bm,
-                       int bk, int parts, int nwg, int nb, int band) {
+                       int bn, int bk, int parts, int nwg, int nb, int band) {
   BandGeom geo{};
   geo.Mp = M, geo.K = K, geo.N = N, geo.n_bits = n_bits, geo.D = D;
   geo.band = band;
   geo.bm = bm, geo.lbm = band_lbm(bm), geo.bk = bk, geo.parts = parts;
-  geo.Nt = N / 128;
+  geo.Nt = N / bn;
   geo.stage = (parts * nwg * BAND_BOX + nb * BAND_KC + 1023) / 1024 * 1024;
   geo.off_ring = 2 * nb * 128;
   const int rest = 64 + 4 * BAND_ROWS + 128;  // barriers, budgets, votes
@@ -2268,8 +2816,9 @@ int launch_band(const void* q, const void* w, int wtype, const void* sfx,
                 const void* tot, const void* npl, const void* bnd,
                 const void* bud, void* out, void* used, void* ws,
                 const void* parts, int n_parts, int m_real, int M, int K,
-                int N, int n_bits, int D, int bm, int bk, cudaStream_t s) {
-  const int Nt = N / 128;
+                int N, int n_bits, int D, int bm, int bn, int bk,
+                cudaStream_t s) {
+  const int Nt = N / 128;  // 128-column units: the parts' map, the SM count
   int np = n_parts;
   const void* wp = parts;
   if (wp == nullptr) {  // W's parts, built for this call
@@ -2292,9 +2841,12 @@ int launch_band(const void* q, const void* w, int wtype, const void* sfx,
   // columns split over a 2-block cluster, one warpgroup a block (the same
   // sums, element for element), where the clusters fit on the SMs at once.
   // Wider bands keep one block a tile: both halves would extract the
-  // band's digits, and a second wave costs more than the idle SMs.
-  const bool split = nb == 16 && 2LL * bands * Nt <= NUM_SMS;
-  const BandGeom geo = band_geometry(M, K, N, n_bits, D, bm, bk, np,
+  // band's digits, and a second wave costs more than the idle SMs.  A wide
+  // tile (256 columns) always spans a 2-block cluster of two warpgroups
+  // each, whose halves join their votes.
+  const bool wide = bn == 256;
+  const bool split = !wide && nb == 16 && 2LL * bands * Nt <= NUM_SMS;
+  const BandGeom geo = band_geometry(M, K, N, n_bits, D, bm, bn, bk, np,
                                      split ? 1 : 2, nb, band);
   if (geo.ns < 2) return cudaErrorInvalidValue;
   CUtensorMap tm_w, tm_q;
@@ -2313,9 +2865,12 @@ int launch_band(const void* q, const void* w, int wtype, const void* sfx,
     return launch_band_nb<16, 1, true>(tm_w, tm_q, sf, tt, pl, bd, bu, o, u,
                                        geo, bands, s);
 #define DSLOT_BAND(NB_)                                                     \
-  if (nb == NB_)                                                            \
+  if (nb == NB_ && !wide)                                                   \
     return launch_band_nb<NB_, 2, false>(tm_w, tm_q, sf, tt, pl, bd, bu, o, \
-                                         u, geo, bands, s);
+                                         u, geo, bands, s);                 \
+  if (nb == NB_ && wide)                                                    \
+    return launch_band_nb<NB_, 2, true>(tm_w, tm_q, sf, tt, pl, bd, bu, o,  \
+                                        u, geo, bands, s);
   DSLOT_BAND(16)
   DSLOT_BAND(32)
   DSLOT_BAND(64)
@@ -2340,8 +2895,8 @@ int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
   if constexpr (std::is_same<QT, int8_t>::value) {
     if (band_path(q, M, K, bm, bn, bk, n_bits, relu))
       return launch_band(q, w, wtype, sfx, tot, npl, bnd, bud, out, used, ws,
-                         parts, n_parts, m_real, M, K, N, n_bits, D, bm, bk,
-                         s);
+                         parts, n_parts, m_real, M, K, N, n_bits, D, bm, bn,
+                         bk, s);
   }
   PlaneGeom geo{};
   int mi = 0, ni = 0;
@@ -2507,6 +3062,42 @@ int dslot_split_parts(const void* w, int wtype, void* out, int K, int N,
                        static_cast<cudaStream_t>(stream)>>>(
       w, wtype, static_cast<__nv_bfloat16*>(out), K, N, bn, (bn + 7) / 8 * 8);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel a launch with these arguments takes (q 16-byte aligned, as
+// torch allocates it, and no prepared parts): 0 product_kernel, 1
+// plane_kernel, 2 band_kernel, 3 cluster_kernel, 4 walk_kernel, or -1 for a
+// shape the kernel does not take.  Asks the card whether a cluster fits.
+int dslot_matmul_route(int M, int K, int N, int bm, int bn, int bk,
+                       int n_bits, int relu, int qtype, int wtype) {
+  if (dslot_matmul_workspace(K, N, bm, bn, bk, n_bits, relu, qtype, wtype) <
+          0 || M <= 0 || M % bm != 0)
+    return -1;
+  if (product_path(n_bits, relu)) return 0;
+  if (qtype == Q_I8 && band_path(nullptr, M, K, bm, bn, bk, n_bits, relu))
+    return 2;
+  int route = -1;
+#define DSLOT_ROUTE(CODE, T)                                                \
+  if (qtype == CODE) {                                                      \
+    PlaneGeom geo{};                                                        \
+    int mi = 0, ni = 0;                                                     \
+    plane_geometry<T>(K, N, bm, bn, bk, wtype, geo, mi, ni);                \
+    bool taken = false;                                                     \
+    if (mi != 0)                                                            \
+      route = 1;                                                            \
+    else if (launch_cluster<T>(nullptr, wtype, nullptr, nullptr, nullptr,   \
+                               nullptr, nullptr, nullptr, nullptr, nullptr, \
+                               M, K, N, n_bits, n_bits, bm, bn, bk, relu,   \
+                               false, &taken, 0) == cudaSuccess)            \
+      route = taken ? 3 : 4;                                                \
+  }
+  DSLOT_ROUTE(Q_U8, uint8_t)
+  DSLOT_ROUTE(Q_I8, int8_t)
+  DSLOT_ROUTE(Q_U16, uint16_t)
+  DSLOT_ROUTE(Q_I16, int16_t)
+  DSLOT_ROUTE(Q_I32, int32_t)
+#undef DSLOT_ROUTE
+  return route;
 }
 
 const char* dslot_error_string(int code) {

@@ -24,10 +24,14 @@ Two executions of that one definition live here:
   thread-block cluster when its tiles are fewer than the SMs.  A ReLU layer
   runs the (d, c) loop inside a thread block, the digit planes on the
   tensor cores (bf16, f32 weights as three bf16 parts) and a vote for the
-  early exit: at the serving shapes (8-bit signed q, ``block_n`` 128)
-  one block per N tile and band of up to 128 rows, its vote tiles voting
-  each on its own, on ``wgmma``; elsewhere one block per output tile on
-  ``mma.sync``.  ``dslot_matmul_cuda`` launches it for CUDA tensors.
+  early exit: at the serving shapes (8-bit signed q, ``block_n`` 128, or
+  256 over a 2-block cluster) one block per N tile and band of up to 128
+  rows, its vote tiles voting each on its own, on ``wgmma``; elsewhere one
+  block per output tile on ``mma.sync``, or, for a tile too large for one
+  block (1024 x 136, ``block_m`` 2048 at 8 columns), one thread-block
+  cluster of up to 16 blocks whose votes join through distributed shared
+  memory.  ``dslot_matmul_cuda`` launches it for CUDA tensors; ``route``
+  names the kernel a launch takes.
 * ``split_parts`` — W's bf16 parts in the layout the kernel streams
   (``split_parts_plain`` is its plain version).  ``ops.dslot_prepare``
   builds them once per layer and passes them on every call; a call on raw
@@ -60,7 +64,7 @@ from . import _build
 
 __all__ = ["DslotMatmulOut", "colsum_tables", "dslot_matmul_cuda",
            "dslot_matmul_cuda_batched", "dslot_matmul_plain", "part_count",
-           "q_storage_dtype", "select_block_k", "split_parts",
+           "q_storage_dtype", "route", "select_block_k", "split_parts",
            "split_parts_plain"]
 
 _CHUNK_BUDGET_BYTES = 12 * 1024 * 1024  # the reference's block_k policy
@@ -376,7 +380,29 @@ def _library() -> ctypes.CDLL:
         p = ctypes.c_void_p
         lib.dslot_split_parts.argtypes = [p, i, p, i, i, i, p]
         lib.dslot_split_parts.restype = i
+        lib.dslot_matmul_route.argtypes = [i] * 10
+        lib.dslot_matmul_route.restype = i
     return lib
+
+
+_ROUTES = ("product_kernel", "plane_kernel", "band_kernel", "cluster_kernel",
+           "walk_kernel")
+
+
+def route(M: int, K: int, N: int, block_m: int, block_n: int, bk: int,
+          n_bits: int, relu: bool, q_dtype: torch.dtype,
+          w_dtype: torch.dtype) -> str:
+    """The CUDA kernel a launch on padded (M, K) @ (K, N) takes: one of
+    ``product_kernel``, ``plane_kernel``, ``band_kernel``,
+    ``cluster_kernel`` or ``walk_kernel``.  Asks the card (a cluster's
+    fit); raises for a shape the kernel does not take."""
+    code = _library().dslot_matmul_route(
+        M, K, N, block_m, block_n, bk, n_bits, int(relu), _Q_CODES[q_dtype],
+        _W_CODES[w_dtype])
+    if code < 0:
+        raise ValueError(f"the kernel takes no ({M}, {K}) @ ({K}, {N}) "
+                         f"launch at ({block_m}, {block_n}, {bk})")
+    return _ROUTES[code]
 
 
 def run(q: torch.Tensor, w: torch.Tensor, n_bits: int, n_planes: int,

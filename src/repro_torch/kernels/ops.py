@@ -170,12 +170,13 @@ def dslot_prepare(w: torch.Tensor, *, n_bits: int = 8, relu: bool = True,
     to ``msr_bound=False``.
 
     W's bf16 parts (``dm.split_parts``, the kernel's streamed layout) are
-    built here once, after the rank's columns are cut, for every layer
-    whose tiles take the kernel's plane path and are wider than 8 columns
-    (those tiles all stream W; tiles of 8 columns may stay resident and
-    stage W themselves, and a streamed one builds its parts per call).  The
-    part count is decided once over the whole layer: 1 where bf16 holds
-    every weight, else 3.  Every call passes them; none rebuilds them.
+    built here once, after the rank's columns are cut, for every layer on
+    the card whose tiles take the kernel's plane path and are wider than 8
+    columns (those tiles all stream W; tiles of 8 columns may stay resident
+    and stage W themselves, and a streamed one builds its parts per call).
+    The part count is decided once over the whole layer: 1 where bf16 holds
+    every weight, else 3.  Every call passes them; none rebuilds them.  A
+    layer on the CPU stores none: the plain version never reads them.
 
     ``mesh``/``tp_axis`` (a ``DeviceMesh`` and one of its axis names) make
     every ``dslot_execute`` of the result tensor-parallel over that axis;
@@ -207,8 +208,8 @@ def dslot_prepare(w: torch.Tensor, *, n_bits: int = 8, relu: bool = True,
     if x_scale is not None:
         x_scale = torch.as_tensor(x_scale, dtype=torch.float32,
                                   device=w.device)
-    n_parts = dm.part_count(w_p) if _reads_parts(relu, n_bits, block_n) \
-        else 0
+    n_parts = dm.part_count(w_p) \
+        if _on_card(w_p) and _reads_parts(relu, n_bits, block_n) else 0
     if mesh is not None:
         w_p, suffix_colsum, total_colsum, bound = _shard_columns(
             mesh, tp_axis, block_n, n_bits, w_p, suffix_colsum,
@@ -220,6 +221,12 @@ def dslot_prepare(w: torch.Tensor, *, n_bits: int = 8, relu: bool = True,
         n_bits=n_bits, relu=relu, signed=signed, block_m=block_m,
         block_n=block_n, block_k=bk, d_in=K, d_out=N, mesh=mesh,
         tp_axis=tp_axis)
+
+
+def _on_card(w: torch.Tensor) -> bool:
+    """Whether ``w`` lies where the kernel runs (the CPU runs the plain
+    version, which reads no parts)."""
+    return w.is_cuda
 
 
 def _reads_parts(relu: bool, n_bits: int, block_n: int) -> bool:

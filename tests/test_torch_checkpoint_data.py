@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
 from repro.checkpoint.checkpointer import _flatten as j_flatten

@@ -13,6 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.core import dslot_conv2d_stats as j_stats
 from repro.core import extract_windows as j_windows

@@ -17,6 +17,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro_torch import convert
 from repro_torch.configs.base import DslotConfig
@@ -624,6 +625,57 @@ def test_walked_tiles_match_plain_exactly(cuda, block_m, block_n, K, M, N,
     args = dict(n_bits=n_bits, relu=relu, block_m=block_m, block_n=block_n,
                 block_k=128 if K == 256 else None, row_budget=bud,
                 n_planes_rt=bud.max())
+    a = dm.dslot_matmul_cuda(q, w, **args)
+    a2 = dm.dslot_matmul_cuda(q, w, **args)
+    b = dm.dslot_matmul_plain(q, w, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(a.planes_used, b.planes_used)
+    assert torch.equal(a.out, b.out)
+    assert torch.equal(a.out, a2.out)
+
+
+# Walked tiles by the kernel each takes: (block_m, block_n, K, M, N, n_bits,
+# signed q, relu, kernel).  16 x 256 with 8-bit signed q on the band
+# kernel's 2-block clusters; the same tile with int16 q over a cluster of
+# two column groups; 256 x 256 over 8 row groups by 2 column groups;
+# 2048 x 8 with unsigned q over 16 row groups; without ReLU at 26 bits
+# (past the product path) a tall tile's resident slices and a 16 x 256
+# tile's streamed ones; 4096 x 136, whose f32 sums (2.2 MB) no cluster
+# holds, on walk_kernel.
+CLUSTER_TILES = [(16, 256, 1024, 64, 512, 8, True, True, "band_kernel"),
+                 (16, 256, 1024, 64, 512, 12, True, True, "cluster_kernel"),
+                 (256, 256, 256, 512, 512, 12, True, True, "cluster_kernel"),
+                 (2048, 8, 256, 4096, 16, 8, False, True, "cluster_kernel"),
+                 (2048, 8, 256, 4096, 16, 26, True, False, "cluster_kernel"),
+                 (16, 256, 256, 64, 512, 26, True, False, "cluster_kernel"),
+                 (4096, 136, 128, 4096, 136, 8, True, True, "walk_kernel")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_m,block_n,K,M,N,n_bits,signed,relu,kernel",
+                         CLUSTER_TILES)
+def test_cluster_tiles_match_plain_exactly(cuda, block_m, block_n, K, M, N,
+                                           n_bits, signed, relu, kernel,
+                                           wdtype):
+    """Each walked tile's kernel (``dm.route``), on dyadic weights with row
+    budgets (at most 8 planes: 26-bit sums stay exact in f32): output and
+    planes_used equal to the plain version's bit for bit, and two launches
+    give the same bits."""
+    rng = np.random.default_rng(14)
+    top = 2 ** (n_bits - 1) - 1 if signed else 2 ** n_bits - 1
+    q = torch.as_tensor(rng.integers(-top if signed else 0, top + 1, (M, K)))
+    q = q.to(dm.q_storage_dtype(n_bits, signed=signed)).to(cuda)
+    w = rng.integers(-64, 65, (K, N)) / 64.0
+    w[:, : N // 2] -= 0.5                  # clustered ReLU-dead columns
+    w = torch.as_tensor(w, dtype=torch.float32).to(cuda, wdtype)
+    bud = torch.as_tensor(rng.integers(1, 9, M), dtype=torch.int32,
+                          device=cuda)
+    bk = 128 if K <= 256 else None
+    assert dm.route(M, K, N, block_m, block_n, bk or K, n_bits, relu,
+                    q.dtype, w.dtype) == kernel
+    args = dict(n_bits=n_bits, relu=relu, block_m=block_m, block_n=block_n,
+                block_k=bk, row_budget=bud, n_planes_rt=bud.max())
     a = dm.dslot_matmul_cuda(q, w, **args)
     a2 = dm.dslot_matmul_cuda(q, w, **args)
     b = dm.dslot_matmul_plain(q, w, **args)

@@ -16,6 +16,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.core import digits as jdigits
 from repro.core import msr as jmsr
@@ -226,6 +227,36 @@ def test_matmul_matches_pallas_interpret(block_k, relu, signed, wdtype,
     if relu and not signed and runtime is None:
         # unsigned digits on the negative-shifted columns: dead tiles exist
         assert _n(out.planes_used).min() < 8, "termination must fire"
+
+
+# Geometries the card runs on cluster kernels (16 x 256 on the band
+# kernel's 2-block clusters or cluster_kernel, a tall 512 x 8 tile on
+# cluster_kernel): (block_m, block_n, M, K, N, block_k)
+WALKED = [(16, 256, 32, 128, 512, 64), (512, 8, 512, 64, 16, 32)]
+
+
+@pytest.mark.parametrize("block_m,block_n,M,K,N,block_k", WALKED)
+def test_walked_tiles_match_pallas_interpret(block_m, block_n, M, K, N,
+                                             block_k):
+    """The port's plain version at the walked geometries, with row budgets,
+    against the reference's Pallas kernel in interpret mode at the same
+    geometry: ``planes_used`` equal, and tiles that stop early."""
+    rng, aq, w = _workload(90 + block_m, M, K, N)
+    bud = rng.integers(1, 9, M).astype(np.int32)
+    kw = dict(n_bits=8, relu=True, block_m=block_m, block_n=block_n,
+              block_k=block_k, n_planes_rt=int(bud.max()))
+    ref = jdm.dslot_matmul_pallas(jnp.asarray(aq.astype(np.uint8)),
+                                  jnp.asarray(w), row_budget=jnp.asarray(bud),
+                                  **kw)
+    out = tdm.dslot_matmul_cuda(_t(aq.astype(np.uint8)), _t(w),
+                                row_budget=_t(bud), **kw)
+    np.testing.assert_array_equal(_n(out.planes_used),
+                                  np.asarray(ref.planes_used))
+    # K-term f32 dot products summed in another order: 1e-5 relative
+    np.testing.assert_allclose(_n(out.out), np.asarray(ref.out),
+                               rtol=1e-5, atol=1e-4)
+    # unsigned digits on the negative-shifted columns: dead tiles exist
+    assert _n(out.planes_used).min() < int(bud.max()), "termination must fire"
 
 
 def test_plain_entry_equals_wrapper_on_cpu():

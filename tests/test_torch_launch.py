@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro_torch.configs.base import DslotConfig
 from repro_torch.configs.registry import get_arch

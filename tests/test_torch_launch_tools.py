@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs.registry import ARCHS as JARCHS

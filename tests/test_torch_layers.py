@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.core.conv import im2col as jim2col
 from repro.layers import DslotConv2d as JConv

@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 import torch_split_ranks as ranks
 from repro_torch.configs.registry import ARCHS

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.configs.base import DslotConfig as JDslot
 from repro.configs.registry import ARCHS as JARCHS

@@ -13,6 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops

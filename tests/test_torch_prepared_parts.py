@@ -11,6 +11,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import dslot_matmul as dm
@@ -72,15 +73,22 @@ def test_part_count():
     (True, 8, 8, torch.float32, 0),      # may stay resident: no parts
     (False, 8, 16, torch.float32, 0),    # the product path reads w itself
     (False, 26, 16, torch.float32, 3)])  # > 24 bits: the plane path
-def test_prepare_stores_parts(relu, n_bits, block_n, wdtype, want):
-    """``dslot_prepare`` stores ``split_parts`` of its padded weights for
-    layers whose tiles stream W, and execution gives the same result with
-    and without them (the plain version never reads them)."""
+def test_prepare_stores_parts(relu, n_bits, block_n, wdtype, want,
+                              monkeypatch):
+    """On the CPU ``dslot_prepare`` stores no parts (the plain version never
+    reads them).  On the card it stores ``split_parts`` of its padded
+    weights for layers whose tiles stream W: the card's rule is run here
+    with the CPU tensors standing in for the card's (``split_parts`` then
+    runs its plain version), and execution gives the same result with and
+    without the parts."""
     w = torch.as_tensor(_wide(3, 40, 48))
     w = w.to(torch.bfloat16).float() if wdtype == "bf16-exact" \
         else w.to(wdtype)
-    prep = tops.dslot_prepare(w, n_bits=n_bits, relu=relu, block_m=16,
-                              block_n=block_n, block_k=16)
+    kw = dict(n_bits=n_bits, relu=relu, block_m=16, block_n=block_n,
+              block_k=16)
+    assert tops.dslot_prepare(w, **kw).parts is None
+    monkeypatch.setattr(tops, "_on_card", lambda t: True)
+    prep = tops.dslot_prepare(w, **kw)
     if want == 0:
         assert prep.parts is None
         return
@@ -117,14 +125,17 @@ def sharded_parts():
 
 @pytest.mark.parametrize("case,wdtype", [(0, "float32"), (1, "bf16-exact")])
 def test_sharded_parts_equal_parts_of_the_slice(sharded_parts, case, wdtype):
-    """In a world of 2 over (1, 2), each rank's prepared parts are the
-    parts of its own columns of the unsharded padded layout (the part count
-    decided over the whole layer: 3 for f32, 1 where bf16 holds it)."""
+    """In a world of 2 over (1, 2), under the card's rule (the ranks' CPU
+    tensors standing in for the card's), each rank's prepared parts are
+    the parts of its own columns of the unsharded padded layout (the part
+    count decided over the whole layer: 3 for f32, 1 where bf16 holds it);
+    under the CPU's, a rank stores none."""
     w = _shard_weights(wdtype)
     whole = tops.dslot_prepare(torch.as_tensor(w), **SHARD_KW)
     n_parts = 3 if wdtype == "float32" else 1
     for res in sharded_parts:
         got = res["cases"][case]
+        assert not got["stored_on_cpu"]
         lo, hi = got["cols"]
         want = dm.split_parts_plain(whole.w[:, lo:hi], 16, n_parts)
         assert got["parts"].shape == tuple(want.shape)
@@ -132,11 +143,12 @@ def test_sharded_parts_equal_parts_of_the_slice(sharded_parts, case, wdtype):
 
 
 @pytest.mark.parametrize("precision", ["full", "rows"])
-def test_mixed_vote_tiles_match_reference(precision):
+def test_mixed_vote_tiles_match_reference(precision, monkeypatch):
     """Vote tiles of one N tile terminating at different planes: ``out``,
     per-tile ``planes_used`` and ``row_planes_used`` of the port (the
-    kernel's plain version, with the prepared parts) equal the reference's
-    Pallas kernel (interpret mode) and its ``_jnp_path``."""
+    kernel's plain version, with the parts the card's rule prepares) equal
+    the reference's Pallas kernel (interpret mode) and its ``_jnp_path``."""
+    monkeypatch.setattr(tops, "_on_card", lambda t: True)
     x, w = ranks.mixed_vote_case()
     kw = dict(n_bits=8, relu=True, signed=True, block_m=16, block_n=128,
               block_k=64)

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 import repro.serve as jserve
 import repro_torch.serve as tserve

@@ -52,6 +52,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 import torch_serve_split_ranks as ranks
 from repro import serve as jserve

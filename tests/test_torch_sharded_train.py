@@ -71,6 +71,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 import torch_sharded_ranks as ranks
 from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer

@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 from jax.sharding import PartitionSpec as JP
 
 from repro.configs.registry import ARCHS as JARCHS

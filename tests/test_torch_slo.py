@@ -14,6 +14,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.serve import faults as jfaults
 from repro.serve import slo as jslo

@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.configs.dslot_mnist import CONFIG as JCONFIG
 from repro.core import mnist_cnn as jcnn

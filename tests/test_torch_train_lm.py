@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_one_thread  # noqa: F401  (PyTorch on one CPU thread)
 
 from repro.configs.registry import ARCHS as JARCHS
 from repro.models.model_zoo import build_model as jbuild

@@ -17,6 +17,7 @@ from repro_torch.distributed import axis_rank
 from repro_torch.distributed.expert_parallel import apply_moe_ep
 from repro_torch.distributed.overlap import (collective_matmul_ag,
                                              plain_matmul_ag)
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import dslot_execute, dslot_prepare
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.layers import DslotConv2d, DslotDense
@@ -286,14 +287,21 @@ def mixed_vote_case():
 
 def prepared_parts_cases(rank, cases):
     """This rank's prepared W parts of each (weights, prepare keywords)
-    layer split over (1, 2), with the column range its tiles cover in the
-    unsharded padded layout."""
+    layer split over (1, 2) under the card's rule (its CPU tensors standing
+    in for the card's), with the column range its tiles cover in the
+    unsharded padded layout, and whether the CPU's rule stored parts."""
     mesh = make_test_mesh(model=2)
     out = []
     for w_np, kw in cases:
-        prep = dslot_prepare(t(w_np), mesh=mesh, **kw)
+        on_cpu = dslot_prepare(t(w_np), mesh=mesh, **kw)
+        on_card, ops._on_card = ops._on_card, lambda w: True
+        try:
+            prep = dslot_prepare(t(w_np), mesh=mesh, **kw)
+        finally:
+            ops._on_card = on_card
         tiles = prep.w.shape[1] // prep.block_n
         out.append(dict(parts=prep.parts.float().numpy(),
+                        stored_on_cpu=on_cpu.parts is not None,
                         cols=(rank * tiles * prep.block_n,
                               (rank + 1) * tiles * prep.block_n)))
     return dict(rank=rank, cases=out)
