@@ -90,7 +90,8 @@
 //    chunks and the tile walked in sub-tiles (walk_kernel).
 //
 // D. Band (the serving shapes: ReLU, 8-bit signed q, block_n 128, block_m
-//    16 to 128, logical chunks of whole 64-row sub-chunks; band_kernel).
+//    16 to 128, logical chunks of whole 64-row sub-chunks; and the
+//    launchers' narrow tiles, below; band_kernel).
 //    At these shapes B lost 18-36x to torch.matmul on an H100: 16 x 128
 //    tiles gave each warp 6 mma.sync between two barriers, one block a tile
 //    re-streamed W's parts for every vote tile and plane (15.1 GB at the
@@ -140,6 +141,26 @@
 //    Wide tiles (block_n 256, e.g. DslotConfig(block_n=256)) take the same
 //    kernel with each N tile's 256 columns over a 2-block cluster, two
 //    warpgroups a block, the halves joining their votes.
+//    Narrow tiles (block_n 16, 32 or 64: the port's launchers pass 32 x 32,
+//    16 x 16 and 16 x 32 at block_k 16) take it too.  On B they lost
+//    20-42x to torch.matmul on an H100: one block of 2 warps a tile, W
+//    re-streamed for every row tile and plane, the digits rebuilt in every
+//    N tile, a block-wide vote every 16 rows of K.  Here a block holds a
+//    band by 128 columns (64 at 16-row bands, no cluster) and so 128 /
+//    block_n column tiles; a vote tile is a row tile by a column tile, and
+//    since a warp's 16 columns lie in one column tile, it votes in its warp,
+//    or in the 2 or 4 warps of one warpgroup joined through a shared word
+//    and the warpgroup's named barrier.  Each column tile runs to its own
+//    plane bound; the block stops at its per-sub-chunk barrier
+//    (__syncthreads_or) once none of its tiles is alive.  Chunks of 16 or
+//    32 rows vote inside a sub-chunk: each k step's product goes into one
+//    of two sets of sums, from zero, while the other is added (bands of 16
+//    or 64 rows, so that both sets fit the registers); each thread takes
+//    its part of a chunk's vote right after the chunk's sums, and the
+//    tile joins the sub-chunk's 2 or 4 votes at once, 8 bits each, after
+//    it (a tile that died mid-sub-chunk adds sums that no output keeps).  N
+//    need only be a multiple of block_n (a rank's share of a split layer):
+//    TMA fills the columns past N with zeros, and nothing past N is kept.
 //
 // E. Cluster (the other tiles that no warp tiling of B takes: more than 16
 //    warps of B's tilings, e.g. 1024 x 136 or 16 x 256 with 16-bit q, or a
@@ -1486,6 +1507,17 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Every wgmma group but the newest complete.
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// Barrier `id` (not 0, __syncthreads') over `threads` threads: one
+// warpgroup's warps.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Generic-proxy writes to shared memory (the digit tile) made visible to
 // the async proxy that wgmma reads it through.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -1638,6 +1670,31 @@ __device__ __forceinline__ void band_a(uint32_t (&a)[4][4],
   }
 }
 
+// One k step KS of a sub-chunk into sums t from zero: its one or three
+// parts' products (lo, mid, hi), for the votes inside a sub-chunk.
+template <int NB, int KS>
+__device__ __forceinline__ void band_step(float (&t)[NB / 2],
+                                          const uint32_t (&a)[3][4][4],
+                                          uint64_t desc, int parts) {
+  if (parts == 1) {
+    wgmma_band<NB>(t, a[0][KS], desc + 2 * KS, 0);
+  } else {
+#pragma unroll
+    for (int p = 2; p >= 0; --p)
+      wgmma_band<NB>(t, a[p][KS], desc + 2 * KS, p != 2);
+  }
+}
+
+// The largest plane bound of the column tiles of bn columns in a block's
+// columns [n0, n0 + BN) that lie inside N, at most min(D, npl).
+__device__ __forceinline__ int cols_limit(const int* bnd, long long n0, int N,
+                                          int bn, int BN, int D, int npl) {
+  int lim = 0;
+  for (long long c = n0; c < n0 + BN && c < N; c += bn)
+    lim = max(lim, bnd[c / bn]);
+  return min(min(D, npl), lim);
+}
+
 // Shared memory (1024-byte aligned): two digit tiles [NB][128 B] | ns ring
 // stages, each the W boxes [part][warpgroup][64 K rows][64 columns] bf16
 // (TMA, 128-byte swizzle) and the q box [NB][64] int8 | ns mbarriers | row
@@ -1648,7 +1705,21 @@ __device__ __forceinline__ void band_a(uint32_t (&a)[4][4],
 // 256 (the wide tiles of block_n 256) at <NB, 2, true>.
 // Thread (warp wq of its warpgroup, lane g * 4 + t4) holds columns ca and
 // ca + 8 of rows 8j + 2 t4 + {0, 1}: sums [4j + e], e = 2 * (column) + row.
-template <int NB, int NWG, bool CLUSTER>
+// COLS 0: a vote tile spans its N tile's BN columns.  COLS 1 and 2, the
+// narrow tiles (block_n bn = N / Nt of 16, 32 or 64; never over a cluster):
+// a block of BN columns holds BN / bn column tiles, and a warp's 16
+// columns lie in one.  A vote tile (a row tile by a column tile) is voted
+// by the warps of its column tile: one warp, or 2 or 4 of a warpgroup
+// joined through a shared word and the warpgroup's named barrier.  Each
+// column tile runs to its own plane bound, the block to the largest; a
+// column tile past N (the last block of an N that 128 does not divide)
+// keeps nothing.  The block stops at its per-sub-chunk barrier once none
+// of its tiles is alive.  COLS 1 votes at the end of each logical chunk of
+// whole sub-chunks; COLS 2 (chunks of 16 or 32 rows) after every one or two
+// k steps: each k step's product runs into one of two sets of sums from
+// zero while the other is added, each thread's part of a chunk's vote is
+// taken right after its sums, and the tile joins them once a sub-chunk.
+template <int NB, int NWG, bool CLUSTER, int COLS>
 __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
     const __grid_constant__ CUtensorMap tm_w,
     const __grid_constant__ CUtensorMap tm_q, const float* __restrict__ sfx,
@@ -1685,13 +1756,24 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
       min(static_cast<long long>(geo.band), geo.Mp - r0));
   const int tiles = rows >> geo.lbm;
   const int npl = *npl_ptr;
-  const int limit = min(min(geo.D, npl), bnd[nt]);
+  // COLS: the width of a column tile, whether this thread's lies inside N,
+  // and its plane bound (0 past N)
+  const int bn = COLS ? N / geo.Nt : BN;
+  const bool real = !COLS || n0 + ca < N;
+  const int lim_t =
+      COLS && real ? min(min(geo.D, npl), bnd[(n0 + ca) / bn]) : 0;
+  const int limit = COLS ? cols_limit(bnd, n0, N, bn, BN, geo.D, npl)
+                         : min(min(geo.D, npl), bnd[nt]);
   const float tail = pow2(geo.n_bits - npl);
   const int T = K / BAND_KC;       // sub-chunks of a plane
   const int S = geo.bk / BAND_KC;  // sub-chunks of a logical chunk
   const int total = limit > 0 ? limit * T : 0;
   const int ns = geo.ns;
   const int wbytes = geo.parts * NWG * BAND_BOX;
+  // COLS: the warpgroups' W boxes that start inside N (TMA fills the
+  // columns past N of the last one with zeros)
+  const int nbox =
+      COLS ? min(NWG, static_cast<int>((N - n0 + 63) / 64)) : NWG;
 
   if (tid == 0) {
     for (int s = 0; s < ns; ++s) mbar_init(full + s, 1);
@@ -1703,37 +1785,42 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
 
   const CUtensorMap* map_w = &tm_w;
   const CUtensorMap* map_q = &tm_q;
-  // the next item to issue (thread 0 issues, every thread counts): its
+  // the next item to fetch (thread 0 fetches, every thread counts): its
   // stage and its sub-chunk within the plane
-  int issued = 0, i_stage = 0, i_sub = 0;
-  auto issue = [&]() {
+  int fetched = 0, i_stage = 0, i_sub = 0;
+  auto fetch = [&]() {
     if (tid == 0) {
       uint8_t* st = ring + i_stage * geo.stage;
       const int k0 = i_sub * BAND_KC;
-      mbar_expect_tx(full + i_stage, wbytes + NB * BAND_KC);
+      mbar_expect_tx(full + i_stage,
+                     (COLS ? geo.parts * nbox * BAND_BOX : wbytes) +
+                         NB * BAND_KC);
       for (int p = 0; p < geo.parts; ++p)
-        for (int h = 0; h < NWG; ++h)
+        for (int h = 0; h < (COLS ? nbox : NWG); ++h)
           tma_load_2d(st + (p * NWG + h) * BAND_BOX, map_w, full + i_stage,
                       static_cast<int>(n0) + (half * NWG + h) * 64, p * K + k0);
       tma_load_2d(st + wbytes, map_q, full + i_stage, k0,
                   static_cast<int>(r0));
     }
-    ++issued;
+    ++fetched;
     if (++i_stage == ns) i_stage = 0;
     if (++i_sub == T) i_sub = 0;
   };
-  while (issued < min(ns, total)) issue();
+  while (fetched < min(ns, total)) fetch();
 
   float acc[NR], t[NR];
 #pragma unroll
   for (int e = 0; e < NR; ++e) acc[e] = t[e] = 0.0f;
   unsigned alive = (1u << tiles) - 1u;
+  if constexpr (COLS != 0) {
+    if (lim_t == 0) alive = 0u;
+  }
   unsigned died = 0u;
   int planes[BAND_TILES];
 #pragma unroll
   for (int v = 0; v < BAND_TILES; ++v) planes[v] = 0;
-  const float tot_a = tot[n0 + ca];
-  const float tot_b = tot[n0 + cb];
+  const float tot_a = real ? tot[n0 + ca] : 0.0f;
+  const float tot_b = real ? tot[n0 + cb] : 0.0f;
   float sf_a = 0.0f, sf_b = 0.0f;
   int waited = -1;  // the last item every thread has waited for
   int votes = 0;
@@ -1744,6 +1831,7 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
     fence_proxy_async();
     __syncthreads();
   }
+  if constexpr (COLS == 0) {
   // item i: stage st_i with parity ph_i, plane d, sub-chunk r of the plane,
   // sub-chunk sc of logical chunk c
   int st_i = 0, ph_i = 0, d = 0, r = 0, sc = 0, c = 0;
@@ -1797,7 +1885,7 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
 #pragma unroll
     for (int e = 0; e < NR; ++e) acc[e] = __fadd_rn(acc[e], t[e]);
     __syncthreads();  // stage st_i and digit tile i are free; digits i+1 are in
-    if (issued < total) issue();
+    if (fetched < total) fetch();
     const int d_i = d;
     st_i = st_n, ph_i = ph_n, r = r_n, d = d_n;
     if (++sc < S) continue;
@@ -1840,9 +1928,180 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
     alive &= ~all;
     if (alive == 0u) break;
   }
+  } else {  // COLS 1 and 2
+    // This thread's part of the vote on the chunk that ends here (suffix
+    // sums s_a, s_b at plane dv): a bit per row tile whose elements here
+    // all have acc + R < 0.
+    auto ok_bits = [&](float s_a, float s_b, int dv) -> unsigned {
+      const float scale = pow2(geo.n_bits - 1 - dv);
+      const float rem_a = __fadd_rn(__fmul_rn(scale, s_a),
+                                    __fmul_rn(scale - tail, tot_a));
+      const float rem_b = __fadd_rn(__fmul_rn(scale, s_b),
+                                    __fmul_rn(scale - tail, tot_b));
+      unsigned bad = 0u;
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j) {
+        const int ok =
+            static_cast<int>(__fadd_rn(acc[4 * j], rem_a) < 0.0f) &
+            static_cast<int>(__fadd_rn(acc[4 * j + 1], rem_a) < 0.0f) &
+            static_cast<int>(__fadd_rn(acc[4 * j + 2], rem_b) < 0.0f) &
+            static_cast<int>(__fadd_rn(acc[4 * j + 3], rem_b) < 0.0f);
+        bad |= static_cast<unsigned>(ok ^ 1) << ((8 * j) >> geo.lbm);
+      }
+      // rows past the NB computed: the wrapper's pad rows, whose sums are 0
+      if (NB < rows && !(rem_a < 0.0f && rem_b < 0.0f))
+        bad |= ~0u << (NB >> geo.lbm);
+      return ~bad & 0xffu;
+    };
+    // The AND of the tile's threads' bits (up to 4 chunks' votes, 8 bits
+    // each): its warp's, joined with the other warps of the tile.
+    auto join = [&](unsigned bits) -> unsigned {
+      unsigned all = __reduce_and_sync(0xffffffffu, bits);
+      if (bn > 16) {  // the 2 or 4 warps of the tile, in one warpgroup
+        unsigned* vs = vote_s + (votes & 1) * 8;
+        if (lane == 0) vs[warp] = all;
+        named_sync(1 + wg, 128);
+        const int w0 = warp & ~(bn / 16 - 1);
+        all = vs[w0];
+        for (int w = 1; w < bn / 16; ++w) all &= vs[w0 + w];
+      }
+      ++votes;
+      return all;
+    };
+    auto settle = [&](unsigned all) {  // a chunk's dead tiles
+      died |= all & alive;
+      alive &= ~all;
+    };
+    // k steps' sums into the tile's, until the tile dies or ends at its
+    // bound
+    auto add = [&](float (&s)[NR]) {
+      reg_fence<NR>(s);
+      if (alive != 0u) {
+#pragma unroll
+        for (int e = 0; e < NR; ++e) acc[e] = __fadd_rn(acc[e], s[e]);
+      }
+    };
+    const int kv = geo.bk >> 4;  // COLS 2: k steps of a logical chunk
+    float t2[COLS == 2 ? NR : 1];
+#pragma unroll
+    for (int e = 0; e < (COLS == 2 ? NR : 1); ++e) t2[e] = 0.0f;
+    float sa[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int st_i = 0, ph_i = 0, d = 0, r = 0, sc = 0, c = 0;
+    for (int i = 0; i < total; ++i) {
+      if (r == 0) {  // the band enters plane d
+#pragma unroll
+        for (int v = 0; v < BAND_TILES; ++v) planes[v] += (alive >> v) & 1u;
+        c = 0;
+      }
+      if (real) {  // in flight while the products run
+        if constexpr (COLS == 2) {
+          const int cps = BAND_KC / geo.bk;  // chunks of the sub-chunk
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            if (g < cps) {
+              const long long row = static_cast<long long>(r * cps + g) * N;
+              sa[g] = sfx[row + n0 + ca];
+              sb[g] = sfx[row + n0 + cb];
+            }
+        } else if (sc == 0) {
+          sa[0] = sfx[static_cast<long long>(c) * N + n0 + ca];
+          sb[0] = sfx[static_cast<long long>(c) * N + n0 + cb];
+        }
+      }
+      const uint8_t* st = ring + st_i * geo.stage;
+      const uint64_t desc = sw128_desc(dig + (i & 1) * NB * 128);
+      uint32_t a[3][4][4];
+      if (geo.parts == 1) {
+        band_a(a[0], st + wg * BAND_BOX, wq, lane);
+      } else {
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          band_a(a[p], st + (p * NWG + wg) * BAND_BOX, wq, lane);
+      }
+      // the next item's place
+      const int st_n = st_i + 1 == ns ? 0 : st_i + 1;
+      const int ph_n = st_n == 0 ? ph_i ^ 1 : ph_i;
+      const int r_n = r + 1 == T ? 0 : r + 1;
+      const int d_n = r_n == 0 ? d + 1 : d;
+      auto next_digits = [&]() {  // while the products run
+        if (i + 1 < total) {
+          mbar_wait(full + st_n, ph_n);
+          waited = i + 1;
+          band_digits<NB, THREADS>(dig + ((i + 1) & 1) * NB * 128,
+                                   ring + st_n * geo.stage + wbytes, rbud_s,
+                                   geo.n_bits - 1 - d_n, d_n);
+          fence_proxy_async();
+        }
+      };
+      wgmma_fence();
+      if constexpr (COLS == 1) {
+        if (geo.parts == 1) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_band<NB>(t, a[0][ks], desc + 2 * ks, ks != 0);
+        } else {  // lo, mid, hi per k step
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+            for (int p = 2; p >= 0; --p)
+              wgmma_band<NB>(t, a[p][ks], desc + 2 * ks, ks != 0 || p != 2);
+        }
+        wgmma_commit();
+        next_digits();
+        wgmma_wait0();
+        add(t);
+        if (++sc == S) {  // the vote at the end of a logical chunk
+          sc = 0;
+          ++c;
+          settle(join(ok_bits(sa[0], sb[0], d)));
+        }
+      } else {
+        // a chunk ends after every kv k steps: each thread's bits for it
+        // right after its sums, the tile's AND of all of them once, after
+        // the sub-chunk.  Sums added to a tile after it died change no
+        // output, and a tile's bound ends only with a plane.
+        unsigned bits = 0u;
+        band_step<NB, 0>(t, a, desc, geo.parts);
+        wgmma_commit();
+        band_step<NB, 1>(t2, a, desc, geo.parts);
+        wgmma_commit();
+        next_digits();
+        wgmma_wait1();
+        add(t);
+        if (kv == 1) bits = ok_bits(sa[0], sb[0], d);
+        wgmma_fence();
+        band_step<NB, 2>(t, a, desc, geo.parts);
+        wgmma_commit();
+        wgmma_wait1();
+        add(t2);
+        bits |= (kv == 1 ? ok_bits(sa[1], sb[1], d)
+                         : ok_bits(sa[0], sb[0], d)) << (kv == 1 ? 8 : 0);
+        wgmma_fence();
+        band_step<NB, 3>(t2, a, desc, geo.parts);
+        wgmma_commit();
+        wgmma_wait1();
+        add(t);
+        if (kv == 1) bits |= ok_bits(sa[2], sb[2], d) << 16;
+        wgmma_wait0();
+        add(t2);
+        bits |= (kv == 1 ? ok_bits(sa[3], sb[3], d)
+                         : ok_bits(sa[1], sb[1], d)) << (kv == 1 ? 24 : 8);
+        const unsigned all = join(bits);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          if (g < BAND_KC / geo.bk) settle((all >> (8 * g)) & 0xffu);
+      }
+      if (r_n == 0 && d_n >= lim_t) alive = 0u;  // past the tile's bound
+      // stage st_i and digit tile i are free, digits i+1 are in; the band
+      // stops once none of its tiles is alive
+      if (!__syncthreads_or(alive != 0u)) break;
+      if (fetched < total) fetch();
+      st_i = st_n, ph_i = ph_n, r = r_n, d = d_n;
+    }
+  }
   // a band that stopped early: the boxes still in flight land before exit
   if (tid == 0)
-    for (int j = waited + 1; j < issued; ++j)
+    for (int j = waited + 1; j < fetched; ++j)
       mbar_wait(full + j % ns, (j / ns) & 1);
 
 #pragma unroll
@@ -1850,7 +2109,7 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int n = 8 * j + 2 * t4 + (e & 1);
-      if (n < rows) {
+      if (n < rows && real) {
         const int v = n >> geo.lbm;
         out[(r0 + n) * N + n0 + ((e >> 1) ? cb : ca)] =
             (died >> v) & 1u ? 0.0f : fmaxf(acc[4 * j + e], 0.0f);
@@ -1859,9 +2118,21 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
   // rows past the NB computed: zeros
   for (int e = tid; e < (rows - NB) * NWG * 64; e += THREADS) {
     const int n = NB + e / (NWG * 64);
-    out[(r0 + n) * N + n0 + half * NWG * 64 + e % (NWG * 64)] = 0.0f;
+    if constexpr (COLS != 0) {
+      const long long col = n0 + e % (NWG * 64);
+      if (col < N) out[(r0 + n) * N + col] = 0.0f;
+    } else {
+      out[(r0 + n) * N + n0 + half * NWG * 64 + e % (NWG * 64)] = 0.0f;
+    }
   }
-  if (tid == 0 && half == 0) {
+  if constexpr (COLS != 0) {  // the first lane of each column tile
+    if (lane == 0 && real && (wq * 16) % bn == 0) {
+      const long long ct = (n0 + ca) / bn;
+#pragma unroll
+      for (int v = 0; v < BAND_TILES; ++v)
+        if (v < tiles) used[((r0 >> geo.lbm) + v) * geo.Nt + ct] = planes[v];
+    }
+  } else if (tid == 0 && half == 0) {
 #pragma unroll
     for (int v = 0; v < BAND_TILES; ++v)
       if (v < tiles)
@@ -2674,17 +2945,33 @@ long long parts_bytes(int K, int N, int bn, int PN, int wtype) {
 // The band kernel takes ReLU tiles of 8-bit signed q, 128 or 256 columns,
 // block_m 16 to 128 and logical chunks of whole 64-row sub-chunks (the
 // serving shapes, and the wide tiles a DslotConfig of block_n 256 gives);
-// q must suit TMA (16-byte aligned, K a multiple of 16 bytes).  What it
-// takes depends on the tile and K alone, never on N, so a layer split over
-// ranks by N tiles takes the same path on every rank.
+// and the narrow tiles of the port's launchers: 16, 32 or 64 columns,
+// block_m 16 to 128 and chunks of whole sub-chunks, or block_m 16 to 64,
+// chunks of 16 or 32 rows and K a multiple of 64.  q must suit TMA
+// (16-byte aligned, K a multiple of 16 bytes).  What it takes depends on
+// the tile and K alone, never on N, so a layer split over ranks by N tiles
+// takes the same path on every rank.
 int band_lbm(int bm) {
   return bm == 16 ? 4 : bm == 32 ? 5 : bm == 64 ? 6 : bm == 128 ? 7 : -1;
 }
 
+// The band kernel's vote for a tile (its COLS): 0 over a whole N tile of
+// 128 or 256 columns, 1 per column tile of 16, 32 or 64 at the end of
+// chunks of whole sub-chunks, 2 the same inside a sub-chunk (chunks of 16
+// or 32 rows); -1 for a tile it does not take.
+int band_cols(int bn, int bk) {
+  if (bn == 128 || bn == 256) return bk % BAND_KC == 0 ? 0 : -1;
+  if (bn != 16 && bn != 32 && bn != 64) return -1;
+  return bk % BAND_KC == 0 ? 1 : bk == 16 || bk == 32 ? 2 : -1;
+}
+
 bool band_path(const void* q, int M, int K, int bm, int bn, int bk,
                int n_bits, int relu) {
-  return relu && n_bits <= 8 && (bn == 128 || bn == 256) && band_lbm(bm) > 0 &&
-         bk % BAND_KC == 0 && (M + BAND_ROWS - 1) / BAND_ROWS <= 65535 &&
+  const int cols = band_cols(bn, bk);
+  const int band = cols == 2 ? 64 : BAND_ROWS;  // bands of 64 rows at COLS 2
+  return relu && n_bits <= 8 && cols >= 0 && band_lbm(bm) > 0 &&
+         bm <= band && K % BAND_KC == 0 &&
+         (M + band - 1) / band <= 65535 &&
          (reinterpret_cast<uintptr_t>(q) & 15) == 0;
 }
 
@@ -2763,19 +3050,19 @@ bool tensor_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType ty,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The parts' tensor map, once per (parts, K, N tiles): the prepared parts
-// of a layer live as long as the layer, and the map holds nothing else.
-bool parts_map(CUtensorMap* map, const void* wp, int parts, int K, int Nt) {
+// The parts' tensor map, once per (parts, K, N): the prepared parts of a
+// layer live as long as the layer, and the map holds nothing else.  The
+// band kernel's tiles (PN = bn) lay them out [part][K][N].
+bool parts_map(CUtensorMap* map, const void* wp, int parts, int K, int N) {
   static std::mutex mu;
   static std::map<std::tuple<const void*, int, int, int>, CUtensorMap> known;
-  const auto key = std::make_tuple(wp, parts, K, Nt);
+  const auto key = std::make_tuple(wp, parts, K, N);
   std::lock_guard<std::mutex> lock(mu);
   auto it = known.find(key);
   if (it == known.end()) {
     CUtensorMap m;
     if (!tensor_map_2d(&m, wp, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                       static_cast<long long>(parts) * K,
-                       static_cast<long long>(Nt) * 128, 64, 64,
+                       static_cast<long long>(parts) * K, N, 64, 64,
                        CU_TENSOR_MAP_SWIZZLE_128B))
       return false;
     it = known.emplace(key, m).first;
@@ -2784,18 +3071,21 @@ bool parts_map(CUtensorMap* map, const void* wp, int parts, int K, int Nt) {
   return true;
 }
 
-template <int NB, int NWG, bool CLUSTER>
+template <int NB, int NWG, bool CLUSTER, int COLS>
 cudaError_t launch_band_nb(const CUtensorMap& tm_w, const CUtensorMap& tm_q,
                            const float* sfx, const float* tot, const int* npl,
                            const int* bnd, const int* bud, float* out,
                            int* used, const BandGeom& geo, int bands,
                            cudaStream_t s) {
   static std::atomic<unsigned> done{0};
-  auto kernel = band_kernel<NB, NWG, CLUSTER>;
+  auto kernel = band_kernel<NB, NWG, CLUSTER, COLS>;
   cudaError_t err = smem_attributes(kernel, done);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(geo.Nt * (CLUSTER ? 2 : 1), bands);
+  // narrow tiles: blocks of 64 * NWG columns, the last one partly past N
+  cfg.gridDim = dim3(COLS ? (geo.N + 64 * NWG - 1) / (64 * NWG)
+                          : geo.Nt * (CLUSTER ? 2 : 1),
+                     bands);
   cfg.blockDim = dim3(NWG * 128);
   cfg.dynamicSmemBytes = geo.smem;
   cfg.stream = s;
@@ -2818,25 +3108,30 @@ int launch_band(const void* q, const void* w, int wtype, const void* sfx,
                 const void* parts, int n_parts, int m_real, int M, int K,
                 int N, int n_bits, int D, int bm, int bn, int bk,
                 cudaStream_t s) {
-  const int Nt = N / 128;  // 128-column units: the parts' map, the SM count
+  const int cols = band_cols(bn, bk);
+  const int Nt = (N + 127) / 128;  // 128-column units: the SM count
   int np = n_parts;
   const void* wp = parts;
-  if (wp == nullptr) {  // W's parts, built for this call
+  if (wp == nullptr) {  // W's parts, built for this call: [part][K][N]
     if (ws == nullptr) return cudaErrorInvalidValue;
     np = wtype == W_F32 ? 3 : 1;
+    const int pn = cols == 0 ? 128 : bn;
     split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(
-        w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, 128, 128);
+        w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, pn, pn);
     wp = ws;
   }
   if (np != 1 && np != 3) return cudaErrorInvalidValue;
   // bands of 64 rows where bands of 128 would leave half the SMs idle
   // (the admission shapes of 32-64 N tiles) and block_m divides 64: twice
-  // the blocks, each extracting and multiplying half the rows
-  const int band = bm <= 64 && M > 64 &&
-                   2LL * ((M + BAND_ROWS - 1) / BAND_ROWS) * Nt <= NUM_SMS
+  // the blocks, each extracting and multiplying half the rows.  Votes
+  // inside a sub-chunk (COLS 2) keep two sets of sums: always 64 rows.
+  const int band = cols == 2 || (bm <= 64 && M > 64 &&
+                                 2LL * ((M + BAND_ROWS - 1) / BAND_ROWS) *
+                                         Nt <= NUM_SMS)
                        ? 64 : BAND_ROWS;
   const int bands = (M + band - 1) / band;
-  const int nb = band_nb(M, m_real, band);
+  int nb = band_nb(M, m_real, band);
+  if (cols == 2 && nb == 32) nb = 64;  // COLS 2 builds bands of 16 and 64
   // a decode band (16 rows) whose tiles leave SMs idle: each N tile's
   // columns split over a 2-block cluster, one warpgroup a block (the same
   // sums, element for element), where the clusters fit on the SMs at once.
@@ -2844,13 +3139,17 @@ int launch_band(const void* q, const void* w, int wtype, const void* sfx,
   // band's digits, and a second wave costs more than the idle SMs.  A wide
   // tile (256 columns) always spans a 2-block cluster of two warpgroups
   // each, whose halves join their votes.
+  // A narrow tile's 16-row band takes blocks of one warpgroup (64 columns)
+  // with no cluster: its vote tiles lie within them.
   const bool wide = bn == 256;
-  const bool split = !wide && nb == 16 && 2LL * bands * Nt <= NUM_SMS;
-  const BandGeom geo = band_geometry(M, K, N, n_bits, D, bm, bn, bk, np,
-                                     split ? 1 : 2, nb, band);
+  const bool split = cols == 0 && !wide && nb == 16 &&
+                     2LL * bands * Nt <= NUM_SMS;
+  const int nwg = split || (cols != 0 && nb == 16) ? 1 : 2;
+  const BandGeom geo = band_geometry(M, K, N, n_bits, D, bm, bn, bk, np, nwg,
+                                     nb, band);
   if (geo.ns < 2) return cudaErrorInvalidValue;
   CUtensorMap tm_w, tm_q;
-  if (!parts_map(&tm_w, wp, np, K, Nt) ||
+  if (!parts_map(&tm_w, wp, np, K, N) ||
       !tensor_map_2d(&tm_q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, nb,
                      BAND_KC, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
@@ -2861,20 +3160,30 @@ int launch_band(const void* q, const void* w, int wtype, const void* sfx,
   const int* bu = static_cast<const int*>(bud);
   float* o = static_cast<float*>(out);
   int* u = static_cast<int*>(used);
-  if (split)
-    return launch_band_nb<16, 1, true>(tm_w, tm_q, sf, tt, pl, bd, bu, o, u,
-                                       geo, bands, s);
-#define DSLOT_BAND(NB_)                                                     \
-  if (nb == NB_ && !wide)                                                   \
-    return launch_band_nb<NB_, 2, false>(tm_w, tm_q, sf, tt, pl, bd, bu, o, \
-                                         u, geo, bands, s);                 \
-  if (nb == NB_ && wide)                                                    \
-    return launch_band_nb<NB_, 2, true>(tm_w, tm_q, sf, tt, pl, bd, bu, o,  \
-                                        u, geo, bands, s);
-  DSLOT_BAND(16)
-  DSLOT_BAND(32)
-  DSLOT_BAND(64)
-  DSLOT_BAND(128)
+#define DSLOT_BAND(NB_, NWG_, CLUSTER_, COLS_)                             \
+  return launch_band_nb<NB_, NWG_, CLUSTER_, COLS_>(                      \
+      tm_w, tm_q, sf, tt, pl, bd, bu, o, u, geo, bands, s);
+  if (cols == 1) {
+    if (nb == 16) DSLOT_BAND(16, 1, false, 1)
+    if (nb == 32) DSLOT_BAND(32, 2, false, 1)
+    if (nb == 64) DSLOT_BAND(64, 2, false, 1)
+    if (nb == 128) DSLOT_BAND(128, 2, false, 1)
+    return cudaErrorInvalidValue;
+  }
+  if (cols == 2) {
+    if (nb == 16) DSLOT_BAND(16, 1, false, 2)
+    if (nb == 64) DSLOT_BAND(64, 2, false, 2)
+    return cudaErrorInvalidValue;
+  }
+  if (split) DSLOT_BAND(16, 1, true, 0)
+  if (nb == 16 && !wide) DSLOT_BAND(16, 2, false, 0)
+  if (nb == 16 && wide) DSLOT_BAND(16, 2, true, 0)
+  if (nb == 32 && !wide) DSLOT_BAND(32, 2, false, 0)
+  if (nb == 32 && wide) DSLOT_BAND(32, 2, true, 0)
+  if (nb == 64 && !wide) DSLOT_BAND(64, 2, false, 0)
+  if (nb == 64 && wide) DSLOT_BAND(64, 2, true, 0)
+  if (nb == 128 && !wide) DSLOT_BAND(128, 2, false, 0)
+  if (nb == 128 && wide) DSLOT_BAND(128, 2, true, 0)
 #undef DSLOT_BAND
   return cudaErrorInvalidValue;
 }

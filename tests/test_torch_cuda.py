@@ -771,3 +771,147 @@ def test_split_parts_kernel_matches_plain(cuda, block_n):
         assert torch.equal(got.cpu(), dm.split_parts_plain(src, block_n,
                                                            n_parts))
     assert dm.split_parts.launches == n0 + 2
+
+
+# ------------------------------------------------------------ narrow tiles
+
+# The launchers' tiles on the band kernel: (M, K, block_m, block_n,
+# block_k).  Engine admission's 32 x 32 and 16 x 16 (bands of 64 rows),
+# 16 x 32 at block_k 16 (votes inside a sub-chunk), 16 x 64; a 32-row band
+# at block_k 32 (computed as 64 rows), decode bands of 16 rows (blocks of
+# one warpgroup) and 1024 rows (bands of 64 over 8 blocks of 128 columns,
+# of 128 rows over 9).
+NARROW_TILES = [(128, 256, 32, 32, None), (128, 256, 16, 16, None),
+                (128, 256, 16, 32, 16), (128, 256, 16, 64, None),
+                (32, 256, 16, 16, 32), (16, 256, 16, 32, 16),
+                (16, 256, 16, 16, None), (1024, 256, 32, 32, 128)]
+
+
+def _narrow_case(cuda, M, K, N, bm, bn, seed=15):
+    """Signed 8-bit q whose row tiles alternate sign and dyadic weights
+    whose column tiles alternate sign (the negative ones at falling
+    magnitudes), so that the vote tiles of a 128-column block stop at
+    different planes; column tile 1 gets plane bound 0 and column tile 2
+    bound 5, row budgets 1-8."""
+    rng = np.random.default_rng(seed)
+    rt = np.arange(M) // bm
+    q = rng.integers(0, 128, (M, K)) * np.where(rt % 2 == 0, 1, -1)[:, None]
+    q = torch.as_tensor(q).to(torch.int8).to(cuda)
+    ct = np.arange(N) // bn
+    mag = np.array([1.0, 0.125, 0.5, 0.25])[(ct // 2) % 4]
+    w = rng.integers(-16, 17, (K, N)) / 64.0 + np.where(ct % 2 == 1, 0.25,
+                                                        -0.25 * mag)
+    w = torch.as_tensor(w, dtype=torch.float32).to(cuda)
+    bound = torch.full((N // bn,), 8, dtype=torch.int32)
+    bound[1], bound[2] = 0, 5
+    bud = torch.as_tensor(rng.integers(1, 9, M), dtype=torch.int32,
+                          device=cuda)
+    return q, w, bound.to(cuda), bud
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("M,K,bm,bn,bk", NARROW_TILES)
+def test_narrow_tiles_match_plain_exactly(cuda, M, K, bm, bn, bk, extra):
+    """Each narrow tile on the band kernel (``dm.route``), on dyadic weights
+    with mixed column-tile votes, per-column-tile plane bounds (0 and 5
+    among 8) and with and without row budgets, at N = 1024 and at N =
+    1024 + block_n (a last block partly past N): output and planes_used
+    equal to the plain version's bit for bit, with W split in the launch
+    and with prepared parts, and two launches give the same bits."""
+    N = 1024 + extra * bn
+    q, w, bound, bud = _narrow_case(cuda, M, K, N, bm, bn)
+    assert dm.route(M, K, N, bm, bn, bk or K, 8, True, q.dtype,
+                    w.dtype) == "band_kernel"
+    parts = dm.split_parts(w, bn, 1)
+    for kw in ({}, {"row_budget": bud, "n_planes_rt": bud.max()}):
+        args = dict(relu=True, block_m=bm, block_n=bn, block_k=bk,
+                    plane_bound=bound, **kw)
+        a = dm.dslot_matmul_cuda(q, w, **args)
+        a2 = dm.dslot_matmul_cuda(q, w, parts=parts, **args)
+        b = dm.dslot_matmul_plain(q, w, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(a.planes_used, b.planes_used), kw
+        assert torch.equal(a.out, b.out), kw
+        assert torch.equal(a2.out, a.out)
+        assert torch.equal(a2.planes_used, a.planes_used)
+    assert len(set(b.planes_used[0, :128 // bn].tolist())) >= 3 or bn == 64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,bm,bn,bk", [(128, 256, 32, 32, None),
+                                          (128, 256, 16, 32, 16),
+                                          (16, 256, 16, 16, 32)])
+def test_narrow_tiles_three_parts(cuda, M, K, bm, bn, bk):
+    """f32 weights of magnitudes 2^-20 to 1 (three bf16 parts) at narrow
+    tiles, N past the last 128-column block: within rtol 1e-5 plus 1e-5 *
+    max|out| of the plain version (f32 sums in another order), the same
+    planes_used."""
+    rng = np.random.default_rng(17)
+    N = 1024 + bn
+    q = torch.as_tensor(rng.integers(-127, 128, (M, K)),
+                        dtype=torch.int8).to(cuda)
+    w = rng.choice([-1.0, 1.0], (K, N)) * np.exp2(rng.uniform(-20, 0,
+                                                             (K, N)))
+    w = torch.as_tensor(w, dtype=torch.float32).to(cuda)
+    assert dm.part_count(w) == 3
+    args = dict(relu=True, block_m=bm, block_n=bn, block_k=bk)
+    a = dm.dslot_matmul_cuda(q, w, parts=dm.split_parts(w, bn, 3), **args)
+    b = dm.dslot_matmul_plain(q, w, **args)
+    tol = 1e-5 * b.out.abs() + 1e-5 * b.out.abs().max()
+    assert bool(((a.out - b.out).abs() <= tol).all()), \
+        float((a.out - b.out).abs().max())
+    assert torch.equal(a.planes_used, b.planes_used)
+
+
+# The launchers' tiles at the engine's admission shape take the band kernel;
+# the tiles that took another kernel before keep it (8-bit unsigned q, 16-bit
+# q, block_n 8 and 24, block_k 8, block_m 128 at block_k 16).
+ROUTES = [(32, 32, 2048, torch.int8, 8, "band_kernel"),
+          (16, 16, 2048, torch.int8, 8, "band_kernel"),
+          (16, 32, 16, torch.int8, 8, "band_kernel"),
+          (16, 64, 2048, torch.int8, 8, "band_kernel"),
+          (16, 128, 2048, torch.int8, 8, "band_kernel"),
+          (32, 32, 2048, torch.uint8, 8, "plane_kernel"),
+          (32, 32, 2048, torch.int16, 12, "plane_kernel"),
+          (16, 8, 2048, torch.int8, 8, "plane_kernel"),
+          (32, 24, 2048, torch.int8, 8, "plane_kernel"),
+          (16, 32, 8, torch.int8, 8, "plane_kernel"),
+          (128, 32, 16, torch.int8, 8, "plane_kernel")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm,bn,bk,q_dtype,n_bits,kernel", ROUTES)
+def test_launcher_tiles_route(cuda, bm, bn, bk, q_dtype, n_bits, kernel):
+    N = 8192 // bn * bn
+    assert dm.route(128, 2048, N, bm, bn, bk, n_bits, True, q_dtype,
+                    torch.float32) == kernel
+
+
+@pytest.mark.gpu
+def test_sharded_narrow_tiles_on_card_equal_unsharded(cuda):
+    """A layer at 16 x 16 split over two ranks sharing the card (each rank
+    holds 9 tiles of 16 columns: 144, not a multiple of 128), ReLU with f32
+    and bf16 weights, scalar and per-row budgets: equal to the unsharded
+    launch bit for bit, statistics included."""
+    _build.build("dslot_matmul")          # once, before the ranks load it
+    rng = np.random.default_rng(16)
+    cases = []
+    for wdtype, npl, bk in (("float32", 8, None), ("bfloat16", 5, 16),
+                            ("float32", "rows", 32)):
+        w = rng.normal(0, 0.05, (128, 272)).astype(np.float32)
+        w[:, ::3] -= 0.1                   # ReLU-dead columns terminate
+        x = rng.normal(0.2, 0.5, (64, 128)).astype(np.float32)
+        if npl == "rows":
+            npl = rng.integers(1, 9, 64).astype(np.int32)
+        cases.append(dict(w=w, wdtype=wdtype, x=x, npl=npl, kw=dict(
+            sort_columns=True, block_m=16, block_n=16, block_k=bk,
+            signed=True)))
+    assert dm.route(64, 128, 144, 16, 16, 128, 8, True, torch.int8,
+                    torch.float32) == "band_kernel"
+    flags = run_world(torch_parallel_ranks.card_execute, 2, backend="gloo",
+                      device="cuda:0", timeout=120, deadline=300,
+                      args=(cases,))
+    for rank_flags in flags:
+        for case_flags in rank_flags:
+            assert all(case_flags.values()), case_flags

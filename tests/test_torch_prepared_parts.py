@@ -29,11 +29,12 @@ def _wide(seed, K, N):
             .astype(np.float32))
 
 
-@pytest.mark.parametrize("block_n", [5, 8, 128])
+@pytest.mark.parametrize("block_n", [5, 8, 16, 32, 128])
 def test_split_parts_sum_back_exactly(block_n):
     """hi + mid + lo == w in float64 for f32 weights of magnitudes 2^-20 to
     1 (24 bits of significand in three bf16 parts), each part in its tile's
-    columns of the [part][K][N tile][PN] layout."""
+    columns of the [part][K][N tile][PN] layout; where PN is block_n (16,
+    32, 128) that layout is [part][K][N], as the band kernel maps it."""
     K, N = 24, 3 * block_n
     w = torch.as_tensor(_wide(0, K, N))
     parts = dm.split_parts_plain(w, block_n, 3)
@@ -43,6 +44,8 @@ def test_split_parts_sum_back_exactly(block_n):
     assert torch.equal(total.reshape(K, N), w.to(torch.float64))
     hi = parts[0, :, :, :block_n].reshape(K, N)
     assert torch.equal(hi, w.to(torch.bfloat16))
+    if pn == block_n:
+        assert torch.equal(parts.reshape(3, K, N)[0], hi)
 
 
 @pytest.mark.parametrize("block_n", [5, 24])
