@@ -11,7 +11,10 @@ Phases (any failure exits non-zero and prints no result line):
 1. Device and build: the card's name and power limit, then ``nvcc`` builds
    ``src/repro_torch/kernels/csrc/dslot_matmul.cu`` for ``sm_90a`` on a
    host thread while phase 9 runs first (it launches no hand-written
-   kernel, and its steps are device-bound); phase 2 starts once both end.
+   kernel, and its steps are device-bound), then phase 11 (no hand-written
+   kernel either; its timed runs come after the build's remaining tens of
+   seconds); phase 2 starts once the build has ended, and phases 3-8, 10
+   and 12 follow.
 2. Kernel vs plain version: the digit-serial matmul at the paper CNN's two
    GEMM shapes (B = 1024 images) and at the DSLOT MLP up-projection of
    seamless-m4t-medium (d_model 1024 -> d_ff 4096, 2048 tokens, block 128,
@@ -35,7 +38,12 @@ Phases (any failure exits non-zero and prints no result line):
    clusters at 16 x 256, ``cluster_kernel`` for the tall tiles), each with
    ReLU on and off and f32 dyadic, f32
    and bf16 weights; seamless's MLP up at 171 tiles of 24 columns, timed
-   at 128 x 24 and at phase 10's 32 x 24; the band kernel's cases
+   at 128 x 24 and at phase 10's 32 x 24, each held to the band kernel
+   (``SPLIT_KERNEL``), and ``split_warp_cases``: column tiles of 24, 40,
+   48 and 56 at ``block_m`` 32, 16, 64 and 128 (row and column tiles of
+   alternating sign, column tile 1 of plane bound 0 and a last block of
+   one column tile, row budgets at the engine's admission shape, three
+   parts), each on the band kernel; the band kernel's cases
    (``band_cases``: the engine's and the hybrid's admission shapes with
    vote tiles of alternating sign, dyadic and bf16-held normal weights,
    row budgets, an N tile of plane bound 0, a tile of 44 real rows in 128,
@@ -359,7 +367,7 @@ Phases (any failure exits non-zero and prints no result line):
    fake world of 2 ranks, fake CPU tensors, in a subprocess), gate: its
    peak within 5% of rank 0's measured peak over that run's steps.  (b),
    (d) and (e) need no card: they start side by side as phase 11 starts
-   and run beside it on the host's cores.
+   and run beside it on the host's cores; phase 12 reads them last.
 
 Phases 5, 6 and 8 also count the W splits (``dslot_split_parts``, once
 per DSLOT layer while the layers are prepared), hold one split each in
@@ -535,6 +543,7 @@ def phase2_cases() -> list[Case]:
         *band_cases(),
         *launcher_tile_cases(),
         *launcher_band_cases(),
+        *split_warp_cases(),
     ]
 
 
@@ -686,13 +695,47 @@ def launcher_band_cases() -> list[Case]:
     return out
 
 
+# The column tiles of 24, 40, 48 and 56 on the band kernel (block_n,
+# block_m): a block holds the whole column tiles that fit in 128 columns,
+# and each 8-column half of a warp votes for its own column tile.  Their
+# ``band_cases``: row and column tiles of alternating sign, column tile 1
+# of plane bound 0 and one column tile past 8 blocks (a partial last
+# block) on dyadic weights; bf16-held normal weights with row budgets at
+# the engine's admission shape; f32 normal weights (three parts) at 6
+# planes.  The two timed seamless MLP up rows at 24 columns
+# (``repaired_tile_cases``) take the same kernel.
+SPLIT_WARP_TILES = ((24, 32), (40, 16), (48, 64), (56, 128))
+SPLIT_KERNEL = {"mlp bm=128 bn=24 ": "band_kernel",
+                "mlp bm=32 bn=24 ": "band_kernel",
+                "split-warp ": "band_kernel"}
+
+
+def split_warp_cases() -> list[Case]:
+    out = []
+    for bn, bm in SPLIT_WARP_TILES:
+        geo = dict(M=128, K=2048, relu=True, signed=True, prepared=True,
+                   mixed=True, col_mixed=True, block_m=bm, block_n=bn,
+                   block_k=None)
+        partial = bn * (8 * (128 // bn) + 1)
+        label = f"split-warp bm={bm} bn={bn}"
+        out += [Case(f"{label} mixed dyadic n8 bound0 partial", N=partial,
+                     weights="dyadic", zero_tile=1, **geo),
+                Case(f"{label} mixed bf16-held normal rows",
+                     N=8192 // bn * bn, weights="normal", bf16_held=True,
+                     precision="rows", **geo),
+                Case(f"{label} mixed f32 normal n6 (3 parts)", N=partial,
+                     weights="normal", precision=6, **geo)]
+    return out
+
+
 def walked_route(case: Case, q, w, bk: int) -> str | None:
-    """The kernel a walked or launcher tile's ReLU case took
-    (``dm.route``), held against ``WALKED_KERNEL`` and ``LAUNCHER_KERNEL``;
-    None for the other cases."""
+    """The kernel a walked, launcher or split-warp tile's ReLU case took
+    (``dm.route``), held against ``WALKED_KERNEL``, ``LAUNCHER_KERNEL`` and
+    ``SPLIT_KERNEL``; None for the other cases."""
     from repro_torch.kernels import dslot_matmul as dm
 
-    want = [k for label, k in {**WALKED_KERNEL, **LAUNCHER_KERNEL}.items()
+    want = [k for label, k in {**WALKED_KERNEL, **LAUNCHER_KERNEL,
+                               **SPLIT_KERNEL}.items()
             if case.name.startswith(label)]
     if not want or not case.relu:
         return None
@@ -1246,6 +1289,9 @@ def serving_rows(card, dev) -> None:
         b = dm.DslotMatmulOut(*dm._replay(*args))
         torch.cuda.synchronize()
         compare(label, a, b, False, q, args[1], kw)
+        log(f"  {label}: planes_used mean "
+            f"{float(a.planes_used.float().mean()):.4f} over "
+            f"{a.planes_used.numel()} tiles")
         time_call(f"{label} ({rows}, {K}) @ ({K}, {N}), block_m {bm}"
                   + ("" if bn == 128 else f", block_n {bn}"), q,
                   args[1], kw, (rows, K, N), lambda a=args: dm._launch(*a),
@@ -4904,174 +4950,182 @@ def main() -> int:
         f"{dm.dslot_matmul_cuda.launches - n0} (the model has no DSLOT "
         f"layer; training launches no hand-written kernel)")
     lap("phase 9")
-    nvcc_thread.join()
-    if "error" in built:
-        raise built["error"]
-    log(f"build: dslot_matmul.cu in {built['s']:.1f} s (beside phase 9)")
-    for line in _build.build_log("dslot_matmul").splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
-
-    lap("phase 1 (the build's wait after phase 9)")
-    # -------------------------------------------------- 2. kernel vs plain
-    log("phase 2: kernel vs plain version")
-    max_err, shape_times = phase2(card, dev)
-
-    lap("phase 2")
-    # -------------------------------------------------- 3. main path
-    log("phase 3: MNIST CNN main path, B = 1024")
-    images_np, _ = synth_mnist(103, seed=0)
-    calib_np, _ = synth_mnist(26, seed=1)
-    images = torch.as_tensor(images_np[:1024]).to(dev)
-    calib = torch.as_tensor(calib_np[:256]).to(dev)
-
-    dm.dslot_matmul_cuda.launches = 0
-    params = mnist_cnn.init_cnn(CONFIG, torch.Generator().manual_seed(0))
-    prep = mnist_cnn.prepare_cnn(params, CONFIG)
-    prep = mnist_cnn.calibrate_cnn(prep, calib, CONFIG)
-    after_calibrate = dm.dslot_matmul_cuda.launches
-    ref = mnist_cnn.forward(params, images, CONFIG)
-    agreement = {}
-    for npl in (8, 6, 4, 2):
-        n0 = dm.dslot_matmul_cuda.launches
-        res = mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=npl)
-        torch.cuda.synchronize()
-        launched = dm.dslot_matmul_cuda.launches - n0
-        if launched != 2:
-            raise AssertionError(f"forward_dslot launched the kernel "
-                                 f"{launched} times, expected 2")
-        if res.logits.shape != (1024, CONFIG.n_classes) or not bool(
-                torch.isfinite(res.logits).all()):
-            raise AssertionError("logits must be finite, shape (1024, 10)")
-        agreement[npl] = float((res.logits.argmax(-1)
-                                == ref.argmax(-1)).float().mean())
-        st = res.layer_stats
-        log(f"  n_planes {npl}: argmax agreement {agreement[npl]:.4f}; "
-            + "; ".join(f"{k} planes_used mean "
-                        f"{float(v.planes_used.float().mean()):.3f} "
-                        f"skipped_frac {float(v.skipped_frac):.4f}"
-                        for k, v in st.items()))
-    main_launches = dm.dslot_matmul_cuda.launches
-    log(f"  kernel launches on the main path: {main_launches} "
-        f"(calibrate {after_calibrate}, then 2 per forward_dslot)")
-    if agreement[8] < 0.95:
-        raise AssertionError(f"argmax agreement {agreement[8]} < 0.95")
-
-    # the same prepared state on the CPU: kernel vs plain on 16 images
-    small = images[:16]
-    on_card = mnist_cnn.forward_dslot(prep, small, CONFIG, n_planes=8)
-    on_cpu = mnist_cnn.forward_dslot(cpu_copy(prep), small.cpu(), CONFIG,
-                                     n_planes=8)
-    logit_err = float((on_card.logits.cpu() - on_cpu.logits).abs().max())
-    if not torch.allclose(on_card.logits.cpu(), on_cpu.logits, rtol=1e-4,
-                          atol=1e-4):
-        raise AssertionError(f"16-image logits: card vs CPU err {logit_err}")
-    for name, st in on_card.layer_stats.items():
-        if not torch.equal(st.planes_used.cpu(),
-                           on_cpu.layer_stats[name].planes_used):
-            raise AssertionError(f"16-image {name} planes_used differ")
-    log(f"  16 images, card vs CPU plain version: logits max err "
-        f"{logit_err:.3g}, planes_used equal")
-    max_err = max(max_err, logit_err)
-
-    lap("phase 3")
-    # -------------------------------------------------- 4. times
-    log(f"phase 4: times [{card}]")
-    with Captured(dm) as cap:
-        mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=8)
-    calls = [args for args, _ in cap.calls]
-    del cap
-    if len(calls) != 2:
-        raise AssertionError(f"forward_dslot made {len(calls)} kernel calls, "
-                             f"expected 2 (conv, head)")
-    main_times = []
-    side = CONFIG.image_size - CONFIG.kernel_size + 1   # valid conv
-    layers = (("forward conv launch", prep.conv_params["dslot"],
-               images.shape[0] * side * side),
-              ("forward head launch", prep.head_params["dslot"],
-               images.shape[0]))
-    for (label, dw, rows), args in zip(layers, calls):
-        q, w = args[0], args[1]
-        kw = kernel_kw(args)
-        dims = (rows, dw.d_in, dw.d_out)
-        a = dm.DslotMatmulOut(*dm._launch(*args))
-        b = dm.DslotMatmulOut(*dm._replay(*args))
-        torch.cuda.synchronize()
-        max_err = max(max_err, compare(label, a, b, False, q, w, kw))
-        main_times.append(time_call(
-            label, q, w, kw, dims, lambda a=args: dm._launch(*a),
-            lambda a=args: dm._replay(*a), card))
-    def fwd():
-        return mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=8)
-
-    fwd_all = sorted(cuda_ms(fwd) for _ in range(7))
-    fwd_ms = fwd_all[len(fwd_all) // 2]
-    log(f"  forward_dslot B=1024 n_planes=8: median {fwd_ms:.4f} ms, min "
-        f"{fwd_all[0]:.4f}, max {fwd_all[-1]:.4f} over 7 repeats of 10 "
-        f"calls; host issue {host_us(fwd, reps=20):.1f} us per call [{card}]")
-    prof = forward_profile(fwd)
-    if prof is None:
-        log("  forward_dslot device time: not measured (the profiler trace "
-            "holds no device time)")
-    else:
-        dev_ms, rows = prof
-        log(f"  forward_dslot device time (torch.profiler, 5 calls): "
-            f"{dev_ms:.4f} ms per call, idle share "
-            f"{1 - dev_ms / fwd_ms:.3f} of the median; kernels:")
-        for ms, count, key in rows[:12]:
-            log(f"    {ms:.4f} ms x{count} {key[:90]}")
-    for shape, t in shape_times.items():
-        log(f"  shape {shape}: kernel {t['ms']:.4f} ms vs bound "
-            f"{t['bound_ms']:.4g} ms")
-    log(f"  the serving rows [{card}]")
-    serving_rows(card, dev)
-
-    lap("phase 4")
-    # -------------------------------------------------- 5. LM serving path
-    log(f"phase 5: LM serving path, {LM_ARCH} through generate")
-    lm_launches, lm_err, lm_times, lm_counted = phase5(card, dev)
-    max_err = max(max_err, lm_err)
-    main_times += lm_times
-
-    lap("phase 5")
-    # -------------------------------------------------- 6. serving engine
-    log(f"phase 6: the slot-pool ServeEngine, {ENGINE_ARCH} with ReLU MLPs")
-    eng_launches, eng_err, eng_times = phase6(card, dev)
-    max_err = max(max_err, eng_err)
-    main_times += eng_times
-
-    lap("phase 6")
-    # -------------------------------------------------- 7. paper experiment
-    log("phase 7: the paper's experiment, the MNIST CNN trained on the card")
-    mn_launches, mn_err, mn_times = phase7(card, dev)
-    max_err = max(max_err, mn_err)
-    main_times += mn_times
-
-    lap("phase 7")
-    # -------------------------------------------------- 8. the model zoo
-    log(f"phase 8: the rest of the model zoo at full width [{card}]")
-    hy_launches, hy_err, hy_times = phase8(card, dev)
-    max_err = max(max_err, hy_err)
-    main_times += hy_times
-
-    lap("phase 8")
-    # -------------------------------------------------- 10. parallel serving
-    log(f"phase 10: tensor- and expert-parallel serving over {TP_RANKS} "
-        f"ranks [{card}]")
-    tp_launches, tp_err, tp_times = phase10(card, dev)
-    max_err = max(max_err, tp_err)
-    main_times += tp_times
-
-    lap("phase 10")
     # -------------------------------------------------- 11. sharded training
-    log(f"phase 11: sharded training over {SH_RANKS} ranks [{card}] (phase "
-        f"12's three dry runs start beside it, on the host's cores)")
-    t0 = time.perf_counter()
+    # next, while nvcc may still build: it launches no hand-written kernel;
+    # its ranks share the card, so phase 9's cached blocks are released
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 11: sharded training over {SH_RANKS} ranks [{card}] (while "
+        f"nvcc builds the kernel; phase 12's three dry runs start beside it, "
+        f"on the host's cores)")
     procs = phase12_start()
     try:
         sharded_peaks = phase11(card, dev, trained["tps"])
-        log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+        lap("phase 11")
+        nvcc_thread.join()
+        if "error" in built:
+            raise built["error"]
+        log(f"build: dslot_matmul.cu in {built['s']:.1f} s (beside phases 9 "
+            f"and 11)")
+        for line in _build.build_log("dslot_matmul").splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
 
+        lap("phase 1 (the build's wait after phase 11)")
+        # ---------------------------------------------- 2. kernel vs plain
+        log("phase 2: kernel vs plain version")
+        max_err, shape_times = phase2(card, dev)
+
+        lap("phase 2")
+        # ---------------------------------------------- 3. main path
+        log("phase 3: MNIST CNN main path, B = 1024")
+        images_np, _ = synth_mnist(103, seed=0)
+        calib_np, _ = synth_mnist(26, seed=1)
+        images = torch.as_tensor(images_np[:1024]).to(dev)
+        calib = torch.as_tensor(calib_np[:256]).to(dev)
+
+        dm.dslot_matmul_cuda.launches = 0
+        params = mnist_cnn.init_cnn(CONFIG, torch.Generator().manual_seed(0))
+        prep = mnist_cnn.prepare_cnn(params, CONFIG)
+        prep = mnist_cnn.calibrate_cnn(prep, calib, CONFIG)
+        after_calibrate = dm.dslot_matmul_cuda.launches
+        ref = mnist_cnn.forward(params, images, CONFIG)
+        agreement = {}
+        for npl in (8, 6, 4, 2):
+            n0 = dm.dslot_matmul_cuda.launches
+            res = mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=npl)
+            torch.cuda.synchronize()
+            launched = dm.dslot_matmul_cuda.launches - n0
+            if launched != 2:
+                raise AssertionError(f"forward_dslot launched the kernel "
+                                     f"{launched} times, expected 2")
+            if res.logits.shape != (1024, CONFIG.n_classes) or not bool(
+                    torch.isfinite(res.logits).all()):
+                raise AssertionError("logits must be finite, shape (1024, 10)")
+            agreement[npl] = float((res.logits.argmax(-1)
+                                    == ref.argmax(-1)).float().mean())
+            st = res.layer_stats
+            log(f"  n_planes {npl}: argmax agreement {agreement[npl]:.4f}; "
+                + "; ".join(f"{k} planes_used mean "
+                            f"{float(v.planes_used.float().mean()):.3f} "
+                            f"skipped_frac {float(v.skipped_frac):.4f}"
+                            for k, v in st.items()))
+        main_launches = dm.dslot_matmul_cuda.launches
+        log(f"  kernel launches on the main path: {main_launches} "
+            f"(calibrate {after_calibrate}, then 2 per forward_dslot)")
+        if agreement[8] < 0.95:
+            raise AssertionError(f"argmax agreement {agreement[8]} < 0.95")
+
+        # the same prepared state on the CPU: kernel vs plain on 16 images
+        small = images[:16]
+        on_card = mnist_cnn.forward_dslot(prep, small, CONFIG, n_planes=8)
+        on_cpu = mnist_cnn.forward_dslot(cpu_copy(prep), small.cpu(), CONFIG,
+                                         n_planes=8)
+        logit_err = float((on_card.logits.cpu() - on_cpu.logits).abs().max())
+        if not torch.allclose(on_card.logits.cpu(), on_cpu.logits, rtol=1e-4,
+                              atol=1e-4):
+            raise AssertionError(f"16-image logits: card vs CPU err "
+                                 f"{logit_err}")
+        for name, st in on_card.layer_stats.items():
+            if not torch.equal(st.planes_used.cpu(),
+                               on_cpu.layer_stats[name].planes_used):
+                raise AssertionError(f"16-image {name} planes_used differ")
+        log(f"  16 images, card vs CPU plain version: logits max err "
+            f"{logit_err:.3g}, planes_used equal")
+        max_err = max(max_err, logit_err)
+
+        lap("phase 3")
+        # ---------------------------------------------- 4. times
+        log(f"phase 4: times [{card}]")
+        with Captured(dm) as cap:
+            mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=8)
+        calls = [args for args, _ in cap.calls]
+        del cap
+        if len(calls) != 2:
+            raise AssertionError(f"forward_dslot made {len(calls)} kernel "
+                                 f"calls, expected 2 (conv, head)")
+        main_times = []
+        side = CONFIG.image_size - CONFIG.kernel_size + 1   # valid conv
+        layers = (("forward conv launch", prep.conv_params["dslot"],
+                   images.shape[0] * side * side),
+                  ("forward head launch", prep.head_params["dslot"],
+                   images.shape[0]))
+        for (label, dw, rows), args in zip(layers, calls):
+            q, w = args[0], args[1]
+            kw = kernel_kw(args)
+            dims = (rows, dw.d_in, dw.d_out)
+            a = dm.DslotMatmulOut(*dm._launch(*args))
+            b = dm.DslotMatmulOut(*dm._replay(*args))
+            torch.cuda.synchronize()
+            max_err = max(max_err, compare(label, a, b, False, q, w, kw))
+            main_times.append(time_call(
+                label, q, w, kw, dims, lambda a=args: dm._launch(*a),
+                lambda a=args: dm._replay(*a), card))
+        def fwd():
+            return mnist_cnn.forward_dslot(prep, images, CONFIG, n_planes=8)
+
+        fwd_all = sorted(cuda_ms(fwd) for _ in range(7))
+        fwd_ms = fwd_all[len(fwd_all) // 2]
+        log(f"  forward_dslot B=1024 n_planes=8: median {fwd_ms:.4f} ms, min "
+            f"{fwd_all[0]:.4f}, max {fwd_all[-1]:.4f} over 7 repeats of 10 "
+            f"calls; host issue {host_us(fwd, reps=20):.1f} us per call "
+            f"[{card}]")
+        prof = forward_profile(fwd)
+        if prof is None:
+            log("  forward_dslot device time: not measured (the profiler "
+                "trace holds no device time)")
+        else:
+            dev_ms, rows = prof
+            log(f"  forward_dslot device time (torch.profiler, 5 calls): "
+                f"{dev_ms:.4f} ms per call, idle share "
+                f"{1 - dev_ms / fwd_ms:.3f} of the median; kernels:")
+            for ms, count, key in rows[:12]:
+                log(f"    {ms:.4f} ms x{count} {key[:90]}")
+        for shape, t in shape_times.items():
+            log(f"  shape {shape}: kernel {t['ms']:.4f} ms vs bound "
+                f"{t['bound_ms']:.4g} ms")
+        log(f"  the serving rows [{card}]")
+        serving_rows(card, dev)
+
+        lap("phase 4")
+        # ---------------------------------------------- 5. LM serving path
+        log(f"phase 5: LM serving path, {LM_ARCH} through generate")
+        lm_launches, lm_err, lm_times, lm_counted = phase5(card, dev)
+        max_err = max(max_err, lm_err)
+        main_times += lm_times
+
+        lap("phase 5")
+        # ---------------------------------------------- 6. serving engine
+        log(f"phase 6: the slot-pool ServeEngine, {ENGINE_ARCH} with ReLU "
+            f"MLPs")
+        eng_launches, eng_err, eng_times = phase6(card, dev)
+        max_err = max(max_err, eng_err)
+        main_times += eng_times
+
+        lap("phase 6")
+        # ---------------------------------------------- 7. paper experiment
+        log("phase 7: the paper's experiment, the MNIST CNN trained on the "
+            "card")
+        mn_launches, mn_err, mn_times = phase7(card, dev)
+        max_err = max(max_err, mn_err)
+        main_times += mn_times
+
+        lap("phase 7")
+        # ---------------------------------------------- 8. the model zoo
+        log(f"phase 8: the rest of the model zoo at full width [{card}]")
+        hy_launches, hy_err, hy_times = phase8(card, dev)
+        max_err = max(max_err, hy_err)
+        main_times += hy_times
+
+        lap("phase 8")
+        # ---------------------------------------------- 10. parallel serving
+        log(f"phase 10: tensor- and expert-parallel serving over {TP_RANKS} "
+            f"ranks [{card}]")
+        tp_launches, tp_err, tp_times = phase10(card, dev)
+        max_err = max(max_err, tp_err)
+        main_times += tp_times
+
+        lap("phase 10")
         # ---------------------------------------------- 12. launch tools
         log(f"phase 12: the op counter, the dry run and the roofline "
             f"[{card}]")

@@ -161,6 +161,19 @@
 //    it (a tile that died mid-sub-chunk adds sums that no output keeps).  N
 //    need only be a multiple of block_n (a rank's share of a split layer):
 //    TMA fills the columns past N with zeros, and nothing past N is kept.
+//    Column tiles of 24, 40, 48 or 56 (seamless's MLP up at 24 columns,
+//    which phase 10 shards) with chunks of whole sub-chunks take it as
+//    well.  On B they lost 30-44x to torch.matmul on an H100: warp tiles
+//    of 8 columns, one block a tile (10944 at 32 x 24), W re-streamed for
+//    every row tile, plane and part (12.9 GB from L2 at 32 x 24).  Here a
+//    block of two warpgroups holds the whole column tiles that fit in 128
+//    columns (120 at 24 and 40, 96 at 48, 112 at 56; the rest of the last
+//    warpgroup's products are dropped).  A warp's 16 columns may span two
+//    column tiles, but each of its 8-column halves (a thread's columns ca
+//    and ca + 8) lies in one: a thread votes for the two tiles apart, a
+//    warp ANDs both at once, and lane 0 writes a byte per half; the block
+//    barrier that frees a ring stage after each sub-chunk is the tile's
+//    join, its OR telling the block whether any vote tile lives on.
 //
 // E. Cluster (the other tiles that no warp tiling of B takes: more than 16
 //    warps of B's tilings, e.g. 1024 x 136 or 16 x 256 with 16-bit q, or a
@@ -1695,6 +1708,23 @@ __device__ __forceinline__ int cols_limit(const int* bnd, long long n0, int N,
   return min(min(D, npl), lim);
 }
 
+// The 8 bits of x, one in the low bit of each of 8 nibbles.
+__device__ __forceinline__ unsigned nibbles(unsigned x) {
+  unsigned s = 0u;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) s |= ((x >> v) & 1u) << (4 * v);
+  return s;
+}
+
+// COLS 3: the AND of the vote bytes of a column tile's n 8-column groups
+// from g0 on; group g's byte is byte g % 2 of its warp's word g / 2.
+__device__ __forceinline__ unsigned tile_and(const unsigned* vs, int g0,
+                                             int n) {
+  unsigned all = 0xffu;
+  for (int g = g0; g < g0 + n; ++g) all &= vs[g >> 1] >> ((g & 1) * 8);
+  return all & 0xffu;
+}
+
 // Shared memory (1024-byte aligned): two digit tiles [NB][128 B] | ns ring
 // stages, each the W boxes [part][warpgroup][64 K rows][64 columns] bf16
 // (TMA, 128-byte swizzle) and the q box [NB][64] int8 | ns mbarriers | row
@@ -1708,7 +1738,11 @@ __device__ __forceinline__ int cols_limit(const int* bnd, long long n0, int N,
 // COLS 0: a vote tile spans its N tile's BN columns.  COLS 1 and 2, the
 // narrow tiles (block_n bn = N / Nt of 16, 32 or 64; never over a cluster):
 // a block of BN columns holds BN / bn column tiles, and a warp's 16
-// columns lie in one.  A vote tile (a row tile by a column tile) is voted
+// columns lie in one.  COLS 3 (bn 24, 40, 48 or 56, chunks of whole
+// sub-chunks, two warpgroups): a block holds the BN / bn whole column tiles
+// of its bw columns, a thread's columns ca and cb may lie in two, and each
+// vote tile is joined from the bytes its 8-column groups write, after the
+// per-sub-chunk barrier.  A vote tile (a row tile by a column tile) is voted
 // by the warps of its column tile: one warp, or 2 or 4 of a warpgroup
 // joined through a shared word and the warpgroup's named barrier.  Each
 // column tile runs to its own plane bound, the block to the largest; a
@@ -1749,7 +1783,9 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
   const long long r0 = static_cast<long long>(blockIdx.y) * geo.band;
   const int N = geo.N;
   const int K = geo.K;
-  const long long n0 = static_cast<long long>(nt) * BN;
+  // COLS 3: the block's bw columns, the whole column tiles its BN hold
+  const int bw = COLS == 3 ? BN / (N / geo.Nt) * (N / geo.Nt) : BN;
+  const long long n0 = static_cast<long long>(nt) * bw;
   const int ca = (half * NWG + wg) * 64 + wq * 16 + (lane >> 2);
   const int cb = ca + 8;
   const int rows = static_cast<int>(
@@ -1757,12 +1793,16 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
   const int tiles = rows >> geo.lbm;
   const int npl = *npl_ptr;
   // COLS: the width of a column tile, whether this thread's lies inside N,
-  // and its plane bound (0 past N)
+  // and its plane bound (0 past N); COLS 3 the same for column cb's tile
   const int bn = COLS ? N / geo.Nt : BN;
-  const bool real = !COLS || n0 + ca < N;
+  const bool real =
+      COLS == 3 ? ca < bw && n0 + ca < N : !COLS || n0 + ca < N;
+  const bool real_b = COLS == 3 ? cb < bw && n0 + cb < N : real;
   const int lim_t =
       COLS && real ? min(min(geo.D, npl), bnd[(n0 + ca) / bn]) : 0;
-  const int limit = COLS ? cols_limit(bnd, n0, N, bn, BN, geo.D, npl)
+  const int lim_b =
+      COLS == 3 && real_b ? min(min(geo.D, npl), bnd[(n0 + cb) / bn]) : 0;
+  const int limit = COLS ? cols_limit(bnd, n0, N, bn, bw, geo.D, npl)
                          : min(min(geo.D, npl), bnd[nt]);
   const float tail = pow2(geo.n_bits - npl);
   const int T = K / BAND_KC;       // sub-chunks of a plane
@@ -1815,12 +1855,18 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
   if constexpr (COLS != 0) {
     if (lim_t == 0) alive = 0u;
   }
+  if constexpr (COLS == 3) {  // bits 8-15: the row tiles of cb's column tile
+    if (lim_b != 0) alive |= ((1u << tiles) - 1u) << 8;
+  }
   unsigned died = 0u;
   int planes[BAND_TILES];
 #pragma unroll
   for (int v = 0; v < BAND_TILES; ++v) planes[v] = 0;
+  // COLS 3: the planes of the row tiles of ca's and cb's column tiles, a
+  // nibble each (at most 8)
+  unsigned planes_a = 0u, planes_b = 0u;
   const float tot_a = real ? tot[n0 + ca] : 0.0f;
-  const float tot_b = real ? tot[n0 + cb] : 0.0f;
+  const float tot_b = real_b ? tot[n0 + cb] : 0.0f;
   float sf_a = 0.0f, sf_b = 0.0f;
   int waited = -1;  // the last item every thread has waited for
   int votes = 0;
@@ -1928,7 +1974,32 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
     alive &= ~all;
     if (alive == 0u) break;
   }
-  } else {  // COLS 1 and 2
+  } else {  // COLS 1, 2 and 3
+    // COLS 3: ok_bits for columns ca (bits 0-7) and cb (bits 8-15) apart
+    auto ok_halves = [&](float s_a, float s_b, int dv) -> unsigned {
+      const float scale = pow2(geo.n_bits - 1 - dv);
+      const float rem_a = __fadd_rn(__fmul_rn(scale, s_a),
+                                    __fmul_rn(scale - tail, tot_a));
+      const float rem_b = __fadd_rn(__fmul_rn(scale, s_b),
+                                    __fmul_rn(scale - tail, tot_b));
+      unsigned bad_a = 0u, bad_b = 0u;
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j) {
+        const int v = (8 * j) >> geo.lbm;
+        const int ok_a =
+            static_cast<int>(__fadd_rn(acc[4 * j], rem_a) < 0.0f) &
+            static_cast<int>(__fadd_rn(acc[4 * j + 1], rem_a) < 0.0f);
+        const int ok_b =
+            static_cast<int>(__fadd_rn(acc[4 * j + 2], rem_b) < 0.0f) &
+            static_cast<int>(__fadd_rn(acc[4 * j + 3], rem_b) < 0.0f);
+        bad_a |= static_cast<unsigned>(ok_a ^ 1) << v;
+        bad_b |= static_cast<unsigned>(ok_b ^ 1) << v;
+      }
+      // rows past the NB computed: the wrapper's pad rows, whose sums are 0
+      if (NB < rows && !(rem_a < 0.0f)) bad_a |= ~0u << (NB >> geo.lbm);
+      if (NB < rows && !(rem_b < 0.0f)) bad_b |= ~0u << (NB >> geo.lbm);
+      return (~bad_a & 0xffu) | ((~bad_b & 0xffu) << 8);
+    };
     // This thread's part of the vote on the chunk that ends here (suffix
     // sums s_a, s_b at plane dv): a bit per row tile whose elements here
     // all have acc + R < 0.
@@ -1976,7 +2047,13 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
     // bound
     auto add = [&](float (&s)[NR]) {
       reg_fence<NR>(s);
-      if (alive != 0u) {
+      if constexpr (COLS == 3) {  // each column while its tile lives
+        const bool on_a = (alive & 0xffu) != 0u;
+        const bool on_b = (alive >> 8) != 0u;
+#pragma unroll
+        for (int e = 0; e < NR; ++e)
+          if ((e & 2) ? on_b : on_a) acc[e] = __fadd_rn(acc[e], s[e]);
+      } else if (alive != 0u) {
 #pragma unroll
         for (int e = 0; e < NR; ++e) acc[e] = __fadd_rn(acc[e], s[e]);
       }
@@ -1989,11 +2066,21 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
     int st_i = 0, ph_i = 0, d = 0, r = 0, sc = 0, c = 0;
     for (int i = 0; i < total; ++i) {
       if (r == 0) {  // the band enters plane d
+        if constexpr (COLS == 3) {
+          planes_a += nibbles(alive & 0xffu);
+          planes_b += nibbles(alive >> 8);
+        } else {
 #pragma unroll
-        for (int v = 0; v < BAND_TILES; ++v) planes[v] += (alive >> v) & 1u;
+          for (int v = 0; v < BAND_TILES; ++v) planes[v] += (alive >> v) & 1u;
+        }
         c = 0;
       }
-      if (real) {  // in flight while the products run
+      if constexpr (COLS == 3) {
+        if (sc == 0) {  // in flight while the chunk computes
+          if (real) sa[0] = sfx[static_cast<long long>(c) * N + n0 + ca];
+          if (real_b) sb[0] = sfx[static_cast<long long>(c) * N + n0 + cb];
+        }
+      } else if (real) {  // in flight while the products run
         if constexpr (COLS == 2) {
           const int cps = BAND_KC / geo.bk;  // chunks of the sub-chunk
 #pragma unroll
@@ -2033,8 +2120,10 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
           fence_proxy_async();
         }
       };
+      unsigned mine = 0u;  // COLS 3: this thread's vote bits, if a chunk ends
+      bool voted = false;
       wgmma_fence();
-      if constexpr (COLS == 1) {
+      if constexpr (COLS == 1 || COLS == 3) {
         if (geo.parts == 1) {
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
@@ -2053,7 +2142,14 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
         if (++sc == S) {  // the vote at the end of a logical chunk
           sc = 0;
           ++c;
-          settle(join(ok_bits(sa[0], sb[0], d)));
+          if constexpr (COLS == 3) {  // each 8-column group's AND, a byte
+            mine = ok_halves(sa[0], sb[0], d);
+            const unsigned w = __reduce_and_sync(0xffffffffu, mine);
+            if (lane == 0) vote_s[(votes & 1) * 8 + warp] = w;
+            voted = true;
+          } else {
+            settle(join(ok_bits(sa[0], sb[0], d)));
+          }
         }
       } else {
         // a chunk ends after every kv k steps: each thread's bits for it
@@ -2091,10 +2187,32 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
         for (int g = 0; g < 4; ++g)
           if (g < BAND_KC / geo.bk) settle((all >> (8 * g)) & 0xffu);
       }
-      if (r_n == 0 && d_n >= lim_t) alive = 0u;  // past the tile's bound
-      // stage st_i and digit tile i are free, digits i+1 are in; the band
-      // stops once none of its tiles is alive
-      if (!__syncthreads_or(alive != 0u)) break;
+      if constexpr (COLS == 3) {
+        // A vote tile dies when every thread of its column tile's groups
+        // votes it dead, so it lives on past this sub-chunk iff one thread
+        // of it keeps its bit: the barrier that frees stage st_i tells the
+        // block whether any does, and its groups' bytes are in after it.
+        unsigned keep = ~0u;  // past a tile's bound, after the settle
+        if (r_n == 0 && d_n >= lim_t) keep &= ~0xffu;
+        if (r_n == 0 && d_n >= lim_b) keep &= ~0xff00u;
+        const bool go = __syncthreads_or((alive & keep & ~mine) != 0u);
+        if (voted) {
+          const unsigned* vs = vote_s + (votes & 1) * 8;
+          const int gs = bn >> 3;  // 8-column groups of a column tile
+          unsigned all = 0u;
+          if (real) all = tile_and(vs, ca / bn * gs, gs);
+          if (real_b) all |= tile_and(vs, cb / bn * gs, gs) << 8;
+          settle(all);
+          ++votes;
+        }
+        alive &= keep;
+        if (!go) break;
+      } else {
+        if (r_n == 0 && d_n >= lim_t) alive = 0u;  // past the tile's bound
+        // stage st_i and digit tile i are free, digits i+1 are in; the band
+        // stops once none of its tiles is alive
+        if (!__syncthreads_or(alive != 0u)) break;
+      }
       if (fetched < total) fetch();
       st_i = st_n, ph_i = ph_n, r = r_n, d = d_n;
     }
@@ -2104,6 +2222,19 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
     for (int j = waited + 1; j < fetched; ++j)
       mbar_wait(full + j % ns, (j / ns) & 1);
 
+  if constexpr (COLS == 3) {  // ca's tile's bits 0-7, cb's bits 8-15
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 8 * j + 2 * t4 + (e & 1);
+        if (n < rows && ((e >> 1) ? real_b : real)) {
+          const int v = (n >> geo.lbm) + (e >> 1) * 8;
+          out[(r0 + n) * N + n0 + ((e >> 1) ? cb : ca)] =
+              (died >> v) & 1u ? 0.0f : fmaxf(acc[4 * j + e], 0.0f);
+        }
+      }
+  } else {
 #pragma unroll
   for (int j = 0; j < NB / 8; ++j)
 #pragma unroll
@@ -2115,17 +2246,37 @@ __global__ void __launch_bounds__(NWG * 128, 1) band_kernel(
             (died >> v) & 1u ? 0.0f : fmaxf(acc[4 * j + e], 0.0f);
       }
     }
+  }
   // rows past the NB computed: zeros
   for (int e = tid; e < (rows - NB) * NWG * 64; e += THREADS) {
     const int n = NB + e / (NWG * 64);
-    if constexpr (COLS != 0) {
+    if constexpr (COLS == 3) {
+      const int col = e % (NWG * 64);
+      if (col < bw && n0 + col < N) out[(r0 + n) * N + n0 + col] = 0.0f;
+    } else if constexpr (COLS != 0) {
       const long long col = n0 + e % (NWG * 64);
       if (col < N) out[(r0 + n) * N + col] = 0.0f;
     } else {
       out[(r0 + n) * N + n0 + half * NWG * 64 + e % (NWG * 64)] = 0.0f;
     }
   }
-  if constexpr (COLS != 0) {  // the first lane of each column tile
+  if constexpr (COLS == 3) {  // lane 0 of the group a column tile starts
+    if (lane == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = h ? cb : ca;
+        const unsigned pl = h ? planes_b : planes_a;
+        if ((h ? real_b : real) && col % bn == 0) {
+          const long long ct = (n0 + col) / bn;
+#pragma unroll
+          for (int v = 0; v < BAND_TILES; ++v)
+            if (v < tiles)
+              used[((r0 >> geo.lbm) + v) * geo.Nt + ct] =
+                  static_cast<int>((pl >> (4 * v)) & 15u);
+        }
+      }
+    }
+  } else if constexpr (COLS != 0) {  // the first lane of each column tile
     if (lane == 0 && real && (wq * 16) % bn == 0) {
       const long long ct = (n0 + ca) / bn;
 #pragma unroll
@@ -2599,7 +2750,11 @@ long long align16(long long x) { return (x + 15) / 16 * 16; }
 // registers).  A tile that none of these covers (128 x 24: 24 warps at
 // (1, 1), and 24 columns rule out (2, 2) and (4, 4)) takes 8-column warp
 // tiles of 2, 8 or 16 row fragments, the fewest that keep at most 16 warps,
-// its physical rows rounded up to the warps' rows; it streams.  A tile that
+// its physical rows rounded up to the warps' rows; it streams (the ReLU
+// tiles of 8-bit signed q at 24 to 56 columns, block_m up to 128 and chunks
+// of whole sub-chunks take the band kernel instead, launch_band's COLS 3;
+// these tilings keep unsigned or wider q, block_k 16 or 32, block_m past
+// 128 and the tiles without ReLU past 24 bits).  A tile that
 // needs more than 16 warps even at 16 row fragments (ceil(bm / 256) *
 // ceil(bn / 8) > 16, e.g. 1024 x 136) goes to launch_walk: mi = ni = 0.
 // A tile of 8 columns whose q rows and W parts fit in
@@ -2945,9 +3100,10 @@ long long parts_bytes(int K, int N, int bn, int PN, int wtype) {
 // The band kernel takes ReLU tiles of 8-bit signed q, 128 or 256 columns,
 // block_m 16 to 128 and logical chunks of whole 64-row sub-chunks (the
 // serving shapes, and the wide tiles a DslotConfig of block_n 256 gives);
-// and the narrow tiles of the port's launchers: 16, 32 or 64 columns,
+// the narrow tiles of the port's launchers: 16, 32 or 64 columns,
 // block_m 16 to 128 and chunks of whole sub-chunks, or block_m 16 to 64,
-// chunks of 16 or 32 rows and K a multiple of 64.  q must suit TMA
+// chunks of 16 or 32 rows and K a multiple of 64; and 24, 40, 48 or 56
+// columns, block_m 16 to 128 and chunks of whole sub-chunks.  q must suit TMA
 // (16-byte aligned, K a multiple of 16 bytes).  What it takes depends on
 // the tile and K alone, never on N, so a layer split over ranks by N tiles
 // takes the same path on every rank.
@@ -2958,9 +3114,12 @@ int band_lbm(int bm) {
 // The band kernel's vote for a tile (its COLS): 0 over a whole N tile of
 // 128 or 256 columns, 1 per column tile of 16, 32 or 64 at the end of
 // chunks of whole sub-chunks, 2 the same inside a sub-chunk (chunks of 16
-// or 32 rows); -1 for a tile it does not take.
+// or 32 rows), 3 per column tile of 24, 40, 48 or 56 (chunks of whole
+// sub-chunks); -1 for a tile it does not take.
 int band_cols(int bn, int bk) {
   if (bn == 128 || bn == 256) return bk % BAND_KC == 0 ? 0 : -1;
+  if (bn == 24 || bn == 40 || bn == 48 || bn == 56)
+    return bk % BAND_KC == 0 ? 3 : -1;
   if (bn != 16 && bn != 32 && bn != 64) return -1;
   return bk % BAND_KC == 0 ? 1 : bk == 16 || bk == 32 ? 2 : -1;
 }
@@ -3082,9 +3241,11 @@ cudaError_t launch_band_nb(const CUtensorMap& tm_w, const CUtensorMap& tm_q,
   cudaError_t err = smem_attributes(kernel, done);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  // narrow tiles: blocks of 64 * NWG columns, the last one partly past N
-  cfg.gridDim = dim3(COLS ? (geo.N + 64 * NWG - 1) / (64 * NWG)
-                          : geo.Nt * (CLUSTER ? 2 : 1),
+  // narrow tiles: blocks of 64 * NWG columns (COLS 3: of the whole column
+  // tiles they hold, bw), the last one partly past N
+  const int bn = geo.N / geo.Nt;
+  const int bw = COLS == 3 ? 64 * NWG / bn * bn : 64 * NWG;
+  cfg.gridDim = dim3(COLS ? (geo.N + bw - 1) / bw : geo.Nt * (CLUSTER ? 2 : 1),
                      bands);
   cfg.blockDim = dim3(NWG * 128);
   cfg.dynamicSmemBytes = geo.smem;
@@ -3132,6 +3293,7 @@ int launch_band(const void* q, const void* w, int wtype, const void* sfx,
   const int bands = (M + band - 1) / band;
   int nb = band_nb(M, m_real, band);
   if (cols == 2 && nb == 32) nb = 64;  // COLS 2 builds bands of 16 and 64
+  if (cols == 3 && nb < 64) nb = 64;   // COLS 3 bands of 64 and 128
   // a decode band (16 rows) whose tiles leave SMs idle: each N tile's
   // columns split over a 2-block cluster, one warpgroup a block (the same
   // sums, element for element), where the clusters fit on the SMs at once.
@@ -3173,6 +3335,11 @@ int launch_band(const void* q, const void* w, int wtype, const void* sfx,
   if (cols == 2) {
     if (nb == 16) DSLOT_BAND(16, 1, false, 2)
     if (nb == 64) DSLOT_BAND(64, 2, false, 2)
+    return cudaErrorInvalidValue;
+  }
+  if (cols == 3) {
+    if (nb == 64) DSLOT_BAND(64, 2, false, 3)
+    if (nb == 128) DSLOT_BAND(128, 2, false, 3)
     return cudaErrorInvalidValue;
   }
   if (split) DSLOT_BAND(16, 1, true, 0)

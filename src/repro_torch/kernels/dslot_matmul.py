@@ -25,12 +25,15 @@ Two executions of that one definition live here:
   runs the (d, c) loop inside a thread block, the digit planes on the
   tensor cores (bf16, f32 weights as three bf16 parts) and a vote for the
   early exit: at the serving shapes (8-bit signed q, ``block_n`` 128, or
-  256 over a 2-block cluster) and the launchers' narrow tiles (``block_n``
-  16, 32 or 64, ``block_k`` 16, 32 or whole 64-row sub-chunks) one block
-  per band of up to 128 rows and 128 columns, its vote tiles (a row tile
-  by a column tile) voting each on its own, on ``wgmma``; elsewhere one
-  block per output tile on ``mma.sync``, or, for a tile too large for one
-  block (1024 x 136, ``block_m`` 2048 at 8 columns), one thread-block
+  256 over a 2-block cluster), the launchers' narrow tiles (``block_n``
+  16, 32 or 64, ``block_k`` 16, 32 or whole 64-row sub-chunks) and
+  ``block_n`` 24, 40, 48 or 56 (whole sub-chunks; a block holds the whole
+  column tiles that fit in 128 columns, and each 8-column half of a warp
+  votes for its own) one block per band of up to 128 rows and 128
+  columns, its vote tiles (a row tile by a column tile) voting each on
+  its own, on ``wgmma``; elsewhere one block per output tile on
+  ``mma.sync``, or, for a tile too large for one block (1024 x 136,
+  ``block_m`` 2048 at 8 columns), one thread-block
   cluster of up to 16 blocks whose votes join through distributed shared
   memory.  ``dslot_matmul_cuda`` launches it for CUDA tensors; ``route``
   names the kernel a launch takes.

@@ -864,9 +864,10 @@ def test_narrow_tiles_three_parts(cuda, M, K, bm, bn, bk):
     assert torch.equal(a.planes_used, b.planes_used)
 
 
-# The launchers' tiles at the engine's admission shape take the band kernel;
-# the tiles that took another kernel before keep it (8-bit unsigned q, 16-bit
-# q, block_n 8 and 24, block_k 8, block_m 128 at block_k 16).
+# The launchers' tiles at the engine's admission shape take the band kernel,
+# 32 x 24 too (its 8-column halves vote apart); the tiles that took another
+# kernel before keep it (8-bit unsigned q, 16-bit q, block_n 8, block_k 8,
+# block_m 128 at block_k 16).
 ROUTES = [(32, 32, 2048, torch.int8, 8, "band_kernel"),
           (16, 16, 2048, torch.int8, 8, "band_kernel"),
           (16, 32, 16, torch.int8, 8, "band_kernel"),
@@ -875,7 +876,7 @@ ROUTES = [(32, 32, 2048, torch.int8, 8, "band_kernel"),
           (32, 32, 2048, torch.uint8, 8, "plane_kernel"),
           (32, 32, 2048, torch.int16, 12, "plane_kernel"),
           (16, 8, 2048, torch.int8, 8, "plane_kernel"),
-          (32, 24, 2048, torch.int8, 8, "plane_kernel"),
+          (32, 24, 2048, torch.int8, 8, "band_kernel"),
           (16, 32, 8, torch.int8, 8, "plane_kernel"),
           (128, 32, 16, torch.int8, 8, "plane_kernel")]
 
@@ -908,6 +909,149 @@ def test_sharded_narrow_tiles_on_card_equal_unsharded(cuda):
             sort_columns=True, block_m=16, block_n=16, block_k=bk,
             signed=True)))
     assert dm.route(64, 128, 144, 16, 16, 128, 8, True, torch.int8,
+                    torch.float32) == "band_kernel"
+    flags = run_world(torch_parallel_ranks.card_execute, 2, backend="gloo",
+                      device="cuda:0", timeout=120, deadline=300,
+                      args=(cases,))
+    for rank_flags in flags:
+        for case_flags in rank_flags:
+            assert all(case_flags.values()), case_flags
+
+
+# ------------------------------------------------------------ split-warp tiles
+
+# Column tiles of 24, 40, 48 and 56 on the band kernel: (M, K, block_m,
+# block_n, block_k).  A block holds the whole column tiles that fit in 128
+# columns (120 at 24 and 40, 96 at 48, 112 at 56), so the two 8-column
+# halves of a warp may vote for two tiles.  32 x 24 and 128 x 24 in one
+# band; 16 x 40; 64 x 48 at block_k 128 over two bands; a 32-row band at
+# 56 and a 16-row band at 24 (both computed as 64 rows); 32 x 56 at
+# block_k 64 over 16 bands of 64 rows at N = 896 (8 blocks); 128 x 24 over
+# 8 bands.
+SPLIT_TILES = [(128, 256, 32, 24, None), (128, 256, 128, 24, None),
+               (128, 256, 16, 40, None), (256, 256, 64, 48, 128),
+               (32, 256, 16, 56, None), (16, 256, 16, 24, None),
+               (1024, 256, 32, 56, 64), (1024, 256, 128, 24, None)]
+
+
+def _split_n(bn, extra):
+    """8 blocks of whole column tiles, and with ``extra`` one tile more: a
+    last block that holds one column tile."""
+    return bn * (8 * (128 // bn) + extra)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("M,K,bm,bn,bk", SPLIT_TILES)
+def test_split_warp_tiles_match_plain_exactly(cuda, M, K, bm, bn, bk,
+                                              extra):
+    """Each split-warp tile on the band kernel (``dm.route``), on dyadic
+    weights with column tiles of alternating sign, plane bounds 0 and 5
+    among 8 and with and without row budgets: output and planes_used equal
+    to the plain version's bit for bit, with W split in the launch and with
+    prepared parts, and two launches give the same bits."""
+    N = _split_n(bn, extra)
+    q, w, bound, bud = _narrow_case(cuda, M, K, N, bm, bn)
+    assert dm.route(M, K, N, bm, bn, bk or K, 8, True, q.dtype,
+                    w.dtype) == "band_kernel"
+    parts = dm.split_parts(w, bn, 1)
+    for kw in ({}, {"row_budget": bud, "n_planes_rt": bud.max()}):
+        args = dict(relu=True, block_m=bm, block_n=bn, block_k=bk,
+                    plane_bound=bound, **kw)
+        a = dm.dslot_matmul_cuda(q, w, **args)
+        a2 = dm.dslot_matmul_cuda(q, w, parts=parts, **args)
+        b = dm.dslot_matmul_plain(q, w, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(a.planes_used, b.planes_used), kw
+        assert torch.equal(a.out, b.out), kw
+        assert torch.equal(a2.out, a.out)
+        assert torch.equal(a2.planes_used, a.planes_used)
+    assert len(set(b.planes_used[0].tolist())) >= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,bm,bn,bk", SPLIT_TILES[:5])
+def test_split_warp_tiles_three_parts(cuda, M, K, bm, bn, bk):
+    """f32 weights of magnitudes 2^-20 to 1 (three bf16 parts) at the
+    split-warp tiles with a partial last block: within rtol 1e-5 plus 1e-5
+    * max|out| of the plain version (f32 sums in another order), the same
+    planes_used."""
+    rng = np.random.default_rng(18)
+    N = _split_n(bn, 1)
+    q = torch.as_tensor(rng.integers(-127, 128, (M, K)),
+                        dtype=torch.int8).to(cuda)
+    w = rng.choice([-1.0, 1.0], (K, N)) * np.exp2(rng.uniform(-20, 0,
+                                                             (K, N)))
+    w = torch.as_tensor(w, dtype=torch.float32).to(cuda)
+    assert dm.part_count(w) == 3
+    args = dict(relu=True, block_m=bm, block_n=bn, block_k=bk)
+    a = dm.dslot_matmul_cuda(q, w, parts=dm.split_parts(w, bn, 3), **args)
+    b = dm.dslot_matmul_plain(q, w, **args)
+    tol = 1e-5 * b.out.abs() + 1e-5 * b.out.abs().max()
+    assert bool(((a.out - b.out).abs() <= tol).all()), \
+        float((a.out - b.out).abs().max())
+    assert torch.equal(a.planes_used, b.planes_used)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [24, 56])
+def test_split_warp_tiles_pad_rows(cuda, bn):
+    """128 rows of which 44 are real (the rest the wrapper's zero pad rows):
+    the band computes 64 rows, the pad rows past them vote with zero sums,
+    and output and planes_used equal the plain version's bit for bit."""
+    N = _split_n(bn, 1)
+    q, w, bound, _ = _narrow_case(cuda, 128, 256, N, 32, bn)
+    q[44:] = 0
+    args = dict(relu=True, block_m=32, block_n=bn, plane_bound=bound)
+    a = dm.dslot_matmul_cuda(q, w, rows=44, **args)
+    b = dm.dslot_matmul_plain(q, w, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(a.planes_used, b.planes_used)
+    assert torch.equal(a.out, b.out)
+
+
+# (M, K, N, block_m, block_n, block_k, q dtype, kernel): seamless's MLP up
+# at 2048 tokens at 128 x 24 and 32 x 24, and 40, 48 and 56 columns, take
+# the band kernel; 24 columns at block_k 16, at block_m 144 or with
+# unsigned q keep plane_kernel.
+SPLIT_ROUTES = [(2048, 1024, 4104, 128, 24, 1024, torch.int8, "band_kernel"),
+                (2048, 1024, 4104, 32, 24, 1024, torch.int8, "band_kernel"),
+                (128, 2048, 8160, 16, 40, 2048, torch.int8, "band_kernel"),
+                (128, 2048, 8160, 64, 48, 2048, torch.int8, "band_kernel"),
+                (128, 2048, 8176, 32, 56, 2048, torch.int8, "band_kernel"),
+                (2048, 1024, 4104, 32, 24, 16, torch.int8, "plane_kernel"),
+                (288, 256, 48, 144, 24, 256, torch.int8, "plane_kernel"),
+                (2048, 1024, 4104, 32, 24, 1024, torch.uint8,
+                 "plane_kernel")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,bm,bn,bk,q_dtype,kernel", SPLIT_ROUTES)
+def test_split_warp_tiles_route(cuda, M, K, N, bm, bn, bk, q_dtype, kernel):
+    assert dm.route(M, K, N, bm, bn, bk, 8, True, q_dtype,
+                    torch.float32) == kernel
+
+
+@pytest.mark.gpu
+def test_sharded_split_warp_tiles_on_card_equal_unsharded(cuda):
+    """A layer at 32 x 24 split over two ranks sharing the card (11 tiles:
+    6 a rank, one of them a pad tile), ReLU with f32 and bf16 weights,
+    scalar and per-row budgets: equal to the unsharded launch bit for bit,
+    statistics included, where each rank's columns start at another place
+    in the unsharded layer's blocks of 120."""
+    _build.build("dslot_matmul")          # once, before the ranks load it
+    rng = np.random.default_rng(28)
+    cases = []
+    for wdtype, npl, sort in (("float32", 8, True), ("bfloat16", 5, False),
+                              ("float32", "rows", False)):
+        w = rng.normal(0, 0.05, (128, 264)).astype(np.float32)
+        w[:, ::3] -= 0.1                   # ReLU-dead columns terminate
+        x = rng.normal(0.2, 0.5, (64, 128)).astype(np.float32)
+        if npl == "rows":
+            npl = rng.integers(1, 9, 64).astype(np.int32)
+        cases.append(dict(w=w, wdtype=wdtype, x=x, npl=npl, kw=dict(
+            sort_columns=sort, block_m=32, block_n=24, signed=True)))
+    assert dm.route(64, 128, 144, 32, 24, 128, 8, True, torch.int8,
                     torch.float32) == "band_kernel"
     flags = run_world(torch_parallel_ranks.card_execute, 2, backend="gloo",
                       device="cuda:0", timeout=120, deadline=300,
