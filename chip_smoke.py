@@ -31,11 +31,11 @@ Phases (any failure exits non-zero and prints no result line):
    1024, ``block_n`` 1 at N = 70000 and 64 at N = 64 * 65537, past
    grid.y's 65535 tiles, 144 x 24 with physical rows past ``block_m``,
    256 x 66; ``WALKED_TILES``, each timed once: 16 x 256 at the olmo
-   engine's admission shape, 1024 x 136, (4, 4) warp tiles of 512 x 32
-   with int32 q on a 2-stage ring, ``block_m`` 2048 and 4096 at 8 and 24
-   columns; each ReLU case's kernel, from ``dm.route``, is printed and
-   must be the one ``WALKED_TILES`` names: the band kernel's 2-block
-   clusters at 16 x 256, ``cluster_kernel`` for the tall tiles), each with
+   engine's admission shape, 1024 x 136, 512 x 32 with int32 q (whose
+   (4, 4) warp tiles overflow 3 ring stages), ``block_m`` 2048 and 4096
+   at 8 and 24 columns; each ReLU case's kernel, from ``dm.route``, is
+   printed and must be the one ``WALKED_TILES`` names: the band kernel's
+   2-block clusters at 16 x 256, ``cluster_kernel`` for the others), each with
    ReLU on and off and f32 dyadic, f32
    and bf16 weights; seamless's MLP up at 171 tiles of 24 columns, timed
    at 128 x 24 and at phase 10's 32 x 24, each held to the band kernel
@@ -371,7 +371,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 Phases 5, 6 and 8 also count the W splits (``dslot_split_parts``, once
 per DSLOT layer while the layers are prepared), hold one split each in
-phases 5 and 6 against its plain version bit for bit and time it, and
+phases 5 and 6 against its plain version bit for bit, check that it
+allocates its parts alone (no cast) and, where its trace holds device
+time, launches ``split_parts_kernel`` once, and time it, and
 phases 6 and 8 check that the traced admission and decode forwards launch
 no split.  Each phase's seconds are printed.
 
@@ -623,18 +625,19 @@ REPAIRED_TILES = (
 # (1, 1) and has no (2, 2) fit: the band kernel's 2-block clusters take it;
 # 1024 x 136 needs 68 warps of 256 x 8, and its f32 sums (557 KB) fit no
 # SM: a 16-block cluster_kernel takes it; 512 x 32 with int32 q (n_bits 20)
-# overflows 3 ring stages of (4, 4) warp tiles (287 KB) and fits 2;
-# block_m 2048 and 4096 at 8 and 24 columns overflow even a 2-stage ring
-# beside their digit tile: cluster_kernel.
+# overflows 3 ring stages of (4, 4) warp tiles (287 KB): cluster_kernel,
+# 32-row slices of it over 16 blocks; block_m 2048 and 4096 at 8 and 24
+# columns overflow even a 2-stage ring beside their digit tile:
+# cluster_kernel.
 WALKED_TILES = (
     ("bm=16 bn=256 K=2048", dict(M=128, K=2048, N=8192, block_m=16,
                                  block_n=256, block_k=None), "band_kernel"),
     ("bm=1024 bn=136 K=256", dict(M=2048, K=256, N=272, block_m=1024,
                                   block_n=136, block_k=128),
      "cluster_kernel"),
-    ("bm=512 bn=32 K=256 n_bits=20 (4, 4) 2-stage ring",
+    ("bm=512 bn=32 K=256 n_bits=20",
      dict(M=1024, K=256, N=64, block_m=512, block_n=32, block_k=128,
-          n_bits=20), "plane_kernel"),
+          n_bits=20), "cluster_kernel"),
     ("bm=2048 bn=8 K=256", dict(M=4096, K=256, N=16, block_m=2048,
                                 block_n=8, block_k=128), "cluster_kernel"),
     ("bm=2048 bn=24 K=256", dict(M=4096, K=256, N=48, block_m=2048,
@@ -1030,10 +1033,14 @@ def count_splits(label, fn, expected: int):
 def hold_split(label, args, card) -> None:
     """The W split of one prepared layer (``dm.run``'s arguments ``args``:
     its padded W and the parts ``dslot_prepare`` stored), held against the
-    plain version bit for bit and timed as in phase 4: kernel (eager and
-    from a graph), plain version and ``Tensor.to(torch.bfloat16)``, which
-    computes the same function where one part of 128-column tiles is the
-    bf16 weights themselves, beside its bound: W read once and the parts
+    plain version bit for bit; one call must allocate only its parts (a
+    cast before the kernel would allocate its copy of W) and, where its
+    trace holds device time (a trace of one short kernel in this long
+    process has come back empty), launch ``split_parts_kernel`` once and
+    no other kernel; then timed as in phase 4: kernel (eager and from a
+    graph), plain version and ``Tensor.to(torch.bfloat16)``, which computes
+    the same function where one part of 128-column tiles is the bf16
+    weights themselves, beside its bound: W read once and the parts
     written once over 3.35 TB/s."""
     from repro_torch.kernels import dslot_matmul as dm
 
@@ -1045,6 +1052,25 @@ def hold_split(label, args, card) -> None:
     if not (torch.equal(got, want) and torch.equal(parts, want)):
         raise AssertionError(f"{label}: W's parts differ from the plain "
                              f"version")
+    stat = "allocation.all.allocated"
+    before = torch.cuda.memory_stats()[stat]
+    dm.split_parts(w, bn, n)
+    allocs = torch.cuda.memory_stats()[stat] - before
+    if allocs != 1:
+        raise AssertionError(f"{label}: one split allocated {allocs} "
+                             f"tensors, not its parts alone")
+    trace = traced(lambda: dm.split_parts(w, bn, n))[1]
+    if trace is None:
+        log(f"  {label}: one split allocates its parts alone; its kernels "
+            f"not measured (no device time in the trace)")
+    elif [(r[1], "split_parts_kernel" in r[2]) for r in trace[1]] \
+            != [(1, True)]:
+        raise AssertionError(f"{label}: one split launched "
+                             f"{[(r[1], r[2]) for r in trace[1]]}, not "
+                             f"split_parts_kernel alone")
+    else:
+        log(f"  {label}: one split allocates its parts alone and is one "
+            f"launch of split_parts_kernel")
     k_ms = cuda_ms(lambda: dm.split_parts(w, bn, n))
     k_graph = graph_ms(lambda: dm.split_parts(w, bn, n))
     p_ms = cuda_ms(lambda: dm.split_parts_plain(w, bn, n), reps=3, warm=1)

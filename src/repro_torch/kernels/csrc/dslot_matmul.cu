@@ -178,7 +178,11 @@
 // E. Cluster (the other tiles that no warp tiling of B takes: more than 16
 //    warps of B's tilings, e.g. 1024 x 136 or 16 x 256 with 16-bit q, or a
 //    digit tile and ring past one block's shared memory, block_m 2048 and
-//    4096 at 8 to 24 columns; cluster_kernel).  walk_kernel lost 25-230x to
+//    4096 at 8 to 24 columns, and (4, 4) warp tiles whose 3 ring stages
+//    overflow it, 448 or 512 x 32 with int32 q; cluster_kernel).  On B the
+//    512 x 32 tile lost 10.8x to torch.matmul on an H100: one block of 8
+//    warps a tile (4 blocks at (1024, 256) @ (256, 64)) through a 2-stage
+//    ring, 48 rounds of 512 x 32 digits each.  walk_kernel lost 25-230x to
 //    torch.matmul on an H100 there: one block a tile (4 blocks on 132 SMs
 //    for the tall tiles), every sub-chunk staged again for each sub-tile,
 //    the sums through `out` once a chunk, no load in flight while a product
@@ -867,30 +871,140 @@ __device__ __forceinline__ void split_w(__nv_bfloat16* dst, int p_part,
 // The bf16 parts of W for tiles that stream it, laid out [part][K][N tile]
 // [PN]: each N tile's bn columns padded with zeros to PN, so that a row of a
 // tile is 16-byte aligned and is copied with 16-byte cp.async whatever bn
-// is.  f32 weights give hi = bf16(w), mid = bf16(w - hi), lo =
-// bf16(w - hi - mid); bf16 weights give one part, themselves.
-__global__ void split_parts_kernel(const void* __restrict__ w, int wtype,
-                                   __nv_bfloat16* __restrict__ wp, int K,
-                                   int N, int bn, int PN) {
-  const int row = N / bn * PN;  // elements of one K row in the layout
-  const long long n = static_cast<long long>(K) * row;
-  for (int k = blockIdx.x; k < K; k += gridDim.x)
-    for (int r = threadIdx.x; r < row; r += blockDim.x) {
-      const int j = r / PN;
-      const int c = r - j * PN;
-      const float x = c < bn
-          ? load_w(w, wtype, static_cast<long long>(k) * N + j * bn + c)
-          : 0.0f;
-      const long long i = static_cast<long long>(k) * row + r;
-      const __nv_bfloat16 hi = __float2bfloat16_rn(x);
-      wp[i] = hi;
+// is.  n_parts 3 gives hi = bf16(w), mid = bf16(w - hi), lo =
+// bf16(w - hi - mid); n_parts 1 gives hi alone, read from W's own type (f32
+// or bf16) in the same pass.  Replaces no TPU kernel: the Pallas kernel
+// multiplies W as it is stored.  Bound on an H100: bytes (W read once, the
+// parts written once; 0.030 ms for an olmo layer's f32 W to one part).
+// The design: where PN == bn a row of the layout is a row of W, so the
+// layout is W's flat order and each thread converts 8 consecutive weights
+// (two float4 loads of f32, one uint4 of bf16, a uint4 store to each part)
+// in a grid-stride loop over a grid of a few waves; any other case
+// (bn not a multiple of 8, W or the parts not 16-byte aligned) walks the
+// layout element by element, its (k, tile, column) carried from one step to
+// the next without a division.
+constexpr int SPLIT_THREADS = 256;
+constexpr int SPLIT_BLOCKS = 32 * NUM_SMS;  // 4 waves of 8 blocks an SM
+
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// x's 8 weights split into parts at wp[i .. i + 8), + n, + 2n (i a multiple
+// of 8, n the elements of one part).
+__device__ __forceinline__ void split8(const float (&x)[8], int n_parts,
+                                       __nv_bfloat16* __restrict__ wp,
+                                       long long i, long long n) {
+  float hi[8];
+  uint32_t h[4];
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    h[e / 2] = bf16_pair(x[e], x[e + 1]);
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+        &h[e / 2]);
+    hi[e] = __low2float(v);
+    hi[e + 1] = __high2float(v);
+  }
+  *reinterpret_cast<uint4*>(wp + i) = make_uint4(h[0], h[1], h[2], h[3]);
+  if (n_parts != 3) return;
+  float r1[8], mid[8];
+  uint32_t m[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    r1[e] = __fsub_rn(x[e], hi[e]);
+    r1[e + 1] = __fsub_rn(x[e + 1], hi[e + 1]);
+    m[e / 2] = bf16_pair(r1[e], r1[e + 1]);
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+        &m[e / 2]);
+    mid[e] = __low2float(v);
+    mid[e + 1] = __high2float(v);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; e += 2)
+    l[e / 2] = bf16_pair(__fsub_rn(r1[e], mid[e]),
+                         __fsub_rn(r1[e + 1], mid[e + 1]));
+  *reinterpret_cast<uint4*>(wp + n + i) = make_uint4(m[0], m[1], m[2], m[3]);
+  *reinterpret_cast<uint4*>(wp + 2 * n + i) =
+      make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+__global__ void __launch_bounds__(SPLIT_THREADS) split_parts_kernel(
+    const void* __restrict__ w, int wtype, int n_parts,
+    __nv_bfloat16* __restrict__ wp, int K, int N, int bn, int PN, int vec) {
+  const int Nt = N / bn;
+  const long long n = static_cast<long long>(K) * Nt * PN;  // a part
+  const long long first =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (vec) {  // PN == bn: the layout is W's flat order, 8 weights a step
+    for (long long v = first; v < n / 8; v += step) {
+      float x[8];
       if (wtype == W_F32) {
-        const float r1 = x - __bfloat162float(hi);
-        const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
-        wp[n + i] = mid;
-        wp[2 * n + i] = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+        const float4 a = static_cast<const float4*>(w)[2 * v];
+        const float4 b = static_cast<const float4*>(w)[2 * v + 1];
+        x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+        x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+      } else {
+        const uint4 u = static_cast<const uint4*>(w)[v];
+        const uint32_t words[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[2 * e] = __uint_as_float(words[e] << 16);
+          x[2 * e + 1] = __uint_as_float(words[e] & 0xffff0000u);
+        }
       }
+      split8(x, n_parts, wp, 8 * v, n);
     }
+    return;
+  }
+  // element i of the layout is (k, j, c): row k, N tile j, column c; the
+  // grid's step, decomposed once, carries each from one element to the next
+  const long long row = static_cast<long long>(Nt) * PN;
+  int k = static_cast<int>(first / row);
+  int j = static_cast<int>(first % row / PN);
+  int c = static_cast<int>(first % row % PN);
+  const int sk = static_cast<int>(step / row);
+  const int sj = static_cast<int>(step % row / PN);
+  const int sc = static_cast<int>(step % row % PN);
+  for (long long i = first; i < n; i += step) {
+    const float x = c < bn
+        ? load_w(w, wtype, static_cast<long long>(k) * N +
+                               static_cast<long long>(j) * bn + c)
+        : 0.0f;
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+    wp[i] = hi;
+    if (n_parts == 3) {
+      const float r1 = __fsub_rn(x, __bfloat162float(hi));
+      const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+      wp[n + i] = mid;
+      wp[2 * n + i] =
+          __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
+    }
+    c += sc;
+    j += sj;
+    k += sk;
+    if (c >= PN) c -= PN, ++j;
+    if (j >= Nt) j -= Nt, ++k;
+  }
+}
+
+// One launch of split_parts_kernel: the vector path where PN == bn and W
+// and the parts are 16-byte aligned, else the general path.
+cudaError_t launch_split(const void* w, int wtype, int n_parts,
+                         __nv_bfloat16* wp, int K, int N, int bn, int PN,
+                         cudaStream_t s) {
+  const int vec = PN == bn &&
+                  ((reinterpret_cast<uintptr_t>(w) |
+                    reinterpret_cast<uintptr_t>(wp)) & 15) == 0;
+  const long long units =
+      static_cast<long long>(K) * (N / bn) * PN / (vec ? 8 : 1);
+  const long long want = (units + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  const int blocks = static_cast<int>(want < SPLIT_BLOCKS ? want
+                                                          : SPLIT_BLOCKS);
+  split_parts_kernel<<<blocks, SPLIT_THREADS, 0, s>>>(w, wtype, n_parts, wp,
+                                                      K, N, bn, PN, vec);
+  return cudaGetLastError();
 }
 
 struct PlaneGeom {
@@ -905,7 +1019,7 @@ struct PlaneGeom {
   int p_part;     // bf16 elements per W part
   int smem;       // dynamic shared memory, bytes
   int nstage;     // ring stages (plane_kernel's NS): NSTAGE, or 2 for a
-                  // tall or (4, 4) tile whose NSTAGE stages overflow MAX_SMEM
+                  // tall tile whose NSTAGE stages overflow MAX_SMEM
   int Nt;         // N tiles: N / bn
   int y0;         // the first N tile of this launch (grid.y holds 65535)
 };
@@ -2714,8 +2828,9 @@ int launch_plane_mn(const void* q, const void* w, int wtype, const float* sfx,
       parts != nullptr ? parts : ws);
   if (!geo.resident && parts == nullptr) {  // W's parts, built for this call
     if (ws == nullptr) return cudaErrorInvalidValue;
-    split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(
-        w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, bn, geo.PN);
+    err = launch_split(w, wtype, wtype == W_F32 ? 3 : 1,
+                       static_cast<__nv_bfloat16*>(ws), K, N, bn, geo.PN, s);
+    if (err != cudaSuccess) return err;
   }
   const int threads = (geo.PM / (16 * MI)) * geo.WN * 32;
   const int Mt = M / bm;
@@ -2764,12 +2879,15 @@ long long align16(long long x) { return (x + 15) / 16 * 16; }
 // K are staged once where they fit beside the ring, else with each
 // sub-chunk.  A staged q row is padded to 32 bytes past a multiple of 128,
 // so that the four rows a warp decodes at once fall in distinct banks.
-// Where NSTAGE ring stages of q and W sub-chunks overflow MAX_SMEM (1024 x
-// 24 at K = 1024: 250 KB; (4, 4) at 512 x 32 with int32 q: 287 KB), the
-// ring takes 2 stages.  Only the tall tilings and (4, 4) get that far: at
-// their warp limits a (1, 1) or (2, 2) tile's 3 stages of int32 q and f32
-// parts take at most 146 KB.  A tile whose digit tile and 2 stages still
-// overflow (block_m 2048 at 8 columns) goes to launch_walk.
+// Where NSTAGE ring stages of q and W sub-chunks overflow MAX_SMEM, a tall
+// tiling's ring takes 2 stages (1024 x 24 at K = 1024: 250 KB), and a tile
+// whose digit tile and 2 stages still overflow (block_m 2048 at 8 columns)
+// goes to launch_walk.  So does a (4, 4) tile whose 3 stages overflow (448
+// or 512 rows by 32 columns with int32 q past K = 64: 287 KB at 512 x 32),
+// which one block of 8 warps would walk through a 2-stage ring alone:
+// cluster_kernel spreads it over up to 16 blocks.  At their warp limits a
+// (1, 1) or (2, 2) tile's 3 stages of int32 q and f32 parts take at most
+// 146 KB.
 template <typename QT>
 int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
                    PlaneGeom& geo, int& mi, int& ni) {
@@ -2821,7 +2939,7 @@ int plane_geometry(int K, int N, int bm, int bn, int bk, int wtype,
     geo.q_once = once <= MAX_SMEM;
     geo.q_stride = static_cast<int>(geo.q_once ? once_stride : chunk_stride);
     long long bytes = geo.q_once ? once : each;
-    if (bytes > MAX_SMEM && (tall || (mi == 4 && ni == 4))) {
+    if (bytes > MAX_SMEM && tall) {
       geo.nstage = 2;  // a shallower ring
       bytes = geo.off_q + 2 * (geo.PM * chunk_stride + w_stage);
     }
@@ -3067,8 +3185,10 @@ int launch_walk(const void* q, const void* w, int wtype, const float* sfx,
       parts != nullptr ? parts : ws);
   if (parts == nullptr) {  // W's parts, built for this call
     if (ws == nullptr) return cudaErrorInvalidValue;
-    split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(
-        w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, bn, geo.PN);
+    const cudaError_t err = launch_split(
+        w, wtype, wtype == W_F32 ? 3 : 1, static_cast<__nv_bfloat16*>(ws), K,
+        N, bn, geo.PN, s);
+    if (err != cudaSuccess) return err;
   }
   bool taken = false;
   cudaError_t err = static_cast<cudaError_t>(launch_cluster<QT>(
@@ -3277,8 +3397,9 @@ int launch_band(const void* q, const void* w, int wtype, const void* sfx,
     if (ws == nullptr) return cudaErrorInvalidValue;
     np = wtype == W_F32 ? 3 : 1;
     const int pn = cols == 0 ? 128 : bn;
-    split_parts_kernel<<<min(K, 4096), 256, 0, s>>>(
-        w, wtype, static_cast<__nv_bfloat16*>(ws), K, N, pn, pn);
+    const cudaError_t err = launch_split(
+        w, wtype, np, static_cast<__nv_bfloat16*>(ws), K, N, pn, pn, s);
+    if (err != cudaSuccess) return err;
     wp = ws;
   }
   if (np != 1 && np != 3) return cudaErrorInvalidValue;
@@ -3422,7 +3543,6 @@ int launch_plane(const void* q, const void* w, int wtype, const void* sfx,
   DSLOT_PLANE(16, 1, NSTAGE, true)
   DSLOT_PLANE(8, 1, 2, true)
   DSLOT_PLANE(16, 1, 2, true)
-  DSLOT_PLANE(4, 4, 2, true)
 #undef DSLOT_PLANE
   return cudaErrorInvalidValue;
 }
@@ -3525,19 +3645,18 @@ int dslot_matmul_launch(const DslotArgs* a) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// W's bf16 parts in split_parts_kernel's layout [part][K][N / bn][PN], PN =
-// bn rounded up to 8: 3 parts of f32 weights, 1 of bf16 weights (a caller
-// whose f32 weights bf16 holds exactly passes them as bf16).  Run once per
+// W's n_parts bf16 parts in split_parts_kernel's layout [part][K][N / bn]
+// [PN], PN = bn rounded up to 8, from f32 or bf16 weights in one launch: 3
+// parts, or 1 (bf16(w), exact where bf16 holds every weight).  Run once per
 // layer, when it is prepared.
-int dslot_split_parts(const void* w, int wtype, void* out, int K, int N,
-                      int bn, void* stream) {
+int dslot_split_parts(const void* w, int wtype, int n_parts, void* out,
+                      int K, int N, int bn, void* stream) {
   if (K <= 0 || N <= 0 || bn <= 0 || N % bn != 0 || wtype < W_F32 ||
-      wtype > W_BF16)
+      wtype > W_BF16 || (n_parts != 1 && n_parts != 3))
     return static_cast<int>(cudaErrorInvalidValue);
-  split_parts_kernel<<<min(K, 4096), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      w, wtype, static_cast<__nv_bfloat16*>(out), K, N, bn, (bn + 7) / 8 * 8);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_split(
+      w, wtype, n_parts, static_cast<__nv_bfloat16*>(out), K, N, bn,
+      (bn + 7) / 8 * 8, static_cast<cudaStream_t>(stream)));
 }
 
 // The kernel a launch with these arguments takes (q 16-byte aligned, as

@@ -179,7 +179,8 @@ def split_parts_plain(w: torch.Tensor, block_n: int, n_parts: int
 
 def split_parts(w: torch.Tensor, block_n: int, n_parts: int) -> torch.Tensor:
     """W's bf16 parts in the layout the kernel streams (``split_parts_plain``
-    gives the shape): a CUDA tensor launches ``dslot_split_parts``
+    gives the shape): a CUDA tensor launches ``dslot_split_parts``, one
+    kernel that reads f32 or bf16 ``w`` as it is stored
     (``split_parts.launches`` counts the launches), a CPU tensor runs the
     plain version.  ``n_parts`` 1 asks for bf16(w), exact only where
     ``part_count(w)`` is 1."""
@@ -189,16 +190,20 @@ def split_parts(w: torch.Tensor, block_n: int, n_parts: int) -> torch.Tensor:
                          f"{n_parts} parts")
     if not w.is_cuda:
         return split_parts_plain(w, block_n, n_parts)
-    # one part: the bf16 weights themselves, whose kernel split is one part
-    src = _dense(w, torch.bfloat16 if n_parts == 1 else torch.float32)
+    # copied only where the kernel cannot read it: strided, or another type
+    src = _dense(w, w.dtype if w.dtype in _W_CODES else torch.float32)
     pn = -(-block_n // 8) * 8
     out = torch.empty((n_parts, K, N // block_n, pn), dtype=torch.bfloat16,
                       device=w.device)
     lib = _library()
-    with torch.cuda.device(w.device):
-        err = lib.dslot_split_parts(
-            src.data_ptr(), _W_CODES[src.dtype], out.data_ptr(), K, N,
-            block_n, torch.cuda.current_stream(w.device).cuda_stream)
+    dev = w.get_device()
+    args = (src.data_ptr(), _W_CODES[src.dtype], n_parts, out.data_ptr(), K,
+            N, block_n, torch.cuda.current_stream(dev).cuda_stream)
+    if dev == torch.cuda.current_device():
+        err = lib.dslot_split_parts(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.dslot_split_parts(*args)
     if err != 0:
         raise RuntimeError("dslot_split_parts kernel launch failed: "
                            + lib.dslot_error_string(err).decode())
@@ -383,7 +388,7 @@ def _library() -> ctypes.CDLL:
         lib.dslot_error_string.argtypes = [i]
         lib.dslot_error_string.restype = ctypes.c_char_p
         p = ctypes.c_void_p
-        lib.dslot_split_parts.argtypes = [p, i, p, i, i, i, p]
+        lib.dslot_split_parts.argtypes = [p, i, i, p, i, i, i, p]
         lib.dslot_split_parts.restype = i
         lib.dslot_matmul_route.argtypes = [i] * 10
         lib.dslot_matmul_route.restype = i

@@ -591,13 +591,13 @@ def _card_step_matches_single_device(cuda, shape):
             assert d[firm].max() <= 1e-3 * lr
 
 
-# Tiles that only walk_kernel takes, and (4, 4) with a 2-stage ring:
+# Tiles that only walk_kernel took, and (4, 4) with a 2-stage ring:
 # (block_m, block_n, K, M, N, n_bits).  16 x 256 needs 32 warps of (1, 1)
 # and has no (2, 2) fit (16 rows); 1024 x 136 needs 68 warps of 256 x 8
 # and its f32 sums (557 KB) fit no SM; 512 x 32 with int32 q (n_bits 20)
-# overflows 3 ring stages of (4, 4) (287 KB) and fits 2; block_m 2048 and
-# 4096 at 8 and 24 columns overflow even a 2-stage ring beside their digit
-# tile.  Row budgets of at most 8 planes keep n_bits 20's sums exact in f32.
+# overflows 3 ring stages of (4, 4) (287 KB); block_m 2048 and 4096 at 8
+# and 24 columns overflow even a 2-stage ring beside their digit tile.
+# Row budgets of at most 8 planes keep n_bits 20's sums exact in f32.
 WALKED_TILES = [(16, 256, 1024, 64, 512, 8), (1024, 136, 256, 2048, 272, 8),
                 (512, 32, 256, 1024, 64, 20), (2048, 8, 256, 4096, 16, 8),
                 (2048, 24, 256, 4096, 48, 8), (4096, 8, 256, 8192, 16, 8),
@@ -640,14 +640,18 @@ def test_walked_tiles_match_plain_exactly(cuda, block_m, block_n, K, M, N,
 # two column groups; 256 x 256 over 8 row groups by 2 column groups;
 # 2048 x 8 with unsigned q over 16 row groups; without ReLU at 26 bits
 # (past the product path) a tall tile's resident slices and a 16 x 256
-# tile's streamed ones; 4096 x 136, whose f32 sums (2.2 MB) no cluster
-# holds, on walk_kernel.
+# tile's streamed ones; 512 x 32 with int32 q, whose (4, 4) warp tiles
+# overflow 3 ring stages of one block, over 16 row groups of 32 rows, with
+# ReLU at 20 bits and without at 26; 4096 x 136, whose f32 sums (2.2 MB)
+# no cluster holds, on walk_kernel.
 CLUSTER_TILES = [(16, 256, 1024, 64, 512, 8, True, True, "band_kernel"),
                  (16, 256, 1024, 64, 512, 12, True, True, "cluster_kernel"),
                  (256, 256, 256, 512, 512, 12, True, True, "cluster_kernel"),
                  (2048, 8, 256, 4096, 16, 8, False, True, "cluster_kernel"),
                  (2048, 8, 256, 4096, 16, 26, True, False, "cluster_kernel"),
                  (16, 256, 256, 64, 512, 26, True, False, "cluster_kernel"),
+                 (512, 32, 256, 1024, 64, 20, True, True, "cluster_kernel"),
+                 (512, 32, 256, 1024, 64, 26, True, False, "cluster_kernel"),
                  (4096, 136, 128, 4096, 136, 8, True, True, "walk_kernel")]
 
 
@@ -683,6 +687,59 @@ def test_cluster_tiles_match_plain_exactly(cuda, block_m, block_n, K, M, N,
     assert torch.equal(a.planes_used, b.planes_used)
     assert torch.equal(a.out, b.out)
     assert torch.equal(a.out, a2.out)
+
+
+# The (4, 4) warp tiles of plane_kernel: block_m a multiple of 64, block_n
+# of 32, more rows times columns than (2, 2) covers in 8 warps and at most
+# what (4, 4) covers in 8.
+WIDE_TILES = [(bm, bn) for bn in range(32, 257, 32)
+              for bm in range(64, 513, 64) if 4096 < bm * bn <= 16384]
+# q types with the widest digits each holds, ReLU, and int32 past the
+# product path without it
+WIDE_Q = [(torch.uint8, 8, False, True), (torch.int8, 8, True, True),
+          (torch.uint16, 16, False, True), (torch.int16, 16, True, True),
+          (torch.int32, 20, True, True), (torch.int32, 26, True, False)]
+
+
+@pytest.mark.gpu
+def test_wide_q_tiles_take_no_two_stage_four_by_four(cuda):
+    """Every (4, 4) geometry at every q type, K 64 to 16384 and both weight
+    types launches the kernel ``dm.route`` names, once (all launches in one
+    ``torch.profiler`` trace, in stream order), and never a 2-stage ring of
+    (4, 4) warp tiles; 512 x 32 with int32 q past K = 64 takes
+    cluster_kernel."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    assert len(WIDE_TILES) == 17
+    want = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for bm, bn in WIDE_TILES:
+            for qt, n_bits, signed, relu in WIDE_Q:
+                top = 2 ** (n_bits - 1) - 1 if signed else 2 ** n_bits - 1
+                for K in (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384):
+                    for wdtype in (torch.float32, torch.bfloat16):
+                        kernel = dm.route(bm, K, bn, bm, bn, K, n_bits, relu,
+                                          qt, wdtype)
+                        if (bm, bn, qt) == (512, 32, torch.int32) and K > 64:
+                            assert kernel == "cluster_kernel", (K, n_bits)
+                        q = torch.full((bm, K), top, dtype=qt).to(cuda)
+                        w = torch.full((K, bn), -2.0 ** -6, dtype=wdtype,
+                                       device=cuda)
+                        dm.dslot_matmul_cuda(q, w, n_bits=n_bits, relu=relu,
+                                             block_m=bm, block_n=bn,
+                                             block_k=K)
+                        want.append(kernel)
+        torch.cuda.synchronize()
+    assert len(want) == 17 * 6 * 9 * 2
+    launched = sorted((e.time_range.start, e.name) for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and any(k in e.name for k in dm._ROUTES))
+    assert len(launched) == len(want)
+    two_stage = re.compile(r"plane_kernel<4, 4, [^<>]*, 2, true>")
+    for kernel, (_, name) in zip(want, launched):
+        assert kernel in name, (kernel, name)
+        assert not two_stage.search(name), name
 
 
 # ------------------------------------------------------------ band path
@@ -758,19 +815,50 @@ def test_band_kernel_mixed_vote_tiles(cuda):
                 .all())
 
 
+def _split_launches(fn):
+    """``fn()`` under ``torch.profiler``: (its result, the names of the
+    CUDA kernels it launched)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("block_n", [5, 128])
+@pytest.mark.parametrize("block_n", [5, 66, 128, 136])
 def test_split_parts_kernel_matches_plain(cuda, block_n):
+    """W's parts bit-equal to ``split_parts_plain`` from f32 weights to
+    three parts and to one, from bf16 weights to one and three, from a
+    contiguous view at an offset (4 bytes past the allocation: the general
+    path even where block_n is a multiple of 8) and from an N of one tile
+    (66 at block_n 66: rows not 16-byte aligned); each call one launch of
+    split_parts_kernel and no other kernel."""
     rng = np.random.default_rng(block_n)
     mag = np.exp2(rng.uniform(-20.0, 0.0, (64, 3 * block_n)))
     w = torch.as_tensor(np.where(rng.random(mag.shape) < 0.5, -mag, mag),
                         dtype=torch.float32)
+    flat = torch.as_tensor(rng.normal(0.0, 1.0, w.numel() + 1),
+                           dtype=torch.float32)
+    cases = [(3, w), (1, w), (1, w.to(torch.bfloat16)),
+             (3, w.to(torch.bfloat16)), (3, "view"), (1, w[:, :block_n])]
     n0 = dm.split_parts.launches
-    for n_parts, src in ((3, w), (1, w.to(torch.bfloat16).float())):
-        got = dm.split_parts(src.to(cuda), block_n, n_parts)
-        assert torch.equal(got.cpu(), dm.split_parts_plain(src, block_n,
-                                                           n_parts))
-    assert dm.split_parts.launches == n0 + 2
+    for n_parts, src in cases:
+        if isinstance(src, str):    # a view with an offset, on the card
+            base = flat.to(cuda)
+            dev = base[1:].view(w.shape)
+            src = flat[1:].view(w.shape)
+            assert dev.data_ptr() % 16 == 4 and dev.is_contiguous()
+        else:
+            dev = src.contiguous().to(cuda)
+        got, names = _split_launches(
+            lambda: dm.split_parts(dev, block_n, n_parts))
+        assert len(names) == 1 and "split_parts_kernel" in names[0], names
+        want = dm.split_parts_plain(src.contiguous(), block_n, n_parts)
+        assert torch.equal(got.cpu(), want), (n_parts, src.dtype)
+    assert dm.split_parts.launches == n0 + len(cases)
 
 
 # ------------------------------------------------------------ narrow tiles
